@@ -1,0 +1,304 @@
+"""PreTTR: Precomputing Transformer Term Representations (paper section 4),
+the port of ``repro.core.prettr`` for the fused, no-stored-K/V path.
+
+* **Index** -- :func:`precompute_docs` runs documents alone through layers
+  ``0..l`` and returns the (compressed, fp16) term reps the index stores.
+* **Query** -- :func:`encode_query` runs the query through layers ``0..l``
+  once; :func:`join_and_score` decodes the stored reps and runs layers
+  ``l..n-1`` over the split residual (query and doc segments stay separate
+  tensors; attention runs over the split K/V pair through the
+  ``join_attention`` backend op), finishing with a CLS-only final layer.
+* **Train-time forward** -- :func:`rank_forward` runs the joint input with
+  the split mask below ``l``.  It is kept for the soundness invariant
+  ``rank_forward == join_and_score(encode_query, precompute_docs)`` up to
+  storage rounding; its CLS-only layer is the same split-residual layer
+  with the K/V cut at ``max_query_len``.
+
+Not ported yet: stored layer-``l`` doc K/V (``precompute_doc_kv``,
+``PagedDocKV``), the legacy concat join, ``doc_salience`` and
+``rank_pairs_loss``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core import compression as C
+from repro_torch.device import resolve_device
+from repro_torch.models import backend as B
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+@dataclasses.dataclass(frozen=True)
+class PreTTRConfig:
+    backbone: T.TransformerConfig
+    l: int = 6                       # layers precomputed
+    max_query_len: int = 32          # [CLS] + query + [SEP], padded
+    max_doc_len: int = 224           # doc + trailing [SEP], padded
+    compress_dim: int = 0            # e; 0 disables compression
+    store_dtype: torch.dtype = torch.float16
+    cls_only_last_layer: bool = True
+
+    def __post_init__(self):
+        if self.backbone.causal:
+            raise ValueError("the PreTTR backbone is a bidirectional encoder")
+        if self.backbone.split_layers != self.l:
+            raise ValueError("backbone.split_layers must equal "
+                             "PreTTRConfig.l")
+        if not 0 <= self.l < self.backbone.n_layers:
+            raise ValueError(f"l={self.l} outside [0, "
+                             f"{self.backbone.n_layers})")
+
+
+def make_backbone(n_layers=12, d_model=768, n_heads=12, d_ff=3072,
+                  vocab_size=30522, l=6, max_len=256, n_kv_heads=None,
+                  **kw) -> T.TransformerConfig:
+    """A Vanilla-BERT-style encoder (the paper's base model family)."""
+    return T.TransformerConfig(
+        name="prettr_bert", n_layers=n_layers, d_model=d_model,
+        n_heads=n_heads, n_kv_heads=n_kv_heads or n_heads, d_ff=d_ff,
+        vocab_size=vocab_size, causal=False, learned_pos=max_len,
+        segment_vocab=2, split_layers=l, **kw)
+
+
+def init_prettr(cfg: PreTTRConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random params with the JAX ``init_prettr`` tree (per-layer list
+    instead of stacked leaves; no ``lm_head``) and scales.  Normals are
+    drawn on ``generator``'s device, then moved to ``device`` (``None``
+    means the card)."""
+    dev = resolve_device(device)
+    bb = cfg.backbone
+    pd = bb.param_dtype
+    d, dh = bb.d_model, bb.dh
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, device=generator.device)
+        return (x * scale).to(device=dev, dtype=pd)
+
+    dense = lambda i, o: normal((i, o), 1.0 / math.sqrt(i))
+    zeros = lambda n: torch.zeros((n,), device=dev, dtype=pd)
+    norm = lambda: {"scale": torch.ones((d,), device=dev, dtype=pd),
+                    "bias": zeros(d)}
+    layers = []
+    for _ in range(bb.n_layers):
+        hq, hkv = bb.n_heads * dh, bb.n_kv_heads * dh
+        layers.append({
+            "attn": {"wq": dense(d, hq), "wk": dense(d, hkv),
+                     "wv": dense(d, hkv), "wo": dense(hq, d),
+                     "bq": zeros(hq), "bk": zeros(hkv), "bv": zeros(hkv)},
+            "ln1": norm(), "ln2": norm(),
+            "mlp": {"w_in": dense(d, bb.d_ff), "b_in": zeros(bb.d_ff),
+                    "w_out": dense(bb.d_ff, d), "b_out": zeros(d)}})
+    embed = {"tokens": normal((bb.vocab_size, d), 0.02)}
+    if bb.learned_pos:
+        embed["pos"] = normal((bb.learned_pos, d), 0.02)
+    if bb.segment_vocab:
+        embed["segment"] = normal((bb.segment_vocab, d), 0.02)
+    params = {"backbone": {"embed": embed, "layers": layers,
+                           "final_norm": norm()},
+              "score_head": dense(d, 1)}
+    if cfg.compress_dim:
+        params["compressor"] = C.init_compressor(d, cfg.compress_dim,
+                                                 generator, dev, pd)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
+
+
+def _score_from_cls(params, cfg: PreTTRConfig, cls_rep):
+    """cls_rep: [B, d] -> [B] float32 ranking score."""
+    h = L.apply_norm(params["backbone"]["final_norm"], cls_rep)
+    return (h @ params["score_head"].to(h.dtype))[..., 0].float()
+
+
+def _decode_doc_store(params, cfg: PreTTRConfig, doc_store):
+    """Index bytes -> join-input doc reps [B, Ld, d] in compute dtype."""
+    bcfg = cfg.backbone
+    if cfg.compress_dim:
+        return C.decompress(params["compressor"], doc_store,
+                            compute_dtype=bcfg.compute_dtype,
+                            impl=bcfg.compress_impl)
+    return doc_store.to(bcfg.compute_dtype)
+
+
+def _positions(start: int, n: int, b: int, device):
+    return (start + torch.arange(n, device=device)).expand(b, n)
+
+
+# ---------------------------------------------------------------------------
+# Train-time joint forward
+# ---------------------------------------------------------------------------
+
+
+def rank_forward(params, cfg: PreTTRConfig, tokens, segs, valid):
+    """Joint [CLS];q;[SEP];d;[SEP] forward with the split mask in layers
+    0..l and the compressor round trip on doc tokens.  tokens/segs/valid:
+    [B, S] with S = max_query_len + max_doc_len.  Returns scores [B]."""
+    bcfg = cfg.backbone
+    b, s = tokens.shape
+    x = T.embed(params["backbone"], bcfg, tokens,
+                _positions(0, s, b, tokens.device), segs)
+    x = T.run_layer_range(params["backbone"], bcfg, x, 0, cfg.l, segs=segs,
+                          valid=valid, seg_boundary=cfg.max_query_len)
+    if cfg.compress_dim:
+        x_hat = C.roundtrip(params["compressor"], x,
+                            store_dtype=cfg.store_dtype,
+                            compute_dtype=bcfg.compute_dtype,
+                            impl=bcfg.compress_impl)
+        x = torch.where((segs == 1)[..., None], x_hat, x)
+    last = bcfg.n_layers - (1 if cfg.cls_only_last_layer else 0)
+    x = T.run_layer_range(params["backbone"], bcfg, x, cfg.l, last,
+                          segs=segs, valid=valid)
+    if cfg.cls_only_last_layer:
+        lq = cfg.max_query_len
+        cls = _cls_only_layer_split(params["backbone"]["layers"][-1], bcfg,
+                                    x[:, :lq], x[:, lq:], valid[:, :lq],
+                                    valid[:, lq:])
+    else:
+        cls = x[:, 0]
+    return _score_from_cls(params, cfg, cls)
+
+
+# ---------------------------------------------------------------------------
+# Index-time / query-time split execution
+# ---------------------------------------------------------------------------
+
+
+def precompute_docs(params, cfg: PreTTRConfig, doc_tokens, doc_valid):
+    """Index time: [N, Ld] doc tokens -> stored reps [N, Ld, e or d] in
+    ``store_dtype``.  Documents sit at positions ``max_query_len + i``,
+    their joint-forward positions."""
+    bcfg = cfg.backbone
+    n, ld = doc_tokens.shape
+    segs = torch.ones((n, ld), dtype=torch.long, device=doc_tokens.device)
+    x = T.embed(params["backbone"], bcfg, doc_tokens,
+                _positions(cfg.max_query_len, ld, n, doc_tokens.device), segs)
+    x = T.run_layer_range(params["backbone"], bcfg, x, 0, cfg.l, segs=segs,
+                          valid=doc_valid)
+    if cfg.compress_dim:
+        return C.compress(params["compressor"], x,
+                          store_dtype=cfg.store_dtype,
+                          impl=bcfg.compress_impl)
+    return x.to(cfg.store_dtype)
+
+
+def encode_query(params, cfg: PreTTRConfig, q_tokens, q_valid):
+    """Query time: [B, Lq] -> query reps [B, Lq, d] through layers 0..l."""
+    bcfg = cfg.backbone
+    b, lq = q_tokens.shape
+    segs = torch.zeros((b, lq), dtype=torch.long, device=q_tokens.device)
+    x = T.embed(params["backbone"], bcfg, q_tokens,
+                _positions(0, lq, b, q_tokens.device), segs)
+    return T.run_layer_range(params["backbone"], bcfg, x, 0, cfg.l,
+                             segs=segs, valid=q_valid)
+
+
+@dataclasses.dataclass
+class JoinState:
+    """Query-time join operands, segment-resident: the two segments stay
+    separate tensors end to end."""
+    x_q: torch.Tensor                # [B, Lq, d] query reps (compute dtype)
+    q_valid: torch.Tensor            # [B, Lq] bool
+    x_d: torch.Tensor                # [B, Ld, d] decoded doc reps
+    d_valid: torch.Tensor            # [B, Ld] bool
+
+
+def prepare_join(params, cfg: PreTTRConfig, q_reps, q_valid, doc_store,
+                 doc_valid, *, doc_kv=None, fused: bool = True) -> JoinState:
+    """Decode the index payload and build the :class:`JoinState`."""
+    if doc_kv is not None:
+        raise NotImplementedError(
+            "stored layer-l doc K/V is not ported yet: it arrives with "
+            "slice 2 (int8 reps + stored layer-K/V + doc cache)")
+    if not fused:
+        raise NotImplementedError(
+            "the legacy concat join is not ported; the fused split-KV join "
+            "is the port's query-time path")
+    bcfg = cfg.backbone
+    return JoinState(x_q=q_reps.to(bcfg.compute_dtype),
+                     q_valid=q_valid.bool(),
+                     x_d=_decode_doc_store(params, cfg, doc_store),
+                     d_valid=doc_valid.bool())
+
+
+def _join_layer_split(lp, bcfg: T.TransformerConfig, x_q, x_d, q_valid,
+                      d_valid):
+    """One join layer over the split residual (x_q, x_d).  Every
+    non-attention op is row-wise, so running it per segment equals running
+    it on the concatenation; the Q blocks are stacked so each layer issues
+    one attention call over the split K/V pair."""
+    dh = bcfg.dh
+    lq = x_q.shape[1]
+    p = lp["attn"]
+    h_q = L.apply_norm(lp["ln1"], x_q)
+    h_d = L.apply_norm(lp["ln1"], x_d)
+    kq, vq = T.project_kv(p, h_q, bcfg)
+    kd, vd = T.project_kv(p, h_d, bcfg)
+    q = torch.cat([T.project_q(p, h_q, bcfg), T.project_q(p, h_d, bcfg)],
+                  dim=1)
+    out = B.get_impl("join_attention", bcfg.attn_impl)(
+        q, kq, vq, kd, vd, cfg=bcfg, scale=1.0 / math.sqrt(dh),
+        q_valid=torch.cat([q_valid, d_valid], dim=1), kq_valid=q_valid,
+        kd_valid=d_valid)
+    wo = p["wo"].to(bcfg.compute_dtype)
+
+    def finish(x, o):
+        attn_out = o.reshape(x.shape[0], x.shape[1], bcfg.n_heads * dh) @ wo
+        return T.block_tail(lp, bcfg, x, attn_out)
+
+    return finish(x_q, out[:, :lq]), finish(x_d, out[:, lq:])
+
+
+def _cls_only_layer_split(lp, bcfg: T.TransformerConfig, x_q, x_d, q_valid,
+                          d_valid):
+    """Final CLS-only layer (paper section 6.3) over the split residual:
+    one attention row ([CLS] is row 0 of the query segment) against the
+    split K/V pair.  x_q: [B, Lq, d]; x_d: [B, Ld, d] -> cls rep [B, d]."""
+    cd = bcfg.compute_dtype
+    b = x_q.shape[0]
+    p = lp["attn"]
+    h_q = L.apply_norm(lp["ln1"], x_q)
+    h_d = L.apply_norm(lp["ln1"], x_d)
+    q = T.project_q(p, h_q[:, :1], bcfg)
+    kq, vq = T.project_kv(p, h_q, bcfg)
+    kd, vd = T.project_kv(p, h_d, bcfg)
+    out = B.get_impl("join_attention", bcfg.attn_impl)(
+        q, kq, vq, kd, vd, cfg=bcfg, scale=1.0 / math.sqrt(bcfg.dh),
+        q_valid=torch.ones((b, 1), dtype=torch.bool, device=q.device),
+        kq_valid=q_valid, kd_valid=d_valid)
+    out = out.reshape(b, 1, bcfg.n_heads * bcfg.dh) @ p["wo"].to(cd)
+    x_cls = T.block_tail(lp, bcfg, x_q[:, :1], out)
+    return x_cls[:, 0]
+
+
+def _score_join_fused(params, cfg: PreTTRConfig, st: JoinState):
+    """Layers ``l..n-1`` over the split residual, then the score."""
+    bcfg = cfg.backbone
+    layers = params["backbone"]["layers"]
+    last = bcfg.n_layers - (1 if cfg.cls_only_last_layer else 0)
+    x_q, x_d = st.x_q, st.x_d
+    for li in range(cfg.l, last):
+        x_q, x_d = _join_layer_split(layers[li], bcfg, x_q, x_d, st.q_valid,
+                                     st.d_valid)
+    if cfg.cls_only_last_layer:
+        cls = _cls_only_layer_split(layers[-1], bcfg, x_q, x_d, st.q_valid,
+                                    st.d_valid)
+    else:
+        cls = x_q[:, 0]
+    return _score_from_cls(params, cfg, cls)
+
+
+def join_and_score(params, cfg: PreTTRConfig, q_reps, q_valid, doc_store,
+                   doc_valid, *, doc_kv=None, fused: bool = True):
+    """Query-time join: q_reps [B, Lq, d] (+ valid), doc_store
+    [B, Ld, e|d] as loaded from the index -> scores [B] float32."""
+    st = prepare_join(params, cfg, q_reps, q_valid, doc_store, doc_valid,
+                      doc_kv=doc_kv, fused=fused)
+    return _score_join_fused(params, cfg, st)

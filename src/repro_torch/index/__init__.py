@@ -1,0 +1,7 @@
+"""The port's term-rep index: v2 reader, minimal builder, identity codecs
+and the manifest's msgpack."""
+from repro_torch.index.builder import BuildReport, IndexBuilder
+from repro_torch.index.store import IndexFormatError, TermRepIndex
+
+__all__ = ["BuildReport", "IndexBuilder", "IndexFormatError",
+           "TermRepIndex"]

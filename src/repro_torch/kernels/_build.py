@@ -1,0 +1,151 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``src/repro_torch/csrc/*.cu`` goes through **one** ``nvcc`` call into
+a shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so the build takes seconds).  The library lands in a
+directory under ``build/`` at the repository root named by a hash of the
+sources and flags, so the first call after a source edit rebuilds and
+later calls reuse it.  Nothing here runs at import time: the library is
+built on the first kernel launch.
+
+Every C entry takes its pointers and the CUDA stream as ``void*`` and
+returns ``cudaGetLastError()`` (or ``cudaErrorInvalidValue`` for an
+argument it does not take); :func:`check` raises when it is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_STRIDES = [LL] * 3
+#: C signatures of the library's entry points (all return int).
+SIGNATURES = {
+    # q, k, v, out, lengths, k_valid, dtype, B, Hq, Hkv, Sq, Skv, D,
+    # q/k/v/out (batch, head, seq) strides, seg_boundary, scale, stream
+    "rt_split_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I,
+                           *_STRIDES * 4, I, F, P],
+    # q, kq, vq, kd, vd, out, dlen, kq_valid, kd_valid, dtype, B, Hq, Hkv,
+    # Sq, Lq, Ld, D, q/kq/vq/kd/vd/out strides, scale, stream
+    "rt_join_attention": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                          *_STRIDES * 6, F, P],
+    "rt_join_attention_row": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                              I, *_STRIDES * 6, F, P],
+    # x, w, b, out, in_dtype, T, d, e, stream
+    "rt_compress": [P, P, P, P, I, I, I, I, P],
+    # r, w, b, gamma, beta, out, out_dtype, T, e, d, eps, stream
+    "rt_decompress": [P, P, P, P, P, P, I, I, I, I, F, P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+        "are built from source at first use")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library if its hashed build directory lacks it; returns
+    its path."""
+    out_dir = BUILD_ROOT / f"kernels-{_digest()}"
+    lib = out_dir / "librepro_torch_kernels.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".build-{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: cudaError {code}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(dtype) -> int:
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+    if dtype not in codes:
+        raise TypeError(f"kernel inputs must be float32/bfloat16/float16, "
+                        f"got {dtype}")
+    return codes[dtype]
+
+
+def output_like(q, out):
+    """The attention output buffer: ``out`` checked against q, or a new
+    contiguous one."""
+    if out is None:
+        return q.new_empty(q.shape)
+    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError(
+            f"out {tuple(out.shape)} {out.dtype} {out.device} does not match "
+            f"q {tuple(q.shape)} {q.dtype} {q.device}")
+    return out
+
+
+def bhs_strides(t) -> list[int]:
+    """(batch, head, seq) element strides of a [B, H, S, D] tensor whose
+    last dim is contiguous."""
+    if t.stride(3) != 1:
+        raise ValueError(
+            f"kernel operand must be contiguous in its last dim, got "
+            f"strides {t.stride()}")
+    return [t.stride(0), t.stride(1), t.stride(2)]

@@ -1,0 +1,97 @@
+"""Public wrappers of the compressor kernels (``csrc/fused_compress.cu``).
+
+CPU tensors take the plain versions (``ref.py``); CUDA tensors launch the
+kernel or raise.  ``fused_compress.launches`` and
+``fused_decompress.launches`` count kernel launches."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.fused_compress.ref import compress_ref, decompress_ref
+
+MAX_COLS = 1024
+
+
+def fused_compress(x, w, b, *, out_dtype=torch.float16):
+    """x: [..., d] -> [..., e] float16: GELU_tanh(x @ w + b), float32
+    inside.  ``w`` [d, e] and ``b`` [e] are used in float32."""
+    if x.device.type == "cpu":
+        return compress_ref(x, w, b, out_dtype=out_dtype)
+    if out_dtype != torch.float16:
+        raise TypeError(f"the compress kernel stores float16, not "
+                        f"{out_dtype}")
+    d, e = w.shape
+    if x.shape[-1] != d or b.shape != (e,):
+        raise ValueError(f"compress shapes do not match: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, b {tuple(b.shape)}")
+    _check_gemm(d, e)
+    xf = _rows(x, d)
+    w, b = _f32(w, x.device), _f32(b, x.device)
+    out = torch.empty((xf.shape[0], e), dtype=torch.float16, device=x.device)
+    code = _build.library().rt_compress(
+        xf.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        _build.dtype_code(xf.dtype), xf.shape[0], d, e,
+        _build.stream_ptr(x.device))
+    _build.check("compress", code)
+    fused_compress.launches += 1
+    return out.reshape(*x.shape[:-1], e)
+
+
+def fused_decompress(r, w, b, gamma, beta, *, out_dtype=torch.bfloat16,
+                     eps: float = 1e-6):
+    """r: [..., e] float16 -> [..., d] in ``out_dtype``: widen, expand,
+    add the bias and LayerNorm (gamma, beta, eps) in one pass, float32
+    inside."""
+    if r.device.type == "cpu":
+        return decompress_ref(r, w, b, gamma, beta, out_dtype=out_dtype,
+                              eps=eps)
+    if r.dtype != torch.float16:
+        raise TypeError(f"the decompress kernel reads float16 reps, not "
+                        f"{r.dtype}")
+    e, d = w.shape
+    if r.shape[-1] != e or b.shape != (d,) or gamma.shape != (d,) \
+            or beta.shape != (d,):
+        raise ValueError(f"decompress shapes do not match: r "
+                         f"{tuple(r.shape)}, w {tuple(w.shape)}")
+    _check_gemm(e, d)
+    rf = _rows(r, e)
+    w, b = _f32(w, r.device), _f32(b, r.device)
+    gamma, beta = _f32(gamma, r.device), _f32(beta, r.device)
+    out = torch.empty((rf.shape[0], d), dtype=out_dtype, device=r.device)
+    code = _build.library().rt_decompress(
+        rf.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), out.data_ptr(), _build.dtype_code(out_dtype),
+        rf.shape[0], e, d, float(eps), _build.stream_ptr(r.device))
+    _build.check("decompress", code)
+    fused_decompress.launches += 1
+    return out.reshape(*r.shape[:-1], d)
+
+
+fused_compress.launches = 0
+fused_decompress.launches = 0
+
+
+def _check_gemm(k_dim, n_cols):
+    """The kernels step the reduction 4 wide and give each of their 256
+    threads at most 4 output columns."""
+    if k_dim % 4:
+        raise ValueError(f"reduction width {k_dim} is not a multiple of 4")
+    if n_cols > MAX_COLS:
+        raise ValueError(f"{n_cols} output columns exceed the kernel's "
+                         f"{MAX_COLS}")
+
+
+def _rows(x, width):
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel input must lie on a CUDA device, got "
+                         f"{x.device}")
+    if x.numel() == 0:
+        raise ValueError("empty kernel input")
+    return x.reshape(-1, width).contiguous()
+
+
+def _f32(t, device):
+    if t.device != device:
+        raise ValueError(f"weight on {t.device}, input on {device}")
+    return t.to(torch.float32).contiguous()

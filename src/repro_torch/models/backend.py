@@ -1,0 +1,183 @@
+"""Pluggable compute backends for the hot paths, as in
+``repro.models.backend``: one string knob per ``TransformerConfig``
+(``attn_impl``, ``compress_impl``) picks the implementation of each kind.
+
+Kinds and call contracts (model layout ``[B, S, H, D]``, boolean masks):
+
+* ``attention(q, k, v, *, cfg, scale, split_flag, segs, valid,
+  seg_boundary, window=-1)`` -- q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D].
+* ``join_attention(q, kq, vq, kd, vd, *, cfg, scale, q_valid, kq_valid,
+  kd_valid, kd_scale, vd_scale, paged)`` -- attention over the union of
+  the query-segment and doc-segment K/V, never concatenated by the kernel.
+* ``compress(params, x, *, store_dtype)`` / ``decompress(params, r, *,
+  compute_dtype)`` -- the d -> e -> d bottleneck.
+
+Implementations: ``"plain"`` runs the plain PyTorch versions (the JAX
+package's "plain" backend); ``"cuda"`` runs the kernel wrappers, which
+launch the hand-written Hopper kernels on CUDA tensors (and their plain
+versions on CPU tensors).  Operands this slice does not port -- raw-int8
+doc K/V (``kd_scale``/``vd_scale``) and the paged doc segment, causal and
+window masks -- raise ``NotImplementedError`` in every impl.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels.fused_compress import fused_compress, fused_decompress
+from repro_torch.kernels.join_attention import join_flash_attention
+from repro_torch.kernels.split_attention import split_flash_attention
+from repro_torch.models import layers as L
+
+KINDS = ("attention", "join_attention", "compress", "decompress")
+
+_REGISTRY: dict[str, dict[str, Callable]] = {k: {} for k in KINDS}
+
+
+def register(kind: str, name: str):
+    def deco(fn):
+        _REGISTRY[kind][name] = fn
+        return fn
+    return deco
+
+
+def available(kind: str) -> list[str]:
+    return sorted(_REGISTRY[kind])
+
+
+def get_impl(kind: str, name: str) -> Callable:
+    if kind not in _REGISTRY:
+        raise ValueError(f"unknown backend kind {kind!r}; kinds: {KINDS}")
+    fn = _REGISTRY[kind].get(name)
+    if fn is None:
+        raise ValueError(f"unknown {kind} implementation {name!r}; "
+                         f"available: {available(kind)}")
+    return fn
+
+
+def validate_config(attn_impl: str, compress_impl: str) -> None:
+    """Raise ValueError for an impl name some kind does not know."""
+    for kind, name, knob in (("attention", attn_impl, "attn_impl"),
+                             ("join_attention", attn_impl, "attn_impl"),
+                             ("compress", compress_impl, "compress_impl"),
+                             ("decompress", compress_impl, "compress_impl")):
+        if name not in _REGISTRY[kind]:
+            raise ValueError(f"unknown {knob} {name!r} (no {kind} "
+                             f"registration); available: {available(kind)}")
+
+
+def _unported_attention(cfg, window):
+    if cfg.causal or window > 0:
+        raise NotImplementedError(
+            "causal and sliding-window attention are not ported yet: they "
+            "arrive with the LM slice of the port (split_attention's causal/"
+            "window forms)")
+
+
+def _unported_join(kd_scale, vd_scale, paged):
+    if kd_scale is not None or vd_scale is not None:
+        raise NotImplementedError(
+            "raw-int8 doc K/V (kd_scale/vd_scale) is not ported yet: it "
+            "arrives with slice 2 (int8 reps + stored layer-K/V + doc cache)")
+    if paged is not None:
+        raise NotImplementedError(
+            "the paged doc segment is not ported yet: it arrives with slice "
+            "2 (join_attention_pallas_paged + serving/doc_cache.py)")
+
+
+def _model_layout_out(q):
+    """[B, Sq, H, D] buffer and its [B, H, Sq, D] view for the kernels."""
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    return out, out.transpose(1, 2)
+
+
+# -- attention -------------------------------------------------------------
+
+
+@register("attention", "plain")
+def _attention_plain(q, k, v, *, cfg, scale, split_flag, segs, valid,
+                     seg_boundary=-1, window=-1):
+    del seg_boundary
+    _unported_attention(cfg, window)
+    # key validity and (below l) same-segment: the mask the kernel applies
+    mask = valid.bool()[:, None, None, :]
+    if split_flag:
+        mask = mask & (segs[:, :, None] == segs[:, None, :])[:, None]
+    return L.plain_attention(q, k, v, mask, scale=scale)
+
+
+@register("attention", "cuda")
+def _attention_cuda(q, k, v, *, cfg, scale, split_flag, segs, valid,
+                    seg_boundary=-1, window=-1):
+    del scale, segs                  # the kernel derives both
+    _unported_attention(cfg, window)
+    out, out_t = _model_layout_out(q)
+    split_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), None, k_valid=valid,
+                          seg_boundary=seg_boundary if split_flag else -1,
+                          out=out_t)
+    return out
+
+
+# -- join_attention ----------------------------------------------------------
+
+
+@register("join_attention", "plain")
+def _join_plain(q, kq, vq, kd, vd, *, cfg, scale, q_valid=None,
+                kq_valid=None, kd_valid=None, kd_scale=None, vd_scale=None,
+                paged=None):
+    del cfg
+    _unported_join(kd_scale, vd_scale, paged)
+    b, sq = q.shape[0], q.shape[1]
+    k = torch.cat([kq, kd], dim=1)
+    v = torch.cat([vq, vd], dim=1)
+    ones = lambda n: torch.ones((b, n), dtype=torch.bool, device=q.device)
+    k_valid = torch.cat([ones(kq.shape[1]) if kq_valid is None else kq_valid,
+                         ones(kd.shape[1]) if kd_valid is None else kd_valid],
+                        dim=1).bool()
+    mask = k_valid[:, None, None, :]
+    if sq > 1 and q_valid is not None:
+        mask = mask & q_valid.bool()[:, None, :, None]
+    return L.plain_attention(q, k, v, mask, scale=scale)
+
+
+@register("join_attention", "cuda")
+def _join_cuda(q, kq, vq, kd, vd, *, cfg, scale, q_valid=None,
+               kq_valid=None, kd_valid=None, kd_scale=None, vd_scale=None,
+               paged=None):
+    del cfg, scale, q_valid          # kernel derives scale; keys mask only
+    _unported_join(kd_scale, vd_scale, paged)
+    out, out_t = _model_layout_out(q)
+    join_flash_attention(q.transpose(1, 2), kq.transpose(1, 2),
+                         vq.transpose(1, 2), kd.transpose(1, 2),
+                         vd.transpose(1, 2), kq_valid, kd_valid, out=out_t)
+    return out
+
+
+# -- compress / decompress ---------------------------------------------------
+
+
+@register("compress", "plain")
+def _compress_plain(params, x, *, store_dtype=torch.float16):
+    from repro_torch.core.compression import compress_plain
+    return compress_plain(params, x, store_dtype=store_dtype)
+
+
+@register("compress", "cuda")
+def _compress_cuda(params, x, *, store_dtype=torch.float16):
+    return fused_compress(x, params["w_comp"], params["b_comp"],
+                          out_dtype=store_dtype)
+
+
+@register("decompress", "plain")
+def _decompress_plain(params, r, *, compute_dtype=torch.bfloat16):
+    from repro_torch.core.compression import decompress_plain
+    return decompress_plain(params, r, compute_dtype=compute_dtype)
+
+
+@register("decompress", "cuda")
+def _decompress_cuda(params, r, *, compute_dtype=torch.bfloat16):
+    return fused_decompress(r, params["w_decomp"], params["b_decomp"],
+                            params["ln"]["scale"], params["ln"]["bias"],
+                            out_dtype=compute_dtype)

@@ -1,0 +1,214 @@
+"""The port's CUDA kernels on the card: each kernel against its plain
+PyTorch version on the same inputs, the wrappers' argument checks, and
+the smoke-size service through the kernels against the plain impl.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one; this file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch::
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: rtol = atol = 2e-5 in float32 and 2e-2 in bfloat16/float16
+(tests/test_kernels.py), the kernel and its plain version summing in
+different orders."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.fused_compress import (compress_ref, decompress_ref,
+                                                fused_compress,
+                                                fused_decompress)
+from repro_torch.kernels.join_attention import (join_attention_ref,
+                                                join_flash_attention)
+from repro_torch.kernels.masking import last_valid_lengths
+from repro_torch.kernels.split_attention import (split_attention_ref,
+                                                 split_flash_attention)
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def _tol(name):
+    return dict(rtol=2e-5, atol=2e-5) if name == "float32" \
+        else dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode "
+                    "(their plain versions are held against JAX in "
+                    "tests/test_torch_kernels.py)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(gen, dev, dtype, *shape):
+    return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+
+def _close(got, want, name):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_tol(name))
+
+
+SPLIT_SHAPES = [
+    (2, 4, 2, 64, 32, -1),       # GQA, single segment
+    (2, 2, 1, 80, 32, 24),       # split, off-tile boundary, MQA
+    (1, 4, 4, 40, 16, 8),        # split, D=16 (smoke_config heads)
+    (2, 12, 12, 480, 64, -1),    # precompute_docs at full width
+    (2, 12, 12, 512, 64, 32),    # rank_forward at full width
+    (1, 12, 12, 32, 64, -1),     # encode_query at full width
+    (2, 8, 8, 48, 128, 20),      # D=128
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,s,d,boundary", SPLIT_SHAPES)
+def test_split_attention_kernel(dev, b, hq, hkv, s, d, boundary, dtype):
+    g = torch.Generator(device=dev).manual_seed(0)
+    dt = DTYPES[dtype]
+    q, k, v = (_rand(g, dev, dt, b, h, s, d) for h in (hq, hkv, hkv))
+    valid = torch.arange(s, device=dev)[None] < torch.randint(
+        s // 2, s + 1, (b, 1), device=dev, generator=g)
+    valid[:, 1] = False                       # non-prefix validity
+    valid[:, 0] = True
+    if boundary >= 0:
+        valid[:, boundary] = True
+    got = split_flash_attention(q, k, v, None, k_valid=valid,
+                                seg_boundary=boundary)
+    want = split_attention_ref(q, k, v, last_valid_lengths(valid), valid,
+                               seg_boundary=boundary)
+    _close(got, want, dtype)
+
+
+def test_split_attention_writes_strided_out(dev):
+    """The backend hands the kernel model-layout ([B, S, H, D]) views."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (_rand(g, dev, torch.float32, 2, 40, 4, 32) for _ in range(3))
+    out = torch.empty_like(q)
+    split_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), None, seg_boundary=8,
+                          out=out.transpose(1, 2))
+    want = split_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2),
+                               torch.full((2,), 40, device=dev),
+                               seg_boundary=8)
+    _close(out.transpose(1, 2), want, "float32")
+
+
+JOIN_SHAPES = [
+    (2, 4, 2, 32, 8, 24, 32),    # GQA
+    (3, 8, 4, 40, 32, 8, 16),    # long query segment, short docs
+    (2, 12, 12, 512, 32, 480, 64),  # join layers at full width
+    (4, 12, 12, 1, 32, 480, 64),    # CLS row at full width
+    (1, 4, 1, 1, 16, 48, 32),    # CLS row, MQA
+    (2, 8, 8, 1, 8, 100, 128),   # CLS row, D=128
+    (2, 4, 4, 70, 40, 66, 128),  # D=128, two query-segment tiles
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,sq,lq,ld,d", JOIN_SHAPES)
+def test_join_attention_kernel(dev, b, hq, hkv, sq, lq, ld, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(2)
+    dt = DTYPES[dtype]
+    q = _rand(g, dev, dt, b, hq, sq, d)
+    kq, vq = (_rand(g, dev, dt, b, hkv, lq, d) for _ in range(2))
+    kd, vd = (_rand(g, dev, dt, b, hkv, ld, d) for _ in range(2))
+    kqv = torch.arange(lq, device=dev)[None] < torch.randint(
+        1, lq + 1, (b, 1), device=dev, generator=g)
+    kdv = torch.arange(ld, device=dev)[None] < torch.randint(
+        1, ld + 1, (b, 1), device=dev, generator=g)
+    kdv[:, min(2, ld - 1)] = False            # non-prefix doc validity
+    kdv[:, 0] = True
+    before = (join_flash_attention.launches,
+              join_flash_attention.row_launches)
+    got = join_flash_attention(q, kq, vq, kd, vd, kqv, kdv)
+    want = join_attention_ref(q, kq, vq, kd, vd, kqv, kdv)
+    _close(got, want, dtype)
+    row = int(sq == 1)
+    assert (join_flash_attention.launches - before[0],
+            join_flash_attention.row_launches - before[1]) == (1 - row, row)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rows,d,e", [(37, 64, 16), (2 * 480, 768, 256),
+                                      (33, 1024, 8), (5, 8, 1000)])
+def test_compress_kernel(dev, rows, d, e, dtype):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = _rand(g, dev, DTYPES[dtype], rows, d)
+    w = _rand(g, dev, torch.float32, d, e) / d ** 0.5
+    b = _rand(g, dev, torch.float32, e)
+    got = fused_compress(x, w, b)
+    assert got.dtype == torch.float16 and got.shape == (rows, e)
+    _close(got, compress_ref(x, w, b), "float16")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rows,e,d", [(37, 16, 64), (2 * 480, 256, 768),
+                                      (33, 8, 1024), (5, 1000, 8)])
+def test_decompress_kernel(dev, rows, e, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(4)
+    r = _rand(g, dev, torch.float16, rows, e)
+    w = _rand(g, dev, torch.float32, e, d) / e ** 0.5
+    b, gamma, beta = (_rand(g, dev, torch.float32, d) for _ in range(3))
+    dt = DTYPES[dtype]
+    got = fused_decompress(r, w, b, gamma, beta, out_dtype=dt)
+    assert got.dtype == dt and got.shape == (rows, d)
+    _close(got, decompress_ref(r, w, b, gamma, beta, out_dtype=dt), dtype)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q = torch.zeros((1, 2, 8, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        split_flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA device"):
+        split_flash_attention(q, q.cpu(), q)
+    q = torch.zeros((2, 2, 8, 32), device=dev)
+    with pytest.raises(ValueError, match="do not match"):
+        split_flash_attention(q, q, q, k_valid=torch.ones((2, 7), dtype=bool,
+                                                          device=dev))
+    with pytest.raises(ValueError, match="do not match"):
+        join_flash_attention(q, q, q, q, q, kd_valid=torch.ones(
+            (1, 8), dtype=bool, device=dev))
+    x = torch.zeros((4, 6), device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_compress(x, torch.zeros((6, 8), device=dev),
+                       torch.zeros(8, device=dev))
+    with pytest.raises(TypeError, match="float16"):
+        fused_decompress(x, torch.zeros((6, 8), device=dev),
+                         *(torch.zeros(8, device=dev) for _ in range(3)))
+
+
+def test_smoke_service_kernels_match_plain(dev, tmp_path):
+    """IndexBuilder + RankingService at smoke_config through the kernels
+    against the plain impl, float32 on the card."""
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.core.prettr import init_prettr
+    from repro_torch.index import IndexBuilder, TermRepIndex
+    from repro_torch.serving import RankingService
+
+    rng = np.random.default_rng(5)
+    docs = [rng.integers(4, 512, rng.integers(3, 60)) for _ in range(24)]
+    q = np.zeros(8, np.int64)
+    q[:5] = [1, 17, 99, 250, 2]
+    qv = q != 0
+    scores = {}
+    for impl in ("plain", "cuda"):
+        cfg = smoke_config(attn_impl=impl, compress_impl=impl)
+        params = init_prettr(cfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+        IndexBuilder(str(tmp_path / impl), cfg, params, batch_size=8).build(
+            docs)
+        svc = RankingService(params, cfg,
+                             TermRepIndex.open(str(tmp_path / impl)),
+                             micro_batch=8)
+        resp = svc.rank(q, qv, list(range(24)))
+        scores[impl] = dict(zip(resp.doc_ids, resp.scores))
+    for doc, s in scores["plain"].items():
+        assert abs(scores["cuda"][doc] - s) < 1e-4, doc
