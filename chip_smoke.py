@@ -1,31 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's main path at the paper's full width
+Drives the port's main paths at the paper's full width
 (``repro_torch.configs.prettr_bert.full_config``: 12 layers, d=768, split
-at l=6, e=256 fp16 storage, bf16 compute) with seeded random weights:
+at l=6, e=256, bf16 compute) with seeded random weights:
 
 1. device  -- the card's name and power limit, the kernel build time;
-2. kernels -- each hand-written kernel at its main-path shape against its
-   plain PyTorch version on the same inputs, with times (CUDA events,
+2. kernels -- each hand-written kernel form at its main-path shape against
+   its plain PyTorch version on the same inputs, with times (CUDA events,
    median of 20 after warm-up) beside the plain version, one library call
-   that computes the same function, and the least time the card could take;
+   that computes the same function, and the least time the card could
+   take: split and join attention (dense float, raw int8 K/V, paged over
+   int8 and fp16 pools, the CLS row), compress and decompress (fp16 and
+   float32 storage);
 3. index   -- ``IndexBuilder`` writes a 512-document fp16 index, reopened
    with ``TermRepIndex``;
 4. serve   -- ``RankingService`` answers 8 requests x 64 candidates in
    micro-batches of 32, through the kernels and through the plain impl, in
-   bf16 and in float32;
-   then one drain of the kernel path under ``torch.profiler``: the
-   device's busy share and its kernels by time;
+   bf16 and in float32; then one drain of the kernel path under
+   ``torch.profiler``: the device's busy share and its kernels by time;
+4b. int8   -- ``index_int8``: the same documents as int8 reps with int8
+   layer-l K/V (``codec="int8", store_layer_kv=True, kv_codec="int8"``);
+   ``serve_int8_kv``: the 8 requests with ``use_layer_kv=True``, kernels
+   and plain, bf16 and float32; ``serve_cached``: 16 requests of 64
+   candidates drawn with probability 1 / rank^1.1 (a hot-document
+   stream), served twice (cold, then warm) through a 160 MB paged doc
+   cache at 64-token pages, kernels and plain, bf16 and float32; warm
+   scores must equal cold ones bit for bit, and float32 scores must agree
+   with the uncached service on the same stream within 1e-4;
 5. soundness -- ``rank_forward == join_and_score(encode_query,
    precompute_docs)`` on 4 pairs, float32 over fp16 storage.
 
 Kernel launches are counted per path: every counter is set to 0 just
-before the index build, each timed serving drain and the soundness check,
-and read just after.  A path that misses a kernel it must run, or a plain
-run that launches any, fails the script.  The ``kernels`` line's
-``launches`` is the main path's (index build plus the bf16 drain),
-``launches_by_path`` each path's own.
+before each index build, each timed serving run and the soundness check,
+and read just after.  A path that misses a kernel it must run
+(``PATH_KERNELS``), or a plain run that launches any, fails the script.
+The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
+the index builds and the bf16 kernel runs), ``launches_by_path`` gives
+each path's own.
 
 Every phase that fails raises and the script exits non-zero.  It prints
 one JSON object per line; the second to last is the ``kernels`` line, the
@@ -46,6 +58,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 N_DOCS, N_REQUESTS, N_CANDIDATES, MICRO_BATCH = 512, 8, 64, 32
 INDEX_BATCH = 64
+# the doc-cache run: 16 requests of 64 distinct candidates drawn with
+# probability 1 / rank^1.1 over the corpus, served twice (cold, warm)
+# through a cache of about 200 of the 512 documents at 64-token pages
+N_CACHED_REQUESTS, ZIPF_S, CACHE_MB, PAGE_TOKENS = 16, 1.1, 160, 64
+# stored int8 K/V in both runs, so the cached scores differ from the
+# uncached ones by summation order only
+CACHED_TOL = 1e-4
 N_SOUNDNESS = 4
 CLS, SEP = 1, 2
 # published H100 SXM peaks (NVIDIA data sheet, dense), at 700 W
@@ -117,7 +136,11 @@ def check_kernels(torch, cfg):
                                                     fused_compress,
                                                     fused_decompress)
     from repro_torch.kernels.join_attention import (join_attention_ref,
-                                                    join_flash_attention)
+                                                    join_attention_ref_paged,
+                                                    join_attention_ref_quant,
+                                                    join_flash_attention,
+                                                    join_flash_attention_paged,
+                                                    pages_to_dense)
     from repro_torch.kernels.masking import last_valid_lengths
     from repro_torch.kernels.split_attention import (split_attention_ref,
                                                      split_flash_attention)
@@ -147,17 +170,21 @@ def check_kernels(torch, cfg):
     rows = []
 
     def record(name, source, replaces, err, kernel_fn, plain_fn, library_fn,
-               flops, n_bytes, peak, peak_name):
+               flops, n_bytes, peak, peak_name, row=True):
+        """Time a kernel beside its plain version and library call; with
+        ``row`` False (a second form of a kernel already in the line) only
+        the kernel_time line is printed."""
         ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
         library_ms = time_ms(library_fn)
         bound_ms, bound_by = bound(flops, n_bytes, peak)
-        row = {"name": name, "route": "cuda", "source": source,
+        out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": library_ms}
-        emit({"phase": "kernel_time", **row, "peak": peak_name,
+        emit({"phase": "kernel_time", **out, "peak": peak_name,
               "flops": flops, "bytes": n_bytes})
-        rows.append(row)
+        if row:
+            rows.append(out)
 
     # -- split attention: encode_query, rank_forward's seg_boundary form
     #    and precompute_docs in float32 and bf16; the last, the bf16
@@ -220,6 +247,113 @@ def check_kernels(torch, cfg):
                2 * nbytes(q) + kv_needed + nbytes(kqv, kdv), PEAK_BF16_FLOPS,
                "bf16 tensor cores")
 
+    # -- the join layer l over stored int8 K/V: dense (no doc cache) and
+    #    paged out of the doc cache's pools (page 64: 480 -> 8 pages); the
+    #    K/V bytes count 1 byte a value up to each row's last valid key,
+    #    plus the float32 scales
+    sq = lq + ld
+    q = rand(b, h, sq, dh)
+    kd8, vd8 = (torch.randint(-127, 128, (b, h, ld, dh), generator=gen,
+                              device="cuda", dtype=torch.int32)
+                .to(torch.int8) for _ in range(2))
+    ks, vs = (1e-3 + 0.05 * torch.rand((b, ld), generator=gen,
+                                       device="cuda") for _ in range(2))
+    qlen, dlen = last_valid_lengths(kqv), last_valid_lengths(kdv)
+    int8_bytes = (2 * nbytes(q) + kv_bytes(qlen, h, dh, 2)
+                  + kv_bytes(dlen, h, dh, 1) + 2 * 4 * int(dlen.sum())
+                  + nbytes(kqv, kdv))
+    join_flops = 4 * dh * h * sq * n_keys
+    mask = torch.cat([kqv, kdv], 1)[:, None, None, :].expand(b, 1, sq,
+                                                             lq + ld)
+
+    def dequant_sdpa(kd_f, vd_f):
+        return F.scaled_dot_product_attention(
+            q, torch.cat([kq, kd_f.to(q.dtype)], 2),
+            torch.cat([vq, vd_f.to(q.dtype)], 2), attn_mask=mask)
+
+    f32 = [t.float() for t in (q, kq, vq)]
+    compare("join_attention_int8",
+            join_flash_attention(*f32, kd8, vd8, kqv, kdv, ks, vs),
+            join_attention_ref_quant(*f32, kd8, vd8, ks, vs, kqv, kdv),
+            "float32", [b, h, sq, dh])
+    err = compare("join_attention_int8",
+                  join_flash_attention(q, kq, vq, kd8, vd8, kqv, kdv, ks, vs),
+                  join_attention_ref_quant(q, kq, vq, kd8, vd8, ks, vs, kqv,
+                                           kdv),
+                  "bfloat16", [b, h, sq, dh])
+    record("join_attention_int8", "src/repro_torch/csrc/join_attention.cu",
+           "src/repro/kernels/join_attention/kernel.py:130", err,
+           lambda: join_flash_attention(q, kq, vq, kd8, vd8, kqv, kdv, ks,
+                                        vs),
+           lambda: join_attention_ref_quant(q, kq, vq, kd8, vd8, ks, vs, kqv,
+                                            kdv),
+           lambda: dequant_sdpa(kd8.float() * ks[:, None, :, None],
+                                vd8.float() * vs[:, None, :, None]),
+           join_flops, int8_bytes, PEAK_BF16_FLOPS, "bf16 tensor cores")
+
+    n_pages = -(-ld // PAGE_TOKENS)
+    table = (2 + torch.arange(b * n_pages, device="cuda",
+                              dtype=torch.int32)).reshape(b, n_pages)
+
+    def pool(x):
+        """[B, Hkv, Ld, ...] or [B, Ld] rows -> [P, page, ...] pool with
+        two zero pages in front, as the doc cache lays them out."""
+        if x.dim() == 4:
+            x = x.transpose(1, 2)
+        x = F.pad(x, [0, 0] * (x.dim() - 2) + [0, n_pages * PAGE_TOKENS - ld])
+        x = x.reshape(b * n_pages, PAGE_TOKENS, *x.shape[2:])
+        return torch.cat([torch.zeros_like(x[:2]), x]).contiguous()
+
+    dval = pool(kdv.to(torch.int8))
+    table_bytes = nbytes(table) + b * n_pages * PAGE_TOKENS
+    for form, kd_p, vd_p, scales in (
+            ("int8", pool(kd8), pool(vd8),
+             dict(kd_scale_pages=pool(ks)[..., None],
+                  vd_scale_pages=pool(vs)[..., None])),
+            ("float16", pool(kd8.half() * 0.01), pool(vd8.half() * 0.01),
+             {})):
+        args = (kd_p, vd_p, table, dval)
+        compare("join_attention_paged",
+                join_flash_attention_paged(*f32, *args, kqv, **scales),
+                join_attention_ref_paged(*f32, *args, kqv, **scales),
+                "float32", [b, h, sq, dh, PAGE_TOKENS, form])
+        err = compare("join_attention_paged",
+                      join_flash_attention_paged(q, kq, vq, *args, kqv,
+                                                 **scales),
+                      join_attention_ref_paged(q, kq, vq, *args, kqv,
+                                               **scales),
+                      "bfloat16", [b, h, sq, dh, PAGE_TOKENS, form])
+
+        def paged_sdpa(kd_p=kd_p, vd_p=vd_p, scales=scales):
+            kd_f, vd_f = (pages_to_dense(p, table).transpose(1, 2).float()
+                          for p in (kd_p, vd_p))
+            if scales:                        # [B, L, 1] -> [B, 1, L, 1]
+                kd_f = kd_f * pages_to_dense(scales["kd_scale_pages"],
+                                             table)[:, None]
+                vd_f = vd_f * pages_to_dense(scales["vd_scale_pages"],
+                                             table)[:, None]
+            return F.scaled_dot_product_attention(
+                q, torch.cat([kq, kd_f.to(q.dtype)], 2),
+                torch.cat([vq, vd_f.to(q.dtype)], 2),
+                attn_mask=torch.cat([kqv, pages_to_dense(dval, table)
+                                     .bool()], 1)[:, None, None, :])
+
+        elt = kd_p.element_size()
+        record("join_attention_paged" if form == "int8"
+               else "join_attention_paged_fp16",
+               "src/repro_torch/csrc/join_attention_paged.cu",
+               "src/repro/kernels/join_attention/kernel.py:195", err,
+               lambda: join_flash_attention_paged(q, kq, vq, *args, kqv,
+                                                  **scales),
+               lambda: join_attention_ref_paged(q, kq, vq, *args, kqv,
+                                                **scales),
+               paged_sdpa, join_flops,
+               2 * nbytes(q) + kv_bytes(qlen, h, dh, 2)
+               + kv_bytes(dlen, h, dh, elt)
+               + (2 * 4 * int(dlen.sum()) if scales else 0)
+               + nbytes(kqv) + table_bytes, PEAK_BF16_FLOPS,
+               "bf16 tensor cores", row=form == "int8")
+
     # -- compress (index time) and decompress (every micro-batch); their
     #    weights stay float32, so the products are float32 operations
     w_c = rand(d, e, dtype=torch.float32, scale=d ** -0.5)
@@ -262,6 +396,39 @@ def check_kernels(torch, cfg):
                                 lib[2], lib[3], eps=1e-6),
            2 * t_d * e * d + 8 * t_d * d, nbytes(r, *dargs, out),
            PEAK_F32_FLOPS, "f32 CUDA cores")
+
+    # -- their float32 forms: an int8 index compresses to float32 before
+    #    the codec quantises it, and its decoded reps are float32
+    out = fused_compress(x, w_c, b_c, out_dtype=torch.float32)
+    err = compare("compress_f32", out,
+                  compress_ref(x, w_c, b_c, out_dtype=torch.float32),
+                  "float32", [t_c, d, e])
+    record("compress_f32", "src/repro_torch/csrc/fused_compress.cu",
+           "src/repro/kernels/fused_compress/kernel.py:45", err,
+           lambda: fused_compress(x, w_c, b_c, out_dtype=torch.float32),
+           lambda: compress_ref(x, w_c, b_c, out_dtype=torch.float32),
+           lambda: F.gelu(torch.addmm(b16, x, w16),
+                          approximate="tanh").float(),
+           2 * t_c * d * e, nbytes(x, w_c, b_c, out), PEAK_F32_FLOPS,
+           "f32 CUDA cores")
+    r32 = r.float()
+    compare("decompress_f32", fused_decompress(r32, *dargs,
+                                               out_dtype=torch.float32),
+            decompress_ref(r32, *dargs, out_dtype=torch.float32), "float32",
+            [t_d, e, d])
+    out = fused_decompress(r32, *dargs)
+    err = compare("decompress_f32", out,
+                  decompress_ref(r32, *dargs, out_dtype=torch.bfloat16),
+                  "bfloat16", [t_d, e, d])
+    record("decompress_f32", "src/repro_torch/csrc/fused_compress.cu",
+           "src/repro/kernels/fused_compress/kernel.py:64", err,
+           lambda: fused_decompress(r32, *dargs),
+           lambda: decompress_ref(r32, *dargs, out_dtype=torch.bfloat16),
+           lambda: F.layer_norm(torch.addmm(dargs[1], r32, dargs[0]), (d,),
+                                dargs[2], dargs[3], eps=1e-6)
+           .to(torch.bfloat16),
+           2 * t_d * e * d + 8 * t_d * d, nbytes(r32, *dargs, out),
+           PEAK_F32_FLOPS, "f32 CUDA cores")
     return rows
 
 
@@ -293,17 +460,35 @@ def make_requests(rng, cfg):
     return reqs
 
 
+def make_zipf_requests(rng, cfg):
+    """The hot-document stream the doc cache exists for: candidates drawn
+    without replacement with probability 1 / rank^ZIPF_S."""
+    import numpy as np
+    p = 1.0 / np.arange(1, N_DOCS + 1) ** ZIPF_S
+    hot = rng.permutation(N_DOCS)            # which docs are hot
+    reqs = []
+    for q, qv, _ in make_requests(rng, cfg) + make_requests(rng, cfg):
+        ids = hot[rng.choice(N_DOCS, N_CANDIDATES, False, p=p / p.sum())]
+        reqs.append((q, qv, [int(i) for i in ids]))
+    return reqs[:N_CACHED_REQUESTS]
+
+
 def launch_counters():
     """Each kernel's launch counter, as (wrapper, attribute)."""
     from repro_torch.kernels.fused_compress import (fused_compress,
                                                     fused_decompress)
-    from repro_torch.kernels.join_attention import join_flash_attention
+    from repro_torch.kernels.join_attention import (join_flash_attention,
+                                                    join_flash_attention_paged)
     from repro_torch.kernels.split_attention import split_flash_attention
     return {"split_attention": (split_flash_attention, "launches"),
             "join_attention": (join_flash_attention, "launches"),
             "join_attention_row": (join_flash_attention, "row_launches"),
+            "join_attention_int8": (join_flash_attention, "int8_launches"),
+            "join_attention_paged": (join_flash_attention_paged, "launches"),
             "compress": (fused_compress, "launches"),
-            "decompress": (fused_decompress, "launches")}
+            "compress_f32": (fused_compress, "f32_launches"),
+            "decompress": (fused_decompress, "launches"),
+            "decompress_f32": (fused_decompress, "f32_launches")}
 
 
 def counted(fn):
@@ -317,55 +502,105 @@ def counted(fn):
 
 
 # the kernels each path must launch; a plain-impl run must launch none
+_FP16_SERVE = ("split_attention", "join_attention", "join_attention_row",
+               "decompress")
+_INT8_SERVE = ("split_attention", "join_attention", "join_attention_int8",
+               "join_attention_row", "decompress_f32")
+_CACHED_SERVE = ("split_attention", "join_attention", "join_attention_paged",
+                 "join_attention_row", "decompress_f32")
 PATH_KERNELS = {
     "index": ("split_attention", "compress"),
-    "serve": ("split_attention", "join_attention", "join_attention_row",
-              "decompress"),
-    "serve_f32": ("split_attention", "join_attention", "join_attention_row",
-                  "decompress"),
+    "serve": _FP16_SERVE, "serve_f32": _FP16_SERVE,
     "soundness": ("split_attention", "join_attention", "join_attention_row",
                   "compress", "decompress"),
+    "index_int8": ("split_attention", "compress_f32", "decompress_f32"),
+    "serve_int8_kv": _INT8_SERVE, "serve_int8_kv_f32": _INT8_SERVE,
+    "serve_int8_kv_zipf_f32": _INT8_SERVE,
+    "serve_cached": _CACHED_SERVE, "serve_cached_f32": _CACHED_SERVE,
     "plain_bf16": (), "plain_f32": (),
+    "plain_int8_kv_bf16": (), "plain_int8_kv_f32": (),
+    "plain_cached_bf16": (), "plain_cached_f32": (),
 }
+# the paths whose launches make the kernels line's `launches`: the index
+# builds and the bf16 drains of each serving form
+MAIN_PATHS = ("index", "serve", "index_int8", "serve_int8_kv",
+              "serve_cached")
 
 
-def serve(torch, params, cfg, index, requests, label, name):
-    """Serve ``requests`` after a one-request warm-up; returns the scores
-    and the launches of the timed drain alone."""
+def serve(torch, params, cfg, index, requests, label, name, passes=1,
+          **svc_kw):
+    """Serve ``requests`` ``passes`` times on one service, after a
+    one-request warm-up on another; returns each pass's scores and the
+    launches of the timed passes."""
     from repro_torch.serving import RankingService, RankRequest
-    svc = RankingService(params, cfg, index, micro_batch=MICRO_BATCH)
-    q, qv, ids = requests[0]                 # warm-up: one request
-    svc.rank(q, qv, ids[:MICRO_BATCH])
-    svc._qcache.clear()
+    warm = RankingService(params, cfg, index, micro_batch=MICRO_BATCH,
+                          use_layer_kv=svc_kw.get("use_layer_kv"))
+    q, qv, ids = requests[0]
+    warm.rank(q, qv, ids[:MICRO_BATCH])
+    del warm
+    svc = RankingService(params, cfg, index, micro_batch=MICRO_BATCH,
+                         **svc_kw)
     torch.cuda.synchronize()
-    svc.stats = type(svc.stats)()
+    walls = []
 
     def drain():
-        for i, (q, qv, ids) in enumerate(requests):
-            svc.submit(RankRequest(q, qv, ids, request_id=f"r{i}"))
-        return svc.drain()
+        out = []
+        for _ in range(passes):
+            t0 = time.perf_counter()
+            for i, (q, qv, ids) in enumerate(requests):
+                svc.submit(RankRequest(q, qv, ids, request_id=f"r{i}"))
+            out.append(svc.drain())
+            walls.append(time.perf_counter() - t0)
+        return out
 
-    t0 = time.perf_counter()
-    resp, launches = counted(drain)
-    wall = time.perf_counter() - t0
-    scores = {}
-    for r in resp:
-        assert list(r.scores) == sorted(r.scores, reverse=True), r.request_id
-        for doc, sc in zip(r.doc_ids, r.scores):
-            scores[(r.request_id, doc)] = float(sc)
-    finite = all(math.isfinite(s) for s in scores.values())
+    resps, launches = counted(drain)
+    runs = []
+    for resp in resps:
+        scores = {}
+        for r in resp:
+            assert list(r.scores) == sorted(r.scores, reverse=True), \
+                r.request_id
+            for doc, sc in zip(r.doc_ids, r.scores):
+                scores[(r.request_id, doc)] = float(sc)
+        runs.append(scores)
+    finite = all(math.isfinite(s) for sc in runs for s in sc.values())
     st = svc.stats
-    emit({"phase": "serve", "run": label, "device": name,
-          "requests": len(requests), "rows": st.n_rows,
-          "batches": st.n_batches, "wall_s": wall,
-          "qps": len(requests) / wall, "docs_per_s": st.n_rows / wall,
-          "pad_rows": st.n_pad_rows, "h2d_bytes": st.h2d_bytes,
-          "query_encode_s": st.query_encode_s, "load_s": st.load_s,
-          "combine_s": st.combine_s, "finite": finite,
-          "launches": launches})
-    if not finite or len(scores) != N_REQUESTS * N_CANDIDATES:
+    wall = sum(walls)
+    line = {"phase": "serve", "run": label, "device": name,
+            "requests": len(requests) * passes, "rows": st.n_rows,
+            "batches": st.n_batches, "wall_s": wall,
+            "qps": len(requests) * passes / wall,
+            "docs_per_s": st.n_rows / wall, "pad_rows": st.n_pad_rows,
+            "h2d_bytes": st.h2d_bytes, "query_encode_s": st.query_encode_s,
+            "load_s": st.load_s, "combine_s": st.combine_s,
+            "join_dispatch": st.n_join_dispatch,
+            "decode_dispatch": st.n_decode_dispatch, "finite": finite,
+            "launches": launches}
+    cache = svc.doc_cache
+    if cache is not None:
+        line.update(pass_wall_s=walls,
+                    pass_qps=[len(requests) / w for w in walls],
+                    doc_cache_hit=st.n_doc_cache_hit,
+                    doc_cache_miss=st.n_doc_cache_miss,
+                    doc_cache_hit_rate=st.doc_cache_hit_rate,
+                    evictions=cache.evictions,
+                    resident_docs=st.resident_docs,
+                    doc_hbm_bytes=st.doc_hbm_bytes,
+                    cache_pages=cache.capacity_pages,
+                    page_bytes=cache.page_bytes)
+    emit(line)
+    if not finite or any(len(sc) != len(requests) * N_CANDIDATES
+                         for sc in runs):
         raise AssertionError(f"serve {label}: non-finite or missing scores")
-    return scores, launches
+    if cache is not None and not (st.n_doc_cache_hit and st.n_doc_cache_miss
+                                  and cache.evictions):
+        raise AssertionError(f"serve {label}: the doc cache saw no hit, miss "
+                             f"or eviction")
+    if st.n_decode_dispatch or st.n_join_dispatch != st.n_batches:
+        raise AssertionError(f"serve {label}: {st.n_decode_dispatch} decode "
+                             f"dispatches, {st.n_join_dispatch} joins for "
+                             f"{st.n_batches} micro-batches")
+    return runs, launches, svc
 
 
 def profile_serve(torch, params, cfg, index, requests, name):
@@ -462,43 +697,47 @@ def main():
     requests = make_requests(rng, cfg)
 
     launches = {}                  # path -> kernel -> launches
-    # 3. index
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
-        report, launches["index"] = counted(
-            lambda: IndexBuilder(tmp, cfg, params, codec="fp16",
-                                 batch_size=INDEX_BATCH).build(docs))
+    plain = lambda c: dataclasses.replace(c, backbone=dataclasses.replace(
+        c.backbone, attn_impl="plain", compress_impl="plain"))
+
+    def build(tmp, label, **kw):
+        report, launches[label] = counted(
+            lambda: IndexBuilder(tmp, cfg, params, batch_size=INDEX_BATCH,
+                                 **kw).build(docs))
         index = TermRepIndex.open(tmp)
-        emit({"phase": "index", "device": name, "n_docs": len(index),
-              "n_tokens": report.n_tokens,
+        emit({"phase": label, "device": name, "n_docs": len(index),
+              "n_tokens": report.n_tokens, "codec": report.codec,
+              "streams": sorted(index.streams_spec()),
+              "bytes_per_token": index.bytes_per_token(),
               "storage_bytes": report.storage_bytes,
               "encode_s": report.encode_s, "write_s": report.write_s,
               "wall_s": report.wall_s,
               "docs_per_s": report.n_docs / report.wall_s,
-              "launches": launches["index"]})
+              "launches": launches[label]})
         if len(index) != N_DOCS or int(index.doc_lengths.sum()) \
                 != report.n_tokens:
-            raise AssertionError("reopened index does not hold the build")
+            raise AssertionError(f"{label}: reopened index does not hold "
+                                 f"the build")
+        return index
 
-        # 4. serve: kernels against the plain impl, bf16 and float32
-        plain = lambda c: dataclasses.replace(c, backbone=dataclasses.replace(
-            c.backbone, attn_impl="plain", compress_impl="plain"))
-        s_bf16, launches["serve"] = serve(torch, params, cfg, index,
-                                          requests, "cuda_bf16", name)
-        p_bf16, launches["plain_bf16"] = serve(torch, params, plain(cfg),
-                                               index, requests, "plain_bf16",
-                                               name)
-        s_f32, launches["serve_f32"] = serve(torch, params, cfg32, index,
-                                             requests, "cuda_f32", name)
-        p_f32, launches["plain_f32"] = serve(torch, params, plain(cfg32),
-                                             index, requests, "plain_f32",
-                                             name)
+    def serve_both(index, reqs, paths, labels, passes=1, **kw):
+        """The kernels and the plain impl, bf16 and float32; checks their
+        agreement and returns each run's per-pass scores by path."""
+        runs = {}
+        for path, label, c in zip(paths, labels, (cfg, plain(cfg), cfg32,
+                                                  plain(cfg32))):
+            runs[path], launches[path], _ = serve(
+                torch, params, c, index, reqs, label, name, passes=passes,
+                **kw)
+        s_bf16, p_bf16, s_f32, p_f32 = (runs[p][0] for p in paths)
         # bf16 rounds at other places in the kernels (f32 softmax and P.V)
         # than in the plain impl (probabilities cast to bf16), so the bf16
         # tolerance is twice what bf16 rounding alone moves the plain
         # impl's scores (plain bf16 against plain float32)
         bf16_noise = max_diff(p_bf16, p_f32)
         tol_bf16 = 2 * bf16_noise
-        agree = {"phase": "serve_agreement", "device": name,
+        agree = {"phase": "serve_agreement", "runs": paths[0],
+                 "device": name,
                  "f32_max_abs_diff": max_diff(s_f32, p_f32), "f32_tol": 1e-3,
                  "bf16_max_abs_diff": max_diff(s_bf16, p_bf16),
                  "bf16_tol": tol_bf16, "bf16_rounding_of_plain": bf16_noise,
@@ -506,9 +745,56 @@ def main():
         emit(agree)
         if agree["f32_max_abs_diff"] > 1e-3 or \
                 agree["bf16_max_abs_diff"] > tol_bf16:
-            raise AssertionError("served scores disagree with the plain impl")
+            raise AssertionError(f"{paths[0]}: served scores disagree with "
+                                 f"the plain impl")
+        return runs
+
+    # 3. index, fp16 streams
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
+        index = build(tmp, "index", codec="fp16")
+        # 4. serve: kernels against the plain impl, bf16 and float32
+        serve_both(index, requests, ("serve", "plain_bf16", "serve_f32",
+                                     "plain_f32"),
+                   ("cuda_bf16", "plain_bf16", "cuda_f32", "plain_f32"))
         profile_serve(torch, params, cfg, index, requests, name)
         del index
+
+    # 4b. int8 reps with int8 layer-l K/V: the index, then the service
+    #     with stored K/V and no cache, then through the paged doc cache
+    #     over a hot-document stream, cold then warm
+    zipf = make_zipf_requests(rng, cfg)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
+        index = build(tmp, "index_int8", codec="int8", store_layer_kv=True,
+                      kv_codec="int8")
+        serve_both(index, requests,
+                   ("serve_int8_kv", "plain_int8_kv_bf16",
+                    "serve_int8_kv_f32", "plain_int8_kv_f32"),
+                   ("cuda_int8_kv_bf16", "plain_int8_kv_bf16",
+                    "cuda_int8_kv_f32", "plain_int8_kv_f32"),
+                   use_layer_kv=True)
+        uncached, launches["serve_int8_kv_zipf_f32"], _ = serve(
+            torch, params, cfg32, index, zipf, "cuda_int8_kv_zipf_f32", name,
+            use_layer_kv=True)
+        paths = ("serve_cached", "plain_cached_bf16", "serve_cached_f32",
+                 "plain_cached_f32")
+        runs = serve_both(index, zipf, paths,
+                          ("cuda_cached_bf16", "plain_cached_bf16",
+                           "cuda_cached_f32", "plain_cached_f32"),
+                          passes=2, use_layer_kv=True, doc_cache_mb=CACHE_MB,
+                          page_tokens=PAGE_TOKENS)
+        del index
+    cold_warm = {p: max_diff(runs[p][0], runs[p][1]) for p in paths}
+    cached = {"phase": "serve_cached_checks", "device": name,
+              "warm_vs_cold_max_abs_diff": cold_warm,
+              "f32_vs_uncached_max_abs_diff":
+                  max_diff(runs["serve_cached_f32"][0], uncached[0]),
+              "tol": CACHED_TOL}
+    emit(cached)
+    if any(cold_warm.values()):
+        raise AssertionError("warm scores are not bit-equal to cold ones")
+    if cached["f32_vs_uncached_max_abs_diff"] > CACHED_TOL:
+        raise AssertionError("cached scores disagree with the uncached "
+                             "service")
 
     # 5. soundness: rank_forward == join_and_score(encode_query,
     #    precompute_docs), float32 compute over fp16 storage
@@ -544,11 +830,12 @@ def main():
         raise AssertionError("rank_forward != join_and_score(encode_query, "
                              "precompute_docs)")
 
-    # 6. kernels line: `launches` counts the main path (index build and the
-    #    bf16 serving drain); `launches_by_path` each counted path alone
+    # 6. kernels line: `launches` counts the main paths (the index builds
+    #    and the bf16 drains, MAIN_PATHS); `launches_by_path` each counted
+    #    path alone
     for row in rows:
         k = row["name"]
-        row["launches"] = launches["index"][k] + launches["serve"][k]
+        row["launches"] = sum(launches[p][k] for p in MAIN_PATHS)
         row["launches_by_path"] = {p: n[k] for p, n in launches.items()}
     emit({"kernels": rows})
     missing = [f"{p}: {k}" for p, kernels in PATH_KERNELS.items()

@@ -1,8 +1,9 @@
 """PreTTR re-ranking in PyTorch on an NVIDIA H100.
 
 The PyTorch/CUDA twin of the JAX package ``repro``: the split encoder, the
-d -> e -> d compressor, the fp16 term-rep index and the packed re-ranking
-service, with every kernel of that path written by hand in CUDA C++ for
+d -> e -> d compressor, the term-rep index (fp16 or int8 reps, optional
+stored layer-l K/V), the packed re-ranking service and its paged device
+doc cache, with every kernel of that path written by hand in CUDA C++ for
 ``sm_90a`` (``repro_torch/csrc``).  The package imports ``torch`` and
 ``numpy`` only.
 

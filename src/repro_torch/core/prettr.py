@@ -14,8 +14,13 @@ the port of ``repro.core.prettr`` for the fused, no-stored-K/V path.
   storage rounding; its CLS-only layer is the same split-residual layer
   with the K/V cut at ``max_query_len``.
 
-Not ported yet: stored layer-``l`` doc K/V (``precompute_doc_kv``,
-``PagedDocKV``), the legacy concat join, ``doc_salience`` and
+* **Stored layer-``l`` K/V** -- :func:`precompute_doc_kv` moves the
+  join's query-invariant doc-side K/V projections of layer ``l`` to index
+  time; ``join_and_score(..., doc_kv=...)`` takes them dense (float, or
+  raw int8 with per-token scales) or as a :class:`PagedDocKV` view of the
+  device doc cache's page pools.
+
+Not ported yet: the legacy concat join, ``doc_salience`` and
 ``rank_pairs_loss``.
 """
 from __future__ import annotations
@@ -189,6 +194,23 @@ def precompute_docs(params, cfg: PreTTRConfig, doc_tokens, doc_valid):
     return x.to(cfg.store_dtype)
 
 
+def precompute_doc_kv(params, cfg: PreTTRConfig, doc_store):
+    """Index time: layer-``l`` doc-side K/V from the *stored* reps
+    ``doc_store`` [N, Ld, e|d] (as :func:`precompute_docs` returned them,
+    or decoded from the index's codec), so they match what the join would
+    recompute from the index bytes.  Returns ``(k, v)`` each
+    [N, Ld, n_kv_heads * dh] in ``cfg.store_dtype``."""
+    bcfg = cfg.backbone
+    x_d = _decode_doc_store(params, cfg, doc_store)
+    n, ld, _ = x_d.shape
+    lp = params["backbone"]["layers"][cfg.l]
+    h_d = L.apply_norm(lp["ln1"], x_d)
+    k, v = T.project_kv(lp["attn"], h_d, bcfg)
+    flat = bcfg.n_kv_heads * bcfg.dh
+    return (k.reshape(n, ld, flat).to(cfg.store_dtype),
+            v.reshape(n, ld, flat).to(cfg.store_dtype))
+
+
 def encode_query(params, cfg: PreTTRConfig, q_tokens, q_valid):
     """Query time: [B, Lq] -> query reps [B, Lq, d] through layers 0..l."""
     bcfg = cfg.backbone
@@ -201,52 +223,137 @@ def encode_query(params, cfg: PreTTRConfig, q_tokens, q_valid):
 
 
 @dataclasses.dataclass
+class PagedDocKV:
+    """Stored layer-``l`` doc K/V in the device doc cache's token-page
+    pools, consumed by the join without a dense per-batch copy.
+
+    ``k``/``v``: [P, page, Hkv, Dh] pools; ``valid``: [P, page] byte pool
+    (the cache's page 0 is all zero, so page-table tails mask
+    themselves); ``page_table``: [B, nP] int32; ``k_scale``/``v_scale``:
+    optional [P, page, 1] float32 scale pools of raw int8 K/V pools."""
+    k: torch.Tensor
+    v: torch.Tensor
+    valid: torch.Tensor
+    page_table: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
 class JoinState:
     """Query-time join operands, segment-resident: the two segments stay
-    separate tensors end to end."""
+    separate tensors end to end.  ``doc_k``/``doc_v`` are the index's
+    stored layer-``l`` K/V in model layout (layer ``l`` then skips the
+    doc-side K/V projections); with ``doc_k_scale``/``doc_v_scale`` they
+    are raw int8 payload, dequantised inside the join.  ``doc_kv_paged``
+    replaces the dense pair with a :class:`PagedDocKV`."""
     x_q: torch.Tensor                # [B, Lq, d] query reps (compute dtype)
     q_valid: torch.Tensor            # [B, Lq] bool
     x_d: torch.Tensor                # [B, Ld, d] decoded doc reps
     d_valid: torch.Tensor            # [B, Ld] bool
+    doc_k: torch.Tensor | None = None        # [B, Ld, Hkv, Dh]
+    doc_v: torch.Tensor | None = None        # [B, Ld, Hkv, Dh]
+    doc_k_scale: torch.Tensor | None = None  # [B, Ld] f32 (raw int8 doc_k)
+    doc_v_scale: torch.Tensor | None = None  # [B, Ld] f32 (raw int8 doc_v)
+    doc_kv_paged: PagedDocKV | None = None
+
+
+def _stored_kv_operand(st: JoinState):
+    """The stored-K/V operand of a JoinState in the form the split layers
+    dispatch on: None, (k, v), (k, v, ks, vs) or a PagedDocKV."""
+    if st.doc_kv_paged is not None:
+        return st.doc_kv_paged
+    if st.doc_k is None:
+        return None
+    if st.doc_k_scale is not None:
+        return (st.doc_k, st.doc_v, st.doc_k_scale, st.doc_v_scale)
+    return (st.doc_k, st.doc_v)
 
 
 def prepare_join(params, cfg: PreTTRConfig, q_reps, q_valid, doc_store,
                  doc_valid, *, doc_kv=None, fused: bool = True) -> JoinState:
-    """Decode the index payload and build the :class:`JoinState`."""
-    if doc_kv is not None:
-        raise NotImplementedError(
-            "stored layer-l doc K/V is not ported yet: it arrives with "
-            "slice 2 (int8 reps + stored layer-K/V + doc cache)")
+    """Decode the index payload and build the :class:`JoinState`.
+    ``doc_kv`` supplies the stored layer-``l`` streams in one of three
+    forms: ``(k, v)`` floats each [B, Ld, n_kv_heads * dh];
+    ``(k, v, k_scale, v_scale)`` int8 payload with [B, Ld] float32 scales
+    (dequantised inside the join); or a :class:`PagedDocKV` whose pools
+    may arrive flat ([P, page, d_kv], [P, page] scales) from the device
+    doc cache and are reshaped to the kernel's page layout here."""
     if not fused:
+        if doc_kv is not None:
+            raise ValueError(
+                "stored layer-l doc K/V streams require the fused join "
+                "path (the legacy concat path re-projects at layer l)")
         raise NotImplementedError(
             "the legacy concat join is not ported; the fused split-KV join "
             "is the port's query-time path")
     bcfg = cfg.backbone
+    x_d = _decode_doc_store(params, cfg, doc_store)
+    doc_k = doc_v = doc_k_scale = doc_v_scale = paged = None
+    if doc_kv is not None:
+        b, ld = x_d.shape[0], x_d.shape[1]
+        hkv, dh = bcfg.n_kv_heads, bcfg.dh
+        if isinstance(doc_kv, PagedDocKV):
+            page = doc_kv.k.shape[1]
+            paged = PagedDocKV(
+                k=doc_kv.k.reshape(-1, page, hkv, dh),
+                v=doc_kv.v.reshape(-1, page, hkv, dh),
+                valid=doc_kv.valid, page_table=doc_kv.page_table,
+                k_scale=(None if doc_kv.k_scale is None
+                         else doc_kv.k_scale.reshape(-1, page, 1)),
+                v_scale=(None if doc_kv.v_scale is None
+                         else doc_kv.v_scale.reshape(-1, page, 1)))
+        elif len(doc_kv) == 4:
+            # raw int8 payload keeps its narrow dtype: the join dequantises
+            k, v, doc_k_scale, doc_v_scale = doc_kv
+            doc_k = k.reshape(b, ld, hkv, dh)
+            doc_v = v.reshape(b, ld, hkv, dh)
+        else:
+            doc_k, doc_v = (a.reshape(b, ld, hkv, dh).to(bcfg.compute_dtype)
+                            for a in doc_kv)
     return JoinState(x_q=q_reps.to(bcfg.compute_dtype),
-                     q_valid=q_valid.bool(),
-                     x_d=_decode_doc_store(params, cfg, doc_store),
-                     d_valid=doc_valid.bool())
+                     q_valid=q_valid.bool(), x_d=x_d,
+                     d_valid=doc_valid.bool(), doc_k=doc_k, doc_v=doc_v,
+                     doc_k_scale=doc_k_scale, doc_v_scale=doc_v_scale,
+                     doc_kv_paged=paged)
+
+
+def _unpack_stored_kv(doc_kv):
+    """A stored-K/V operand -> ``(kd, vd, kd_scale, vd_scale, paged)``, the
+    operand set of the ``join_attention`` impls."""
+    if isinstance(doc_kv, PagedDocKV):
+        return None, None, None, None, doc_kv
+    if len(doc_kv) == 4:
+        kd, vd, ks, vs = doc_kv
+        return kd, vd, ks, vs, None
+    kd, vd = doc_kv
+    return kd, vd, None, None, None
 
 
 def _join_layer_split(lp, bcfg: T.TransformerConfig, x_q, x_d, q_valid,
-                      d_valid):
+                      d_valid, doc_kv=None):
     """One join layer over the split residual (x_q, x_d).  Every
     non-attention op is row-wise, so running it per segment equals running
     it on the concatenation; the Q blocks are stacked so each layer issues
-    one attention call over the split K/V pair."""
+    one attention call over the split K/V pair.  ``doc_kv`` (layer ``l``
+    only): the stored doc K/V, which replace the doc-side projections."""
     dh = bcfg.dh
     lq = x_q.shape[1]
     p = lp["attn"]
     h_q = L.apply_norm(lp["ln1"], x_q)
     h_d = L.apply_norm(lp["ln1"], x_d)
     kq, vq = T.project_kv(p, h_q, bcfg)
-    kd, vd = T.project_kv(p, h_d, bcfg)
+    if doc_kv is None:
+        kd, vd = T.project_kv(p, h_d, bcfg)
+        kd_scale = vd_scale = paged = None
+    else:
+        kd, vd, kd_scale, vd_scale, paged = _unpack_stored_kv(doc_kv)
     q = torch.cat([T.project_q(p, h_q, bcfg), T.project_q(p, h_d, bcfg)],
                   dim=1)
     out = B.get_impl("join_attention", bcfg.attn_impl)(
         q, kq, vq, kd, vd, cfg=bcfg, scale=1.0 / math.sqrt(dh),
         q_valid=torch.cat([q_valid, d_valid], dim=1), kq_valid=q_valid,
-        kd_valid=d_valid)
+        kd_valid=d_valid, kd_scale=kd_scale, vd_scale=vd_scale, paged=paged)
     wo = p["wo"].to(bcfg.compute_dtype)
 
     def finish(x, o):
@@ -257,7 +364,7 @@ def _join_layer_split(lp, bcfg: T.TransformerConfig, x_q, x_d, q_valid,
 
 
 def _cls_only_layer_split(lp, bcfg: T.TransformerConfig, x_q, x_d, q_valid,
-                          d_valid):
+                          d_valid, doc_kv=None):
     """Final CLS-only layer (paper section 6.3) over the split residual:
     one attention row ([CLS] is row 0 of the query segment) against the
     split K/V pair.  x_q: [B, Lq, d]; x_d: [B, Ld, d] -> cls rep [B, d]."""
@@ -268,11 +375,16 @@ def _cls_only_layer_split(lp, bcfg: T.TransformerConfig, x_q, x_d, q_valid,
     h_d = L.apply_norm(lp["ln1"], x_d)
     q = T.project_q(p, h_q[:, :1], bcfg)
     kq, vq = T.project_kv(p, h_q, bcfg)
-    kd, vd = T.project_kv(p, h_d, bcfg)
+    if doc_kv is None:
+        kd, vd = T.project_kv(p, h_d, bcfg)
+        kd_scale = vd_scale = paged = None
+    else:                            # l == n_layers - 1: stored K/V
+        kd, vd, kd_scale, vd_scale, paged = _unpack_stored_kv(doc_kv)
     out = B.get_impl("join_attention", bcfg.attn_impl)(
         q, kq, vq, kd, vd, cfg=bcfg, scale=1.0 / math.sqrt(bcfg.dh),
         q_valid=torch.ones((b, 1), dtype=torch.bool, device=q.device),
-        kq_valid=q_valid, kd_valid=d_valid)
+        kq_valid=q_valid, kd_valid=d_valid, kd_scale=kd_scale,
+        vd_scale=vd_scale, paged=paged)
     out = out.reshape(b, 1, bcfg.n_heads * bcfg.dh) @ p["wo"].to(cd)
     x_cls = T.block_tail(lp, bcfg, x_q[:, :1], out)
     return x_cls[:, 0]
@@ -284,12 +396,15 @@ def _score_join_fused(params, cfg: PreTTRConfig, st: JoinState):
     layers = params["backbone"]["layers"]
     last = bcfg.n_layers - (1 if cfg.cls_only_last_layer else 0)
     x_q, x_d = st.x_q, st.x_d
+    stored = _stored_kv_operand(st)
     for li in range(cfg.l, last):
         x_q, x_d = _join_layer_split(layers[li], bcfg, x_q, x_d, st.q_valid,
-                                     st.d_valid)
+                                     st.d_valid,
+                                     doc_kv=stored if li == cfg.l else None)
     if cfg.cls_only_last_layer:
         cls = _cls_only_layer_split(layers[-1], bcfg, x_q, x_d, st.q_valid,
-                                    st.d_valid)
+                                    st.d_valid,
+                                    doc_kv=stored if cfg.l == last else None)
     else:
         cls = x_q[:, 0]
     return _score_from_cls(params, cfg, cls)
@@ -298,7 +413,9 @@ def _score_join_fused(params, cfg: PreTTRConfig, st: JoinState):
 def join_and_score(params, cfg: PreTTRConfig, q_reps, q_valid, doc_store,
                    doc_valid, *, doc_kv=None, fused: bool = True):
     """Query-time join: q_reps [B, Lq, d] (+ valid), doc_store
-    [B, Ld, e|d] as loaded from the index -> scores [B] float32."""
+    [B, Ld, e|d] as loaded from the index (decoded from its codec) and
+    optional stored layer-``l`` ``doc_kv`` (see :func:`prepare_join`) ->
+    scores [B] float32."""
     st = prepare_join(params, cfg, q_reps, q_valid, doc_store, doc_valid,
                       doc_kv=doc_kv, fused=fused)
     return _score_join_fused(params, cfg, st)

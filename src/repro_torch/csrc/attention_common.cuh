@@ -26,9 +26,11 @@
 namespace rt {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+// element type codes of the C entry points (kI8: raw int8 doc K/V)
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 

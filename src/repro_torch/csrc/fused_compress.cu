@@ -3,9 +3,12 @@
 // Replaces: src/repro/kernels/fused_compress/kernel.py, compress_pallas
 // (_compress_kernel) and decompress_pallas (_decompress_kernel).
 //
-//  * compress:   out[T, e] = fp16(GELU_tanh(x[T, d] @ W[d, e] + b))
-//  * decompress: out[T, d] = LayerNorm(fp16 r[T, e] widened @ W[e, d] + b)
-//                            * gamma + beta, eps 1e-6, cast to bf16/f32
+//  * compress:   out[T, e] = GELU_tanh(x[T, d] @ W[d, e] + b), stored as
+//                fp16 or, for a quantising index codec (int8), float32
+//  * decompress: out[T, d] = LayerNorm(r[T, e] widened @ W[e, d] + b)
+//                            * gamma + beta, eps 1e-6, cast to bf16/f16/f32;
+//                r is the fp16 index payload or, decoded from int8,
+//                float32
 // Both run float32 throughout, as the Pallas kernels do.
 //
 // Bound on the H100: at the main-path shapes (compress [64*480, 768] x
@@ -28,7 +31,10 @@
 // rows to a shared row buffer of 16 x d float32 (48 KB at d = 768, above
 // the default limit, so the launch raises
 // cudaFuncAttributeMaxDynamicSharedMemorySize), then each warp normalises
-// whole rows with shuffle reductions and writes the cast result.
+// whole rows with shuffle reductions and writes the cast result.  The
+// input rows are staged as float32 whatever their stored type, so a
+// float32 input needs no more shared memory than fp16 (64 KB a block at
+// e = 256, d = 768).
 #include "attention_common.cuh"
 
 namespace {
@@ -88,10 +94,10 @@ __device__ __forceinline__ void rows_times_columns(const float* xs, const float*
   }
 }
 
-template <typename T, int NC>
+template <typename T, typename OutT, int NC>
 __global__ void __launch_bounds__(kThreads)
 compress_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ bias, __half* __restrict__ out, int T_rows, int d,
+                const float* __restrict__ bias, OutT* __restrict__ out, int T_rows, int d,
                 int e) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;                      // [kRows, d]
@@ -108,13 +114,13 @@ compress_kernel(const T* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
       if (row0 + r < T_rows)
-        out[(long long)(row0 + r) * e + c] = __float2half(gelu_tanh(acc[j][r] + bc));
+        out[(long long)(row0 + r) * e + c] = rt::from_f32<OutT>(gelu_tanh(acc[j][r] + bc));
   }
 }
 
-template <typename OutT, int NC>
+template <typename InT, typename OutT, int NC>
 __global__ void __launch_bounds__(kThreads)
-decompress_kernel(const __half* __restrict__ rin, const float* __restrict__ w,
+decompress_kernel(const InT* __restrict__ rin, const float* __restrict__ w,
                   const float* __restrict__ bias, const float* __restrict__ gamma,
                   const float* __restrict__ beta, OutT* __restrict__ out, int T_rows, int e,
                   int d, float eps) {
@@ -122,7 +128,7 @@ decompress_kernel(const __half* __restrict__ rin, const float* __restrict__ w,
   float* rs = smem;                      // [kRows, e]
   float* hs = smem + kRows * e;          // [kRows, d] row buffer
   const int row0 = blockIdx.x * kRows;
-  stage_rows<__half>(rin, rs, row0, T_rows, e);
+  stage_rows<InT>(rin, rs, row0, T_rows, e);
   __syncthreads();
   float acc[NC][kRows];
   rows_times_columns<NC>(rs, w, e, d, acc);
@@ -156,67 +162,113 @@ decompress_kernel(const __half* __restrict__ rin, const float* __restrict__ w,
 
 constexpr int kMaxSmem = 227 * 1024;
 
-// Instantiate LAUNCH(T, NC) for the number of columns per thread.
-#define RT_DISPATCH_NC(T, n_cols, LAUNCH)                  \
+// Instantiate LAUNCH(NC) for the number of columns per thread.
+#define RT_DISPATCH_NC(n_cols, LAUNCH)                     \
   switch ((n_cols + kThreads - 1) / kThreads) {            \
-    case 1: LAUNCH(T, 1); break;                           \
-    case 2: LAUNCH(T, 2); break;                           \
-    case 3: LAUNCH(T, 3); break;                           \
-    case 4: LAUNCH(T, 4); break;                           \
+    case 1: LAUNCH(1); break;                              \
+    case 2: LAUNCH(2); break;                              \
+    case 3: LAUNCH(3); break;                              \
+    case 4: LAUNCH(4); break;                              \
     default: return (int)cudaErrorInvalidValue;            \
   }
 
-}  // namespace
-
-extern "C" int rt_compress(const void* x, const void* w, const void* b, void* out, int in_dtype,
-                           int T_rows, int d, int e, void* stream) {
-  if (T_rows <= 0 || d <= 0 || e <= 0 || d % 4 != 0 || e > kMaxCols)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kRows * d;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+template <typename T, typename OutT>
+int launch_compress(const void* x, const void* w, const void* b, void* out, int T_rows, int d,
+                    int e, size_t smem, cudaStream_t s) {
   const dim3 grid((T_rows + kRows - 1) / kRows);
-  cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(T, NC)                                                                          \
-  do {                                                                                         \
-    cudaFuncSetAttribute(compress_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,  \
-                         (int)smem);                                                           \
-    compress_kernel<T, NC><<<grid, kThreads, smem, s>>>((const T*)x, (const float*)w,          \
-                                                        (const float*)b, (__half*)out, T_rows, \
-                                                        d, e);                                 \
+#define LAUNCH(NC)                                                                           \
+  do {                                                                                       \
+    cudaFuncSetAttribute(compress_kernel<T, OutT, NC>,                                       \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);            \
+    compress_kernel<T, OutT, NC><<<grid, kThreads, smem, s>>>(                               \
+        (const T*)x, (const float*)w, (const float*)b, (OutT*)out, T_rows, d, e);            \
   } while (0)
-  switch (in_dtype) {
-    case rt::kF32: RT_DISPATCH_NC(float, e, LAUNCH); break;
-    case rt::kBF16: RT_DISPATCH_NC(__nv_bfloat16, e, LAUNCH); break;
-    case rt::kF16: RT_DISPATCH_NC(__half, e, LAUNCH); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  RT_DISPATCH_NC(e, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
 
+template <typename InT, typename OutT>
+int launch_decompress(const void* r, const void* w, const void* b, const void* gamma,
+                      const void* beta, void* out, int T_rows, int e, int d, float eps,
+                      size_t smem, cudaStream_t s) {
+  const dim3 grid((T_rows + kRows - 1) / kRows);
+#define LAUNCH(NC)                                                                           \
+  do {                                                                                       \
+    cudaFuncSetAttribute(decompress_kernel<InT, OutT, NC>,                                   \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);            \
+    decompress_kernel<InT, OutT, NC><<<grid, kThreads, smem, s>>>(                           \
+        (const InT*)r, (const float*)w, (const float*)b, (const float*)gamma,                \
+        (const float*)beta, (OutT*)out, T_rows, e, d, eps);                                  \
+  } while (0)
+  RT_DISPATCH_NC(d, LAUNCH)
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int compress_in(int in_dtype, const void* x, const void* w, const void* b, void* out,
+                int T_rows, int d, int e, size_t smem, cudaStream_t s) {
+  switch (in_dtype) {
+    case rt::kF32: return launch_compress<float, OutT>(x, w, b, out, T_rows, d, e, smem, s);
+    case rt::kBF16:
+      return launch_compress<__nv_bfloat16, OutT>(x, w, b, out, T_rows, d, e, smem, s);
+    case rt::kF16: return launch_compress<__half, OutT>(x, w, b, out, T_rows, d, e, smem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename InT>
+int decompress_out(int out_dtype, const void* r, const void* w, const void* b,
+                   const void* gamma, const void* beta, void* out, int T_rows, int e, int d,
+                   float eps, size_t smem, cudaStream_t s) {
+  switch (out_dtype) {
+    case rt::kF32:
+      return launch_decompress<InT, float>(r, w, b, gamma, beta, out, T_rows, e, d, eps, smem,
+                                           s);
+    case rt::kBF16:
+      return launch_decompress<InT, __nv_bfloat16>(r, w, b, gamma, beta, out, T_rows, e, d,
+                                                   eps, smem, s);
+    case rt::kF16:
+      return launch_decompress<InT, __half>(r, w, b, gamma, beta, out, T_rows, e, d, eps, smem,
+                                            s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// x [T, d] (in_dtype) -> out [T, e] (out_dtype: kF16 or kF32).
+extern "C" int rt_compress(const void* x, const void* w, const void* b, void* out, int in_dtype,
+                           int out_dtype, int T_rows, int d, int e, void* stream) {
+  if (T_rows <= 0 || d <= 0 || e <= 0 || d % 4 != 0 || e > kMaxCols)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * kRows * d;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (out_dtype) {
+    case rt::kF16: return compress_in<__half>(in_dtype, x, w, b, out, T_rows, d, e, smem, s);
+    case rt::kF32: return compress_in<float>(in_dtype, x, w, b, out, T_rows, d, e, smem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// r [T, e] (in_dtype: kF16 or kF32) -> out [T, d] (out_dtype).
 extern "C" int rt_decompress(const void* r, const void* w, const void* b, const void* gamma,
-                             const void* beta, void* out, int out_dtype, int T_rows, int e, int d,
-                             float eps, void* stream) {
+                             const void* beta, void* out, int in_dtype, int out_dtype,
+                             int T_rows, int e, int d, float eps, void* stream) {
   if (T_rows <= 0 || d <= 0 || e <= 0 || e % 4 != 0 || d > kMaxCols)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * kRows * (e + d);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T_rows + kRows - 1) / kRows);
   cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(T, NC)                                                                            \
-  do {                                                                                           \
-    cudaFuncSetAttribute(decompress_kernel<T, NC>,                                               \
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);                \
-    decompress_kernel<T, NC><<<grid, kThreads, smem, s>>>(                                       \
-        (const __half*)r, (const float*)w, (const float*)b, (const float*)gamma,                 \
-        (const float*)beta, (T*)out, T_rows, e, d, eps);                                         \
-  } while (0)
-  switch (out_dtype) {
-    case rt::kF32: RT_DISPATCH_NC(float, d, LAUNCH); break;
-    case rt::kBF16: RT_DISPATCH_NC(__nv_bfloat16, d, LAUNCH); break;
-    case rt::kF16: RT_DISPATCH_NC(__half, d, LAUNCH); break;
+  switch (in_dtype) {
+    case rt::kF16:
+      return decompress_out<__half>(out_dtype, r, w, b, gamma, beta, out, T_rows, e, d, eps,
+                                    smem, s);
+    case rt::kF32:
+      return decompress_out<float>(out_dtype, r, w, b, gamma, beta, out, T_rows, e, d, eps,
+                                   smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef LAUNCH
-  return (int)cudaGetLastError();
 }

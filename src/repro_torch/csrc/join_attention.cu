@@ -1,9 +1,9 @@
-// Split-KV join attention for PreTTR's query-time join, for Hopper (sm_90a).
+// Split-KV join attention for PreTTR's query-time join, for Hopper (sm_90a):
+// the dense entries.  The paged entry is join_attention_paged.cu.
 //
 // Replaces: src/repro/kernels/join_attention/kernel.py,
-// join_attention_pallas (_join_kernel), dense float form.  The raw-int8
-// doc K/V form and the paged form (join_attention_pallas_paged) wait for
-// the doc-cache slice.
+// join_attention_pallas (_join_kernel), in its dense float form and its
+// raw-int8 doc K/V form (per-token float32 scales, widened while staged).
 //
 // Computes attention of q [B, Hq, Sq, D] over the union of two K/V
 // segments that are never concatenated: the query segment kq/vq
@@ -14,76 +14,25 @@
 //
 // Bound on the H100: the join layers run q [32, 12, 512, 64] bf16 against
 // 32 + 480 keys: ~4 * D FLOPs per (row, key) over 2 bytes per element
-// read once, about 100 FLOPs per byte, so float32 CUDA-core FMAs bound
-// this first kernel (tensor cores would make it memory-bound).  The CLS
-// row (Sq = 1) reads every K/V byte for 4 * D FLOPs per key: ~1 FLOP per
-// byte, bound by memory bytes.
+// read once (1 byte for int8 K/V), 100-200 FLOPs per byte, so float32
+// CUDA-core FMAs bound this kernel (tensor cores would make it
+// memory-bound).  The CLS row (Sq = 1) reads every K/V byte for 4 * D
+// FLOPs per key: ~1 FLOP per byte, bound by memory bytes.
 //
 // Design: two kernels.
-//  * join_attention_kernel (Sq > 1): the split_attention core, one block
-//    of 128 threads per (q-tile, head, batch row), each query row held by
-//    D / 16 lanes (32 rows per block at D = 64).  The query-segment K/V is
-//    staged first and seeds the online-softmax state (the Pallas kernel's
-//    first grid step), then the doc tiles follow up to dlen[b] - the TPU's
-//    sequential grid axis is a loop in the block.
-//  * join_attention_row_kernel (Sq = 1, the CLS-only final layer): one
-//    block of 128 threads per (head, batch row), parallel over keys so
-//    12 * B blocks still fill the card.  Threads score strided keys into
-//    shared memory, the block reduces the max and the sum, and the P.V
-//    product runs with threads split over (D, key group) so V reads are
-//    coalesced.  An exact two-pass softmax over the same masked keys.
-#include "attention_common.cuh"
+//  * join_tiled_kernel (join_attention.cuh): Sq > 1, and Sq = 1 with int8
+//    K/V.  The query-segment K/V seeds the online softmax, then the doc
+//    tiles follow up to dlen[b].
+//  * join_attention_row_kernel (Sq = 1 with float K/V, the CLS-only final
+//    layer): one block of 128 threads per (head, batch row), parallel over
+//    keys so 12 * B blocks still fill the card.  Threads score strided
+//    keys into shared memory, the block reduces the max and the sum, and
+//    the P.V product runs with threads split over (D, key group) so V
+//    reads are coalesced.  An exact two-pass softmax over the same masked
+//    keys.
+#include "join_attention.cuh"
 
 namespace {
-
-template <typename T, int D>
-__global__ void __launch_bounds__(rt::kThreads)
-join_attention_kernel(const T* __restrict__ q, const T* __restrict__ kq,
-                      const T* __restrict__ vq, const T* __restrict__ kd,
-                      const T* __restrict__ vd, T* __restrict__ o,
-                      const int* __restrict__ dlen, const uint8_t* __restrict__ kq_valid,
-                      const uint8_t* __restrict__ kd_valid, int Hq, int Hkv, int Sq,
-                      int Lq, int Ld, rt::BHS qs, rt::BHS kqs, rt::BHS vqs, rt::BHS kds,
-                      rt::BHS vds, rt::BHS os, float scale) {
-  constexpr int TPR = rt::Geo<D>::TPR, ROWS = rt::Geo<D>::ROWS;
-  __shared__ __align__(16) float ks[rt::kBlockK * D];
-  __shared__ __align__(16) float vs[rt::kBlockK * D];
-  __shared__ int kside[rt::kBlockK];
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int t = threadIdx.x % TPR;
-  const int qi = blockIdx.x * ROWS + threadIdx.x / TPR;
-  const bool active = qi < Sq;
-  const int hk = h / (Hq / Hkv);
-
-  rt::RowState st;
-  rt::load_row<T, D>(st, q + b * qs.b + h * qs.h + (long long)qi * qs.s, t, active);
-
-  // query segment: every tile, masked by kq_valid only
-  const T* kp = kq + b * kqs.b + hk * kqs.h;
-  const T* vp = vq + b * vqs.b + hk * vqs.h;
-  const uint8_t* valid = kq_valid + (long long)b * Lq;
-  for (int k0 = 0; k0 < Lq; k0 += rt::kBlockK) {
-    const int n = min(rt::kBlockK, Lq - k0);
-    __syncthreads();
-    rt::stage_tile<T, D>(kp, vp, kqs.s, vqs.s, k0, n, valid, Lq, -1, ks, vs, kside);
-    __syncthreads();
-    rt::fold_tile<D>(st, ks, vs, kside, n, 0, t, scale);
-  }
-  // doc segment: tiles up to dlen[b]
-  kp = kd + b * kds.b + hk * kds.h;
-  vp = vd + b * vds.b + hk * vds.h;
-  valid = kd_valid + (long long)b * Ld;
-  const int len = min(dlen[b], Ld);
-  for (int k0 = 0; k0 < len; k0 += rt::kBlockK) {
-    const int n = min(rt::kBlockK, Ld - k0);
-    __syncthreads();
-    rt::stage_tile<T, D>(kp, vp, kds.s, vds.s, k0, n, valid, len, -1, ks, vs, kside);
-    __syncthreads();
-    rt::fold_tile<D>(st, ks, vs, kside, n, 0, t, scale);
-  }
-  if (active) rt::store_row<T, D>(st, o + b * os.b + h * os.h + (long long)qi * os.s, t);
-}
 
 constexpr int kRowThreads = 128;
 
@@ -168,32 +117,41 @@ join_attention_row_kernel(const T* __restrict__ q, const T* __restrict__ kq,
 
 }  // namespace
 
+// Dense entry: float doc K/V of q's type, or raw int8 doc K/V (kd_dtype
+// kI8) with per-token scales kd_scale / vd_scale [B, Ld].
 extern "C" int rt_join_attention(const void* q, const void* kq, const void* vq, const void* kd,
                                  const void* vd, void* o, const void* dlen, const void* kq_valid,
-                                 const void* kd_valid, int dtype, int B, int Hq, int Hkv, int Sq,
-                                 int Lq, int Ld, int D, long long qsb, long long qsh,
-                                 long long qss, long long kqsb, long long kqsh, long long kqss,
-                                 long long vqsb, long long vqsh, long long vqss, long long kdsb,
-                                 long long kdsh, long long kdss, long long vdsb, long long vdsh,
-                                 long long vdss, long long osb, long long osh, long long oss,
-                                 float scale, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Lq < 0 || Ld < 0)
+                                 const void* kd_valid, const void* kd_scale,
+                                 const void* vd_scale, int dtype, int kd_dtype, int B, int Hq,
+                                 int Hkv, int Sq, int Lq, int Ld, int D, long long qsb,
+                                 long long qsh, long long qss, long long kqsb, long long kqsh,
+                                 long long kqss, long long vqsb, long long vqsh, long long vqss,
+                                 long long kdsb, long long kdsh, long long kdss, long long vdsb,
+                                 long long vdsh, long long vdss, long long osb, long long osh,
+                                 long long oss, float scale, void* stream) {
+  rt::JoinArgs a{q, kq, vq, o, (const int*)dlen, (const uint8_t*)kq_valid, B, Hq, Hkv, Sq, Lq,
+                 D, {qsb, qsh, qss}, {kqsb, kqsh, kqss}, {vqsb, vqsh, vqss}, {osb, osh, oss},
+                 scale};
+  a.doc = rt::DocSeg{kd, vd, (const float*)kd_scale, (const float*)vd_scale,
+                     (const uint8_t*)kd_valid, nullptr, 0, 0, Ld,
+                     {kdsb, kdsh, kdss}, {vdsb, vdsh, vdss}};
+  const bool quant = kd_dtype == rt::kI8;
+  if (!rt::join_args_ok(a) || (quant && (!kd_scale || !vd_scale)) ||
+      (!quant && kd_dtype != dtype))
     return (int)cudaErrorInvalidValue;
-  const rt::BHS qs{qsb, qsh, qss}, kqs{kqsb, kqsh, kqss}, vqs{vqsb, vqsh, vqss},
-      kds{kdsb, kdsh, kdss}, vds{vdsb, vdsh, vdss}, os{osb, osh, oss};
   cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(T, DD)                                                                          \
-  do {                                                                                         \
-    constexpr int rows = rt::Geo<DD>::ROWS;                                                    \
-    const dim3 grid((Sq + rows - 1) / rows, Hq, B);                                            \
-    join_attention_kernel<T, DD><<<grid, rt::kThreads, 0, s>>>(                                \
-        (const T*)q, (const T*)kq, (const T*)vq, (const T*)kd, (const T*)vd, (T*)o,            \
-        (const int*)dlen, (const uint8_t*)kq_valid, (const uint8_t*)kd_valid, Hq, Hkv, Sq, Lq, \
-        Ld, qs, kqs, vqs, kds, vds, os, scale);                                                \
-  } while (0)
-  RT_DISPATCH(dtype, D, LAUNCH)
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  switch (dtype) {
+    case rt::kF32:
+      return quant ? rt::launch_join_tiled<float, int8_t, false>(a, s)
+                   : rt::launch_join_tiled<float, float, false>(a, s);
+    case rt::kBF16:
+      return quant ? rt::launch_join_tiled<__nv_bfloat16, int8_t, false>(a, s)
+                   : rt::launch_join_tiled<__nv_bfloat16, __nv_bfloat16, false>(a, s);
+    case rt::kF16:
+      return quant ? rt::launch_join_tiled<__half, int8_t, false>(a, s)
+                   : rt::launch_join_tiled<__half, __half, false>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int rt_join_attention_row(const void* q, const void* kq, const void* vq,

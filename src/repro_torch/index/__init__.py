@@ -1,5 +1,5 @@
-"""The port's term-rep index: v2 reader, minimal builder, identity codecs
-and the manifest's msgpack."""
+"""The port's term-rep index: v2 reader, builder, storage codecs (fp32,
+fp16, int8) and the manifest's msgpack."""
 from repro_torch.index.builder import BuildReport, IndexBuilder
 from repro_torch.index.store import IndexFormatError, TermRepIndex
 

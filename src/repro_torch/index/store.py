@@ -1,11 +1,15 @@
 """Term-representation index reader, the port's copy of the v2 reader of
 ``repro.index.store`` (``manifest.msgpack`` + ``shard-NNNNN/`` stream
-files, one flat file per codec stream, memmapped so serving touches only
-the candidates' bytes).
+files, one flat file per stream, memmapped so serving touches only the
+candidates' bytes).
 
-Reads the fp32/fp16 codecs.  The manifest's ``checksum`` block is read
-and kept but not verified yet; stored layer-``l`` K/V streams, when an
-index has them, are not opened (the port's join recomputes them).
+Streams: the codec's (``reps``, plus ``scales`` for int8) and, for an
+index built with stored layer-``l`` K/V, the manifest's ``layer_kv``
+group: raw ``layer_k`` / ``layer_v`` rows of ``d_kv`` values in the
+recorded dtype, or, with ``layer_kv["codec"]``, that codec's payload and
+scale streams (``layer_k_scales`` / ``layer_v_scales`` for int8).
+
+The manifest's ``checksum`` block is read and kept but not verified yet.
 Indexes written by either package open in both.
 """
 from __future__ import annotations
@@ -61,6 +65,11 @@ def _open_stream(path: str, dtype: np.dtype, row_shape: tuple, n_rows: int):
                                f"{row_shape}: {e}") from e
 
 
+def torch_dtype(dt) -> torch.dtype:
+    """The torch dtype of a numpy dtype."""
+    return torch.from_numpy(np.zeros(0, dt)).dtype
+
+
 class TermRepIndex:
     """A v2 term-rep index opened for reading (:meth:`open`)."""
 
@@ -74,14 +83,22 @@ class TermRepIndex:
             self.l = int(manifest["l"])
             self.compressed = bool(manifest["compressed"])
             self.max_doc_len = int(manifest["max_doc_len"])
+            layer_kv = manifest.get("layer_kv") or None
+            if layer_kv is not None:
+                norm = {"dtype": np.dtype(layer_kv["dtype"]).str,
+                        "d_kv": int(layer_kv["d_kv"])}
+                if layer_kv.get("codec"):
+                    norm["codec"] = str(layer_kv["codec"])
+                layer_kv = norm
+            self.layer_kv = layer_kv
             shards = manifest["shards"]
         except (KeyError, TypeError, ValueError) as e:
             raise IndexFormatError(f"malformed manifest at {path!r}: "
                                    f"{e!r}") from e
         self.path = path
         self.checksum = manifest.get("checksum")   # read, not verified yet
-        (dt, row_shape), = self.codec.streams(self.rep_dim).values()
-        self._reps: list[np.ndarray] = []
+        spec = self.streams_spec()
+        self._streams: list[dict[str, np.ndarray]] = []
         rows = []
         for si, sh in enumerate(shards):
             try:
@@ -90,9 +107,17 @@ class TermRepIndex:
             except (KeyError, TypeError, ValueError) as e:
                 raise IndexFormatError(f"malformed manifest at {path!r}: "
                                        f"shard {si}: {e!r}") from e
-            self._reps.append(_open_stream(os.path.join(sdir, "reps.bin"),
-                                           dt, row_shape,
-                                           int(lengths.sum())))
+            n_tok = int(lengths.sum())
+            opened = {}
+            for name, (dt, row_shape) in spec.items():
+                fp = os.path.join(sdir, f"{name}.bin")
+                if n_tok and not os.path.exists(fp):
+                    raise IndexFormatError(
+                        f"index at {path!r}: shard stream {fp!r} is "
+                        f"missing (manifest lists {n_tok} tokens for this "
+                        f"shard)")
+                opened[name] = _open_stream(fp, dt, row_shape, n_tok)
+            self._streams.append(opened)
             starts = np.cumsum(lengths) - lengths
             rows.append(np.stack([np.full(len(lengths), si), starts,
                                   lengths], axis=1).astype(np.int64))
@@ -118,24 +143,79 @@ class TermRepIndex:
 
     @property
     def n_shards(self) -> int:
-        return len(self._reps)
+        return len(self._streams)
 
+    # -- stream layout ---------------------------------------------------------
+    @property
+    def has_layer_kv(self) -> bool:
+        """True when the index stores layer-``l`` doc K/V streams."""
+        return self.layer_kv is not None
+
+    @property
+    def kv_dim(self) -> int:
+        """Per-token width of each stored K/V stream (0 when absent)."""
+        return int(self.layer_kv["d_kv"]) if self.layer_kv else 0
+
+    @property
+    def kv_codec(self):
+        """Codec of the K/V streams, or None for raw-dtype (or absent)
+        K/V streams."""
+        if self.layer_kv and self.layer_kv.get("codec"):
+            return get_codec(self.layer_kv["codec"])
+        return None
+
+    def kv_streams_spec(self) -> dict:
+        """Streams of the layer-``l`` K/V pair only (empty without it)."""
+        if not self.layer_kv:
+            return {}
+        d_kv = self.kv_dim
+        kvc = self.kv_codec
+        if kvc is not None:
+            return {**kvc.stream_group("layer_k", d_kv),
+                    **kvc.stream_group("layer_v", d_kv)}
+        dt = np.dtype(self.layer_kv["dtype"])
+        return {"layer_k": (dt, (d_kv,)), "layer_v": (dt, (d_kv,))}
+
+    def streams_spec(self) -> dict:
+        """Every per-token stream -> ``{name: (dtype, row_shape)}``."""
+        return {**self.codec.streams(self.rep_dim), **self.kv_streams_spec()}
+
+    def bytes_per_token(self) -> int:
+        """Stored bytes per token over all streams (paper section 6.2)."""
+        return sum(dt.itemsize * int(np.prod(shape, dtype=np.int64))
+                   for dt, shape in self.streams_spec().values())
+
+    def _spec(self, streams):
+        spec = self.streams_spec()
+        if streams is None:
+            return spec
+        unknown = set(streams) - set(spec)
+        if unknown:
+            raise ValueError(f"unknown stream(s) {sorted(unknown)}; index "
+                             f"has {sorted(spec)}")
+        return {name: spec[name] for name in streams}
+
+    # -- reads -----------------------------------------------------------------
     def gather_raw(self, doc_ids: Sequence[int], pad_to: int | None = None,
-                   out=None):
-        """Batched read of the stored reps: one fancy-index gather per
-        shard over the memmaps -> (``{"reps": [N, Ld, e]}``, valid
-        ``[N, Ld]`` bool).  ``out``: optional zeroed ``(reps, valid)``
-        numpy arrays to gather into (e.g. views of pinned buffers)."""
+                   streams: Sequence[str] | None = None, out=None):
+        """Batched read of the stored streams: one fancy-index gather per
+        (shard, stream) over the memmaps -> (``{stream: [N, Ld, ...]}``,
+        valid ``[N, Ld]`` bool).  ``streams`` restricts the read to a
+        subset of :meth:`streams_spec`.  ``out``: optional zeroed
+        ``(parts, valid)`` numpy arrays to gather into (for example views
+        of pinned buffers)."""
         ids = np.asarray(list(doc_ids), np.int64).reshape(-1)
         if ids.size and (ids.min() < 0 or ids.max() >= len(self)):
             raise IndexError(f"doc id out of range [0, {len(self)})")
-        pad_to = pad_to or self.max_doc_len
-        (dt, row_shape), = self.codec.streams(self.rep_dim).values()
+        pad_to = pad_to or self.max_doc_len or (
+            int(self._doc_table[ids, 2].max()) if ids.size else 1)
+        spec = self._spec(streams)
         if out is None:
-            reps = np.zeros((ids.size, pad_to, *row_shape), dt)
+            parts = {name: np.zeros((ids.size, pad_to, *row_shape), dt)
+                     for name, (dt, row_shape) in spec.items()}
             valid = np.zeros((ids.size, pad_to), bool)
         else:
-            reps, valid = out
+            parts, valid = out
         shard_of = self._doc_table[ids, 0]
         starts = self._doc_table[ids, 1]
         lens = np.minimum(self._doc_table[ids, 2], pad_to)
@@ -147,25 +227,29 @@ class TermRepIndex:
                 continue
             rows = np.repeat(rsel, rl)
             cols = np.arange(total) - np.repeat(np.cumsum(rl) - rl, rl)
-            reps[rows, cols] = self._reps[si][np.repeat(starts[rsel], rl)
-                                              + cols]
+            src = np.repeat(starts[rsel], rl) + cols
+            for name in spec:
+                parts[name][rows, cols] = self._streams[si][name][src]
             valid[rows, cols] = True
-        return {"reps": reps}, valid
+        return parts, valid
 
     def stage(self, doc_ids: Sequence[int], pad_to: int | None = None,
-              device=None):
+              streams: Sequence[str] | None = None, device=None):
         """Gather on the host into pinned buffers and copy to ``device``
-        (``None`` means the card) -> (reps [N, Ld, e], valid [N, Ld]).
-        The copy is asynchronous on the current stream."""
+        (``None`` means the card) -> (``{stream: [N, Ld, ...]}``, valid
+        ``[N, Ld]``).  The copies are asynchronous on the current
+        stream."""
         dev = resolve_device(device)
         n = len(doc_ids)
         pad_to = pad_to or self.max_doc_len
-        (dt, row_shape), = self.codec.streams(self.rep_dim).values()
+        spec = self._spec(streams)
         pin = dev.type == "cuda"
-        reps = torch.zeros((n, pad_to, *row_shape),
-                           dtype=torch.from_numpy(np.zeros(0, dt)).dtype,
-                           pin_memory=pin)
+        host = {name: torch.zeros((n, pad_to, *row_shape),
+                                  dtype=torch_dtype(dt), pin_memory=pin)
+                for name, (dt, row_shape) in spec.items()}
         valid = torch.zeros((n, pad_to), dtype=torch.bool, pin_memory=pin)
-        self.gather_raw(doc_ids, pad_to, out=(reps.numpy(), valid.numpy()))
-        return (reps.to(dev, non_blocking=True),
+        self.gather_raw(doc_ids, pad_to, streams=list(spec),
+                        out=({k: t.numpy() for k, t in host.items()},
+                             valid.numpy()))
+        return ({k: t.to(dev, non_blocking=True) for k, t in host.items()},
                 valid.to(dev, non_blocking=True))

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``src/repro_torch/csrc/*.cu`` goes through **one** ``nvcc`` call into
-a shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so the build takes seconds).  The library lands in a
-directory under ``build/`` at the repository root named by a hash of the
-sources and flags, so the first call after a source edit rebuilds and
-later calls reuse it.  Nothing here runs at import time: the library is
-built on the first kernel launch.
+Every ``src/repro_torch/csrc/*.cu`` is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers).  The library lands in a directory under ``build/`` at
+the repository root named by a hash of the sources and flags, so the
+first call after a source edit rebuilds and later calls reuse it.
+Nothing here runs at import time: the library is built on the first
+kernel launch.
 
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` (or ``cudaErrorInvalidValue`` for an
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _STRIDES = [LL] * 3
@@ -35,16 +36,22 @@ SIGNATURES = {
     # q/k/v/out (batch, head, seq) strides, seg_boundary, scale, stream
     "rt_split_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I,
                            *_STRIDES * 4, I, F, P],
-    # q, kq, vq, kd, vd, out, dlen, kq_valid, kd_valid, dtype, B, Hq, Hkv,
-    # Sq, Lq, Ld, D, q/kq/vq/kd/vd/out strides, scale, stream
-    "rt_join_attention": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                          *_STRIDES * 6, F, P],
+    # q, kq, vq, kd, vd, out, dlen, kq_valid, kd_valid, kd_scale, vd_scale,
+    # dtype, kd_dtype, B, Hq, Hkv, Sq, Lq, Ld, D, q/kq/vq/kd/vd/out
+    # strides, scale, stream
+    "rt_join_attention": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                          I, I, I, *_STRIDES * 6, F, P],
+    # q, kq, vq, k_pool, v_pool, out, dlen, kq_valid, page_table,
+    # dval_pool, k_scale_pool, v_scale_pool, dtype, kd_dtype, B, Hq, Hkv,
+    # Sq, Lq, n_pages, page, D, q/kq/vq/out strides, scale, stream
+    "rt_join_attention_paged": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
+                                I, I, I, I, I, I, I, *_STRIDES * 4, F, P],
     "rt_join_attention_row": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                               I, *_STRIDES * 6, F, P],
-    # x, w, b, out, in_dtype, T, d, e, stream
-    "rt_compress": [P, P, P, P, I, I, I, I, P],
-    # r, w, b, gamma, beta, out, out_dtype, T, e, d, eps, stream
-    "rt_decompress": [P, P, P, P, P, P, I, I, I, I, F, P],
+    # x, w, b, out, in_dtype, out_dtype, T, d, e, stream
+    "rt_compress": [P, P, P, P, I, I, I, I, I, P],
+    # r, w, b, gamma, beta, out, in_dtype, out_dtype, T, e, d, eps, stream
+    "rt_decompress": [P, P, P, P, P, P, I, I, I, I, I, F, P],
 }
 
 _lock = threading.Lock()
@@ -77,21 +84,39 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the library if its hashed build directory lacks it; returns
-    its path."""
+    its path.  One ``nvcc -c`` per source runs in parallel; every process
+    is waited for before a failure is raised."""
     out_dir = BUILD_ROOT / f"kernels-{_digest()}"
     lib = out_dir / "librepro_torch_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".build-{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
+    nvcc, tag = _nvcc(), os.getpid()
+    jobs = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}-{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out_dir / f".build-{tag}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *(str(obj) for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
+    for _, obj, _ in jobs:
+        obj.unlink()
     return lib
 
 
@@ -120,11 +145,15 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def dtype_code(dtype) -> int:
+def dtype_code(dtype, int8: bool = False) -> int:
+    """Element type code of the C entries; int8 (raw doc K/V) only where
+    ``int8`` says the operand may hold it."""
     import torch
     codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+    if int8:
+        codes[torch.int8] = 3
     if dtype not in codes:
-        raise TypeError(f"kernel inputs must be float32/bfloat16/float16, "
+        raise TypeError(f"kernel operand must be one of {list(codes)}, "
                         f"got {dtype}")
     return codes[dtype]
 

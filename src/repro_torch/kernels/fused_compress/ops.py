@@ -1,8 +1,10 @@
 """Public wrappers of the compressor kernels (``csrc/fused_compress.cu``).
 
 CPU tensors take the plain versions (``ref.py``); CUDA tensors launch the
-kernel or raise.  ``fused_compress.launches`` and
-``fused_decompress.launches`` count kernel launches."""
+kernel or raise.  Launch counters: ``fused_compress.launches`` (float16
+output) and ``.f32_launches`` (float32 output, for a quantising index
+codec); ``fused_decompress.launches`` (float16 input) and
+``.f32_launches`` (float32 input, the decoded int8 payload)."""
 from __future__ import annotations
 
 import torch
@@ -14,13 +16,14 @@ MAX_COLS = 1024
 
 
 def fused_compress(x, w, b, *, out_dtype=torch.float16):
-    """x: [..., d] -> [..., e] float16: GELU_tanh(x @ w + b), float32
-    inside.  ``w`` [d, e] and ``b`` [e] are used in float32."""
+    """x: [..., d] -> [..., e] in ``out_dtype`` (float16, or float32 for a
+    quantising codec): GELU_tanh(x @ w + b), float32 inside.  ``w``
+    [d, e] and ``b`` [e] are used in float32."""
     if x.device.type == "cpu":
         return compress_ref(x, w, b, out_dtype=out_dtype)
-    if out_dtype != torch.float16:
-        raise TypeError(f"the compress kernel stores float16, not "
-                        f"{out_dtype}")
+    if out_dtype not in (torch.float16, torch.float32):
+        raise TypeError(f"the compress kernel stores float16 or float32, "
+                        f"not {out_dtype}")
     d, e = w.shape
     if x.shape[-1] != d or b.shape != (e,):
         raise ValueError(f"compress shapes do not match: x {tuple(x.shape)}, "
@@ -28,27 +31,30 @@ def fused_compress(x, w, b, *, out_dtype=torch.float16):
     _check_gemm(d, e)
     xf = _rows(x, d)
     w, b = _f32(w, x.device), _f32(b, x.device)
-    out = torch.empty((xf.shape[0], e), dtype=torch.float16, device=x.device)
+    out = torch.empty((xf.shape[0], e), dtype=out_dtype, device=x.device)
     code = _build.library().rt_compress(
         xf.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        _build.dtype_code(xf.dtype), xf.shape[0], d, e,
-        _build.stream_ptr(x.device))
+        _build.dtype_code(xf.dtype), _build.dtype_code(out_dtype),
+        xf.shape[0], d, e, _build.stream_ptr(x.device))
     _build.check("compress", code)
-    fused_compress.launches += 1
+    if out_dtype == torch.float32:
+        fused_compress.f32_launches += 1
+    else:
+        fused_compress.launches += 1
     return out.reshape(*x.shape[:-1], e)
 
 
 def fused_decompress(r, w, b, gamma, beta, *, out_dtype=torch.bfloat16,
                      eps: float = 1e-6):
-    """r: [..., e] float16 -> [..., d] in ``out_dtype``: widen, expand,
-    add the bias and LayerNorm (gamma, beta, eps) in one pass, float32
-    inside."""
+    """r: [..., e] float16 (or float32, decoded from int8) -> [..., d] in
+    ``out_dtype``: widen, expand, add the bias and LayerNorm (gamma, beta,
+    eps) in one pass, float32 inside."""
     if r.device.type == "cpu":
         return decompress_ref(r, w, b, gamma, beta, out_dtype=out_dtype,
                               eps=eps)
-    if r.dtype != torch.float16:
-        raise TypeError(f"the decompress kernel reads float16 reps, not "
-                        f"{r.dtype}")
+    if r.dtype not in (torch.float16, torch.float32):
+        raise TypeError(f"the decompress kernel reads float16 or float32 "
+                        f"reps, not {r.dtype}")
     e, d = w.shape
     if r.shape[-1] != e or b.shape != (d,) or gamma.shape != (d,) \
             or beta.shape != (d,):
@@ -61,15 +67,21 @@ def fused_decompress(r, w, b, gamma, beta, *, out_dtype=torch.bfloat16,
     out = torch.empty((rf.shape[0], d), dtype=out_dtype, device=r.device)
     code = _build.library().rt_decompress(
         rf.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), out.data_ptr(), _build.dtype_code(out_dtype),
-        rf.shape[0], e, d, float(eps), _build.stream_ptr(r.device))
+        beta.data_ptr(), out.data_ptr(), _build.dtype_code(rf.dtype),
+        _build.dtype_code(out_dtype), rf.shape[0], e, d, float(eps),
+        _build.stream_ptr(r.device))
     _build.check("decompress", code)
-    fused_decompress.launches += 1
+    if rf.dtype == torch.float32:
+        fused_decompress.f32_launches += 1
+    else:
+        fused_decompress.launches += 1
     return out.reshape(*r.shape[:-1], d)
 
 
 fused_compress.launches = 0
+fused_compress.f32_launches = 0
 fused_decompress.launches = 0
+fused_decompress.f32_launches = 0
 
 
 def _check_gemm(k_dim, n_cols):

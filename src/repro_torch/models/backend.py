@@ -12,12 +12,20 @@ Kinds and call contracts (model layout ``[B, S, H, D]``, boolean masks):
 * ``compress(params, x, *, store_dtype)`` / ``decompress(params, r, *,
   compute_dtype)`` -- the d -> e -> d bottleneck.
 
-Implementations: ``"plain"`` runs the plain PyTorch versions (the JAX
-package's "plain" backend); ``"cuda"`` runs the kernel wrappers, which
-launch the hand-written Hopper kernels on CUDA tensors (and their plain
-versions on CPU tensors).  Operands this slice does not port -- raw-int8
-doc K/V (``kd_scale``/``vd_scale``) and the paged doc segment, causal and
-window masks -- raise ``NotImplementedError`` in every impl.
+The doc segment of ``join_attention`` comes as float ``kd``/``vd``
+([B, Ld, Hkv, D]), as raw int8 ``kd``/``vd`` with per-token scales
+``kd_scale``/``vd_scale`` ([B, Ld]), or as ``paged``: a
+:class:`~repro_torch.core.prettr.PagedDocKV` view of the device doc
+cache's page pools (``kd``/``vd`` None).
+
+Implementations: ``"plain"`` runs the plain PyTorch versions with the JAX
+package's "plain" semantics (int8 K/V are dequantised and rounded to the
+compute dtype, paged pools densified and sliced to ``kd_valid``'s
+length); ``"cuda"`` runs the kernel wrappers, which launch the
+hand-written Hopper kernels on CUDA tensors (and their plain versions on
+CPU tensors): int8 K/V go to the kernel's int8 form, paged pools to its
+paged form.  Causal and window masks are not ported yet and raise
+``NotImplementedError`` in every impl.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels.fused_compress import fused_compress, fused_decompress
-from repro_torch.kernels.join_attention import join_flash_attention
+from repro_torch.kernels.join_attention import (join_flash_attention,
+                                                join_flash_attention_paged)
 from repro_torch.kernels.split_attention import split_flash_attention
 from repro_torch.models import layers as L
 
@@ -75,15 +84,39 @@ def _unported_attention(cfg, window):
             "window forms)")
 
 
-def _unported_join(kd_scale, vd_scale, paged):
-    if kd_scale is not None or vd_scale is not None:
-        raise NotImplementedError(
-            "raw-int8 doc K/V (kd_scale/vd_scale) is not ported yet: it "
-            "arrives with slice 2 (int8 reps + stored layer-K/V + doc cache)")
-    if paged is not None:
-        raise NotImplementedError(
-            "the paged doc segment is not ported yet: it arrives with slice "
-            "2 (join_attention_pallas_paged + serving/doc_cache.py)")
+def _check_doc_operands(kd, kd_scale, vd_scale, paged):
+    if (kd_scale is None) != (vd_scale is None):
+        raise ValueError("pass both kd_scale and vd_scale or neither")
+    if paged is not None and (kd is not None or kd_scale is not None):
+        raise ValueError("a paged doc segment replaces kd/vd and their "
+                         "scales; pass them as None")
+
+
+def _pages_to_rows(pool, page_table):
+    """[P, page, ...] pool + [B, nP] table -> [B, nP * page, ...] rows."""
+    g = pool[page_table.long()]
+    return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
+
+
+def _densify_paged(paged, kd_valid):
+    """The paged doc segment as dense [B, Ld, Hkv, D] rows, sliced to the
+    caller's dense doc length."""
+    ld = kd_valid.shape[1] if kd_valid is not None else None
+    kd = _pages_to_rows(paged.k, paged.page_table)[:, :ld]
+    vd = _pages_to_rows(paged.v, paged.page_table)[:, :ld]
+    kd_scale = vd_scale = None
+    if paged.k_scale is not None:
+        kd_scale = _pages_to_rows(paged.k_scale, paged.page_table)[:, :ld, 0]
+        vd_scale = _pages_to_rows(paged.v_scale, paged.page_table)[:, :ld, 0]
+    return kd, vd, kd_scale, vd_scale
+
+
+def _dequant_kv(kd, vd, kd_scale, vd_scale, cfg):
+    """Widen raw-int8 doc K/V with per-token float32 scales, then round to
+    the compute dtype: decode-then-attend."""
+    kd = (kd.float() * kd_scale.float()[..., None, None]).to(cfg.compute_dtype)
+    vd = (vd.float() * vd_scale.float()[..., None, None]).to(cfg.compute_dtype)
+    return kd, vd
 
 
 def _model_layout_out(q):
@@ -127,9 +160,14 @@ def _attention_cuda(q, k, v, *, cfg, scale, split_flag, segs, valid,
 def _join_plain(q, kq, vq, kd, vd, *, cfg, scale, q_valid=None,
                 kq_valid=None, kd_valid=None, kd_scale=None, vd_scale=None,
                 paged=None):
-    del cfg
-    _unported_join(kd_scale, vd_scale, paged)
+    _check_doc_operands(kd, kd_scale, vd_scale, paged)
     b, sq = q.shape[0], q.shape[1]
+    if paged is not None:
+        kd, vd, kd_scale, vd_scale = _densify_paged(paged, kd_valid)
+        if kd_scale is None:
+            kd, vd = kd.to(cfg.compute_dtype), vd.to(cfg.compute_dtype)
+    if kd_scale is not None:
+        kd, vd = _dequant_kv(kd, vd, kd_scale, vd_scale, cfg)
     k = torch.cat([kq, kd], dim=1)
     v = torch.cat([vq, vd], dim=1)
     ones = lambda n: torch.ones((b, n), dtype=torch.bool, device=q.device)
@@ -147,11 +185,18 @@ def _join_cuda(q, kq, vq, kd, vd, *, cfg, scale, q_valid=None,
                kq_valid=None, kd_valid=None, kd_scale=None, vd_scale=None,
                paged=None):
     del cfg, scale, q_valid          # kernel derives scale; keys mask only
-    _unported_join(kd_scale, vd_scale, paged)
+    _check_doc_operands(kd, kd_scale, vd_scale, paged)
     out, out_t = _model_layout_out(q)
-    join_flash_attention(q.transpose(1, 2), kq.transpose(1, 2),
-                         vq.transpose(1, 2), kd.transpose(1, 2),
-                         vd.transpose(1, 2), kq_valid, kd_valid, out=out_t)
+    qt, kqt, vqt = (t.transpose(1, 2) for t in (q, kq, vq))
+    if paged is not None:            # the kernel walks the page table
+        join_flash_attention_paged(
+            qt, kqt, vqt, paged.k, paged.v, paged.page_table, paged.valid,
+            kq_valid, kd_scale_pages=paged.k_scale,
+            vd_scale_pages=paged.v_scale, out=out_t)
+    else:
+        join_flash_attention(qt, kqt, vqt, kd.transpose(1, 2),
+                             vd.transpose(1, 2), kq_valid, kd_valid,
+                             kd_scale, vd_scale, out=out_t)
     return out
 
 

@@ -19,7 +19,10 @@ from repro_torch.kernels.fused_compress import (compress_ref, decompress_ref,
                                                 fused_compress,
                                                 fused_decompress)
 from repro_torch.kernels.join_attention import (join_attention_ref,
-                                                join_flash_attention)
+                                                join_attention_ref_paged,
+                                                join_attention_ref_quant,
+                                                join_flash_attention,
+                                                join_flash_attention_paged)
 from repro_torch.kernels.masking import last_valid_lengths
 from repro_torch.kernels.split_attention import (split_attention_ref,
                                                  split_flash_attention)
@@ -163,6 +166,130 @@ def test_decompress_kernel(dev, rows, e, d, dtype):
     _close(got, decompress_ref(r, w, b, gamma, beta, out_dtype=dt), dtype)
 
 
+def _int8_kv(g, dev, *shape):
+    """Raw int8 K/V and per-token scales like the int8 codec's."""
+    x = torch.randint(-127, 128, shape, generator=g, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    b, _, ld, _ = shape
+    s = 1e-3 + 0.05 * torch.rand((b, ld), generator=g, device=dev)
+    return x, s
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,sq,lq,ld,d", JOIN_SHAPES)
+def test_join_attention_int8_kernel(dev, b, hq, hkv, sq, lq, ld, d, dtype):
+    """Raw int8 doc K/V with per-token scales against decode-then-attend;
+    Sq = 1 goes to the tiled kernel too."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    dt = DTYPES[dtype]
+    q = _rand(g, dev, dt, b, hq, sq, d)
+    kq, vq = (_rand(g, dev, dt, b, hkv, lq, d) for _ in range(2))
+    (kd, ks), (vd, vs) = (_int8_kv(g, dev, b, hkv, ld, d) for _ in range(2))
+    kqv = torch.arange(lq, device=dev)[None] < torch.randint(
+        1, lq + 1, (b, 1), device=dev, generator=g)
+    kdv = torch.arange(ld, device=dev)[None] < torch.randint(
+        1, ld + 1, (b, 1), device=dev, generator=g)
+    kdv[:, min(2, ld - 1)] = False            # non-prefix doc validity
+    kdv[:, 0] = True
+    before = join_flash_attention.int8_launches
+    got = join_flash_attention(q, kq, vq, kd, vd, kqv, kdv, ks, vs)
+    want = join_attention_ref_quant(q, kq, vq, kd, vd, ks, vs, kqv, kdv)
+    _close(got, want, dtype)
+    assert join_flash_attention.int8_launches == before + 1
+
+
+POOL_DTYPES = {"int8": torch.int8, **DTYPES}
+
+
+def _paged_world(g, dev, b, hkv, d, page, n_slots, pool_dtype):
+    """Pools [P, page, Hkv, D] with page 0 all zero, a page table whose
+    rows hold distinct real pages, zero-page tails and, in row 0, a stale
+    page (real data, zero validity) behind the document's end; non-prefix
+    validity inside the documents."""
+    n_pool = 2 + b * n_slots
+    if pool_dtype == torch.int8:
+        k = torch.randint(-127, 128, (n_pool, page, hkv, d), generator=g,
+                          device=dev, dtype=torch.int32).to(torch.int8)
+        v = torch.randint(-127, 128, (n_pool, page, hkv, d), generator=g,
+                          device=dev, dtype=torch.int32).to(torch.int8)
+        scales = [1e-3 + 0.05 * torch.rand((n_pool, page, 1), generator=g,
+                                           device=dev) for _ in range(2)]
+    else:
+        k, v = (_rand(g, dev, pool_dtype, n_pool, page, hkv, d)
+                for _ in range(2))
+        scales = [None, None]
+    valid = torch.rand((n_pool, page), generator=g, device=dev) < 0.8
+    valid[:, 0] = True
+    table = (2 + torch.randperm(n_pool - 2, generator=g, device=dev)
+             [: b * n_slots].reshape(b, n_slots)).to(torch.int32)
+    for row in range(1, b):                   # short docs: zero-page tails
+        table[row, 1 + row % n_slots:] = 0
+    if n_slots > 1:                           # row 0: a stale last page
+        valid[table[0, -1].long()] = False
+    for t in (k, v, *(s for s in scales if s is not None)):
+        t[0] = 0
+    valid[0] = False
+    return k, v, table, valid.to(torch.int8), scales
+
+
+@pytest.mark.parametrize("pool", list(POOL_DTYPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("page,n_slots,hq,hkv,d", [
+    (8, 5, 4, 2, 32), (24, 3, 4, 1, 16), (64, 8, 12, 12, 64),
+    (480, 2, 8, 4, 64)])
+def test_join_attention_paged_kernel(dev, page, n_slots, hq, hkv, d, dtype,
+                                     pool):
+    g = torch.Generator(device=dev).manual_seed(7)
+    dt, b, lq = DTYPES[dtype], 3, 16
+    sq = lq + page * n_slots
+    k, v, table, valid, (ks, vs) = _paged_world(g, dev, b, hkv, d, page,
+                                                n_slots, POOL_DTYPES[pool])
+    q = _rand(g, dev, dt, b, hq, sq, d)
+    kq, vq = (_rand(g, dev, dt, b, hkv, lq, d) for _ in range(2))
+    kqv = torch.arange(lq, device=dev)[None] < torch.randint(
+        1, lq + 1, (b, 1), device=dev, generator=g)
+    before = join_flash_attention_paged.launches
+    got = join_flash_attention_paged(q, kq, vq, k, v, table, valid, kqv,
+                                     kd_scale_pages=ks, vd_scale_pages=vs)
+    want = join_attention_ref_paged(q, kq, vq, k, v, table, valid, kqv,
+                                    kd_scale_pages=ks, vd_scale_pages=vs)
+    _close(got, want, dtype)
+    assert join_flash_attention_paged.launches == before + 1
+    if n_slots > 1:                           # the stale page is masked
+        fresh = table.clone()
+        fresh[0, -1] = 0
+        _close(got[:1], join_attention_ref_paged(
+            q, kq, vq, k, v, fresh, valid, kqv, kd_scale_pages=ks,
+            vd_scale_pages=vs)[:1], dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_compress_kernel_f32_out(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = _rand(g, dev, DTYPES[dtype], 2 * 480, 768)
+    w = _rand(g, dev, torch.float32, 768, 256) / 768 ** 0.5
+    b = _rand(g, dev, torch.float32, 256)
+    before = fused_compress.f32_launches
+    got = fused_compress(x, w, b, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and fused_compress.f32_launches \
+        == before + 1
+    _close(got, compress_ref(x, w, b, out_dtype=torch.float32), "float32")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rows,e,d", [(37, 16, 64), (2 * 480, 256, 768)])
+def test_decompress_kernel_f32_in(dev, rows, e, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(9)
+    r = _rand(g, dev, torch.float32, rows, e)
+    w = _rand(g, dev, torch.float32, e, d) / e ** 0.5
+    b, gamma, beta = (_rand(g, dev, torch.float32, d) for _ in range(3))
+    dt = DTYPES[dtype]
+    before = fused_decompress.f32_launches
+    got = fused_decompress(r, w, b, gamma, beta, out_dtype=dt)
+    assert fused_decompress.f32_launches == before + 1
+    _close(got, decompress_ref(r, w, b, gamma, beta, out_dtype=dt), dtype)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 2, 8, 48), device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -181,8 +308,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fused_compress(x, torch.zeros((6, 8), device=dev),
                        torch.zeros(8, device=dev))
     with pytest.raises(TypeError, match="float16"):
-        fused_decompress(x, torch.zeros((6, 8), device=dev),
+        fused_decompress(x.to(torch.bfloat16), torch.zeros((6, 8), device=dev),
                          *(torch.zeros(8, device=dev) for _ in range(3)))
+    i8 = torch.zeros((2, 2, 8, 32), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="scales"):
+        join_flash_attention(q, q, q, i8, i8)
+    with pytest.raises(TypeError, match="float16 or float32"):
+        fused_compress(torch.zeros((4, 8), device=dev),
+                       torch.zeros((8, 8), device=dev),
+                       torch.zeros(8, device=dev), out_dtype=torch.bfloat16)
 
 
 def test_smoke_service_kernels_match_plain(dev, tmp_path):
@@ -210,5 +344,46 @@ def test_smoke_service_kernels_match_plain(dev, tmp_path):
                              micro_batch=8)
         resp = svc.rank(q, qv, list(range(24)))
         scores[impl] = dict(zip(resp.doc_ids, resp.scores))
+    for doc, s in scores["plain"].items():
+        assert abs(scores["cuda"][doc] - s) < 1e-4, doc
+
+
+@pytest.mark.parametrize("cache_mb", [0, 8])
+def test_smoke_int8_kv_service_kernels_match_plain(dev, tmp_path, cache_mb):
+    """An int8 index with int8 layer-l K/V at smoke_config, served with
+    stored K/V (and the paged doc cache) through the kernels against the
+    plain impl, float32 on the card."""
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.core.prettr import init_prettr
+    from repro_torch.index import IndexBuilder, TermRepIndex
+    from repro_torch.serving import RankingService
+
+    rng = np.random.default_rng(10)
+    docs = [rng.integers(4, 512, rng.integers(3, 60)) for _ in range(24)]
+    q = np.zeros(8, np.int64)
+    q[:5] = [1, 17, 99, 250, 2]
+    qv = q != 0
+    cfg = smoke_config()
+    params = init_prettr(cfg, torch.Generator().manual_seed(0),
+                         device="cuda")
+    IndexBuilder(str(tmp_path), cfg, params, codec="int8",
+                 store_layer_kv=True, kv_codec="int8", batch_size=8).build(
+        docs)
+    scores = {}
+    for impl in ("plain", "cuda"):
+        cfg = smoke_config(attn_impl=impl, compress_impl=impl)
+        svc = RankingService(params, cfg, TermRepIndex.open(str(tmp_path)),
+                             micro_batch=8, use_layer_kv=True,
+                             doc_cache_mb=cache_mb, page_tokens=16)
+        counts = (join_flash_attention.int8_launches,
+                  join_flash_attention_paged.launches)
+        for _ in range(2):                    # cold, then warm
+            resp = svc.rank(q, qv, list(range(24)))
+        scores[impl] = dict(zip(resp.doc_ids, resp.scores))
+        if impl == "cuda":
+            launched = (join_flash_attention.int8_launches - counts[0],
+                        join_flash_attention_paged.launches - counts[1])
+            assert launched == ((0, 6) if cache_mb else (6, 0))
+        assert svc.stats.n_decode_dispatch == 0
     for doc, s in scores["plain"].items():
         assert abs(scores["cuda"][doc] - s) < 1e-4, doc

@@ -114,8 +114,9 @@ def test_port_reads_jax_index_bytes_exactly(jax_index_dir):
                                         theirs.gather_raw(ids))
     np.testing.assert_array_equal(parts["reps"], jparts["reps"])
     np.testing.assert_array_equal(valid, jvalid)
-    reps, tvalid = ours.stage(ids, device="cpu")
-    np.testing.assert_array_equal(reps.numpy(), jparts["reps"])
+    tparts, tvalid = ours.stage(ids, device="cpu")
+    assert list(tparts) == ["reps"]
+    np.testing.assert_array_equal(tparts["reps"].numpy(), jparts["reps"])
     np.testing.assert_array_equal(tvalid.numpy(), jvalid)
 
 
@@ -152,7 +153,8 @@ def test_packed_service_scores_like_direct_join(jax_index_dir, micro_batch):
                          device="cpu")
     got = _serve(svc, RankRequest)
     for i, (q, qv, ids) in enumerate(_world()[2]):
-        reps, dvalid = index.stage(ids, pad_to=MAX_D, device="cpu")
+        parts, dvalid = index.stage(ids, pad_to=MAX_D, device="cpu")
+        reps = parts["reps"]
         qt = torch.from_numpy(q)[None]
         qvt = torch.from_numpy(qv)[None]
         qr = TP.encode_query(params, tcfg, qt, qvt)
@@ -198,7 +200,7 @@ def test_index_reader_rejects_what_it_cannot_serve(jax_index_dir, tmp_path):
     with pytest.raises(IndexFormatError, match="no manifest"):
         TermRepIndex.open(str(tmp_path))
     (tmp_path / "manifest.msgpack").write_bytes(
-        _msgpack.packb({"version": 2, "codec": "int8", "rep_dim": 16, "l": 2,
+        _msgpack.packb({"version": 2, "codec": "pq", "rep_dim": 16, "l": 2,
                         "compressed": True, "max_doc_len": 24,
                         "shards": []}))
     with pytest.raises(IndexFormatError, match="not ported"):
@@ -213,3 +215,41 @@ def test_index_reader_rejects_what_it_cannot_serve(jax_index_dir, tmp_path):
     with pytest.raises(ValueError, match="l=2"):
         RankingService(_port_params(tcfg), wrong_l,
                        TermRepIndex.open(jax_index_dir), device="cpu")
+
+
+def test_compat_rejects_a_kv_width_the_config_does_not_have(tmp_path):
+    """An index whose stored layer-l K/V are wider than the config's
+    n_kv_heads * head_dim cannot be served."""
+    _, tcfg = _configs()
+    _, docs, _ = _world()
+    IndexBuilder(str(tmp_path), tcfg, _port_params(tcfg), codec="int8",
+                 store_layer_kv=True, kv_codec="int8", batch_size=8,
+                 device="cpu").build(docs[:6])
+    index = TermRepIndex.open(str(tmp_path))
+    assert index.kv_dim == 2 * 16
+    mha = dataclasses.replace(tcfg, backbone=dataclasses.replace(
+        tcfg.backbone, n_kv_heads=4))
+    with pytest.raises(ValueError, match="K/V streams of width 32"):
+        RankingService(_port_params(mha), mha, index, device="cpu")
+    RankingService(_port_params(tcfg), tcfg, index, device="cpu")
+
+
+def test_compat_falls_back_to_the_longest_doc(jax_index_dir, tmp_path):
+    """A manifest that records max_doc_len 0 is held to its longest stored
+    document, so a config that pads shorter is refused, not truncated."""
+    import shutil
+    path = shutil.copytree(jax_index_dir, str(tmp_path / "idx"))
+    mani_p = tmp_path / "idx" / "manifest.msgpack"
+    mani = _msgpack.unpackb(mani_p.read_bytes())
+    mani["max_doc_len"] = 0
+    mani_p.write_bytes(_msgpack.packb(mani))
+    index = TermRepIndex.open(path)
+    longest = int(index.doc_lengths.max())
+    assert index.max_doc_len == 0 and longest == MAX_D
+    _, tcfg = _configs()
+    short = dataclasses.replace(tcfg, max_doc_len=longest - 1)
+    with pytest.raises(ValueError, match=f"max_doc_len={longest} exceeds"):
+        RankingService(_port_params(short), short, index, device="cpu")
+    got = _serve(RankingService(_port_params(tcfg), tcfg, index,
+                                micro_batch=4, device="cpu"), RankRequest)
+    assert sorted(got) == ["r0", "r1", "r2"]

@@ -154,9 +154,11 @@ def _attn_args(b=2, s=6, h=2, d=16):
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("operand", ["kd_scale", "paged"])
 def test_unported_join_operands_raise(impl, operand):
+    """The int8 and paged doc operands are ported; malformed ones raise:
+    a lone scale, or a paged segment beside dense K/V."""
     t, kw = _attn_args()
     kw[operand] = torch.ones((2, 6))
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(ValueError, match="both|replaces"):
         TB.get_impl("join_attention", impl)(t, t, t, t, t,
                                             cfg=TransformerConfig(), **kw)
 
@@ -180,9 +182,10 @@ def test_join_and_score_rejects_unported_paths():
     q, d, qv, dv = (torch.from_numpy(a) for a in _inputs())
     qr = TP.encode_query(params, tcfg, q, qv)
     store = TP.precompute_docs(params, tcfg, d, dv)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(ValueError, match="fused"):
         TP.join_and_score(params, tcfg, qr, qv, store, dv,
-                          doc_kv=(store, store))
+                          doc_kv=TP.precompute_doc_kv(params, tcfg, store),
+                          fused=False)
     with pytest.raises(NotImplementedError, match="concat"):
         TP.join_and_score(params, tcfg, qr, qv, store, dv, fused=False)
     with pytest.raises(ValueError, match="split_layers"):
