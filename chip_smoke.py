@@ -11,14 +11,22 @@ at l=6, e=256, bf16 compute) with seeded random weights:
    median of 20 after warm-up) beside the plain version, one library call
    that computes the same function, and the least time the card could
    take: split and join attention (dense float, raw int8 K/V, paged over
-   int8 and fp16 pools, the CLS row), compress and decompress (fp16 and
-   float32 storage);
+   int8 and fp16 pools, the CLS row), flash decode (the CLS-only layer's
+   shape, and GQA with a window at gemma3's), compress and decompress
+   (fp16 and float32 storage);
 3. index   -- ``IndexBuilder`` writes a 512-document fp16 index, reopened
    with ``TermRepIndex``;
-4. serve   -- ``RankingService`` answers 8 requests x 64 candidates in
-   micro-batches of 32, through the kernels and through the plain impl, in
-   bf16 and in float32; then one drain of the kernel path under
-   ``torch.profiler``: the device's busy share and its kernels by time;
+4. serve   -- ``RankingService`` (prefetch thread on, its default)
+   answers 8 requests x 64 candidates in micro-batches of 32, through the
+   kernels and through the plain impl, in bf16 and in float32; the same
+   through the legacy concat join (``fused=False``: split attention over
+   [B, 512] and the flash-decode CLS layer), held against the plain impl
+   and, in float32, against the fused join; the bf16 kernel run again
+   with ``prefetch_depth=0`` (scores must be bit-equal); one injected
+   staging fault (only its micro-batch's rows fail, every other score is
+   bit-equal) and ``max_queue`` shedding; then one drain of the kernel
+   path under ``torch.profiler``: the device's busy share and its kernels
+   by time;
 4b. int8   -- ``index_int8``: the same documents as int8 reps with int8
    layer-l K/V (``codec="int8", store_layer_kv=True, kv_codec="int8"``);
    ``serve_int8_kv``: the 8 requests with ``use_layer_kv=True``, kernels
@@ -29,15 +37,17 @@ at l=6, e=256, bf16 compute) with seeded random weights:
    scores must equal cold ones bit for bit, and float32 scores must agree
    with the uncached service on the same stream within 1e-4;
 5. soundness -- ``rank_forward == join_and_score(encode_query,
-   precompute_docs)`` on 4 pairs, float32 over fp16 storage.
+   precompute_docs)`` on 4 pairs, float32 over fp16 storage
+   (``rank_forward`` ends in the flash-decode CLS layer, the split path in
+   the join kernel's CLS row).
 
 Kernel launches are counted per path: every counter is set to 0 just
 before each index build, each timed serving run and the soundness check,
 and read just after.  A path that misses a kernel it must run
 (``PATH_KERNELS``), or a plain run that launches any, fails the script.
 The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
-the index builds and the bf16 kernel runs), ``launches_by_path`` gives
-each path's own.
+the index builds and the bf16 kernel runs of each serving form),
+``launches_by_path`` gives each path's own.
 
 Every phase that fails raises and the script exits non-zero.  It prints
 one JSON object per line; the second to last is the ``kernels`` line, the
@@ -76,6 +86,11 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # round the doc reps through the same fp16 cast, so only summation order
 # differs (about 1e-6 at full width)
 SOUND_TOL = 1e-4
+# the legacy concat join against the fused join, both through the kernels
+# in float32: the same function summed in other orders
+LEGACY_TOL = 1e-4
+# the injected staging fault: the 4th micro-batch of the fp16 drain
+FAULT_AFTER = 3
 
 
 def emit(obj):
@@ -131,6 +146,8 @@ def check_kernels(torch, cfg):
     """Every kernel at its main-path shapes against its plain version;
     returns the kernels-line rows (launches filled in later)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                      flash_decode_attention)
     from repro_torch.kernels.fused_compress import (compress_ref,
                                                     decompress_ref,
                                                     fused_compress,
@@ -354,6 +371,63 @@ def check_kernels(torch, cfg):
                + nbytes(kqv) + table_bytes, PEAK_BF16_FLOPS,
                "bf16 tensor cores", row=form == "int8")
 
+    # -- flash decode: the CLS-only layer of the concat join and of
+    #    rank_forward (q [32, 12, 1, 64] against the two-prefix 32 + 480
+    #    keys), float32 and bf16; then GQA 8/4 with a 1024-key window at
+    #    gemma3's head dim over 4096 keys (the LM slice's shape)
+    s = lq + ld
+    k, v = (rand(b, h, s, dh) for _ in range(2))
+    q = rand(b, h, 1, dh)
+    cls_valid = torch.cat([_prefix_mask(torch, gen, b, lq, 3),
+                           _prefix_mask(torch, gen, b, ld, ld // 4)], 1)
+    lengths = last_valid_lengths(cls_valid)
+    f32 = [t.float() for t in (q, k, v)]
+    compare("decode_attention",
+            flash_decode_attention(*f32, lengths, cls_valid),
+            decode_attention_ref(*f32, lengths, cls_valid), "float32",
+            [b, h, 1, dh, s])
+    err = compare("decode_attention",
+                  flash_decode_attention(q, k, v, lengths, cls_valid),
+                  decode_attention_ref(q, k, v, lengths, cls_valid),
+                  "bfloat16", [b, h, 1, dh, s])
+    record("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+           "src/repro/kernels/decode_attention/kernel.py:75", err,
+           lambda: flash_decode_attention(q, k, v, lengths, cls_valid),
+           lambda: decode_attention_ref(q, k, v, lengths, cls_valid),
+           lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=cls_valid[:, None, None, :]),
+           4 * dh * h * cls_valid.sum().item(),
+           # K/V bytes of the valid keys only: the padding between the two
+           # prefixes is masked, and the kernel skips those tiles
+           2 * nbytes(q) + 2 * int(cls_valid.sum()) * h * dh * q.element_size()
+           + nbytes(cls_valid, lengths), PEAK_BF16_FLOPS,
+           "bf16 tensor cores")
+    gb, ghq, ghkv, gs, gd, window = 4, 8, 4, 4096, 256, 1024
+    q = rand(gb, ghq, 1, gd)
+    k, v = (rand(gb, ghkv, gs, gd) for _ in range(2))
+    lengths = torch.tensor([4096, 2048, 4089, 1000], device="cuda",
+                           dtype=torch.int32)
+    err = compare("decode_attention",
+                  flash_decode_attention(q, k, v, lengths, window=window),
+                  decode_attention_ref(q, k, v, lengths, window=window),
+                  "bfloat16", [gb, ghq, 1, gd, gs, window])
+    pos = torch.arange(gs, device="cuda")[None]
+    in_window = (pos < lengths[:, None]) & (pos >= lengths[:, None] - window)
+    n_window = int(in_window.sum())
+    # K/V bytes from each row's first to its last key in the window
+    record("decode_attention_gqa_window",
+           "src/repro_torch/csrc/decode_attention.cu",
+           "src/repro/kernels/decode_attention/kernel.py:75", err,
+           lambda: flash_decode_attention(q, k, v, lengths, window=window),
+           lambda: decode_attention_ref(q, k, v, lengths, window=window),
+           lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=in_window[:, None, None, :],
+               enable_gqa=True),
+           4 * gd * ghq * n_window,
+           2 * nbytes(q) + 2 * n_window * ghkv * gd * q.element_size()
+           + nbytes(lengths), PEAK_BF16_FLOPS, "bf16 tensor cores",
+           row=False)
+
     # -- compress (index time) and decompress (every micro-batch); their
     #    weights stay float32, so the products are float32 operations
     w_c = rand(d, e, dtype=torch.float32, scale=d ** -0.5)
@@ -475,12 +549,14 @@ def make_zipf_requests(rng, cfg):
 
 def launch_counters():
     """Each kernel's launch counter, as (wrapper, attribute)."""
+    from repro_torch.kernels.decode_attention import flash_decode_attention
     from repro_torch.kernels.fused_compress import (fused_compress,
                                                     fused_decompress)
     from repro_torch.kernels.join_attention import (join_flash_attention,
                                                     join_flash_attention_paged)
     from repro_torch.kernels.split_attention import split_flash_attention
     return {"split_attention": (split_flash_attention, "launches"),
+            "decode_attention": (flash_decode_attention, "launches"),
             "join_attention": (join_flash_attention, "launches"),
             "join_attention_row": (join_flash_attention, "row_launches"),
             "join_attention_int8": (join_flash_attention, "int8_launches"),
@@ -508,33 +584,41 @@ _INT8_SERVE = ("split_attention", "join_attention", "join_attention_int8",
                "join_attention_row", "decompress_f32")
 _CACHED_SERVE = ("split_attention", "join_attention", "join_attention_paged",
                  "join_attention_row", "decompress_f32")
+# the concat join: split attention over [B, 512], no join kernel, and the
+# flash-decode CLS-only layer
+_LEGACY_SERVE = ("split_attention", "decompress", "decode_attention")
 PATH_KERNELS = {
     "index": ("split_attention", "compress"),
     "serve": _FP16_SERVE, "serve_f32": _FP16_SERVE,
+    "serve_sync": _FP16_SERVE,
+    "serve_legacy": _LEGACY_SERVE, "serve_legacy_f32": _LEGACY_SERVE,
+    # rank_forward ends in the decode layer, join_and_score in the row
     "soundness": ("split_attention", "join_attention", "join_attention_row",
-                  "compress", "decompress"),
+                  "decode_attention", "compress", "decompress"),
     "index_int8": ("split_attention", "compress_f32", "decompress_f32"),
     "serve_int8_kv": _INT8_SERVE, "serve_int8_kv_f32": _INT8_SERVE,
     "serve_int8_kv_zipf_f32": _INT8_SERVE,
     "serve_cached": _CACHED_SERVE, "serve_cached_f32": _CACHED_SERVE,
     "plain_bf16": (), "plain_f32": (),
+    "plain_legacy_bf16": (), "plain_legacy_f32": (),
     "plain_int8_kv_bf16": (), "plain_int8_kv_f32": (),
     "plain_cached_bf16": (), "plain_cached_f32": (),
 }
 # the paths whose launches make the kernels line's `launches`: the index
 # builds and the bf16 drains of each serving form
-MAIN_PATHS = ("index", "serve", "index_int8", "serve_int8_kv",
-              "serve_cached")
+MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
+              "serve_int8_kv", "serve_cached")
 
 
 def serve(torch, params, cfg, index, requests, label, name, passes=1,
           **svc_kw):
     """Serve ``requests`` ``passes`` times on one service, after a
-    one-request warm-up on another; returns each pass's scores and the
-    launches of the timed passes."""
+    one-request warm-up on another; returns each pass's scores, the
+    launches of the timed passes and the printed line."""
     from repro_torch.serving import RankingService, RankRequest
     warm = RankingService(params, cfg, index, micro_batch=MICRO_BATCH,
-                          use_layer_kv=svc_kw.get("use_layer_kv"))
+                          use_layer_kv=svc_kw.get("use_layer_kv"),
+                          fused=svc_kw.get("fused", True))
     q, qv, ids = requests[0]
     warm.rank(q, qv, ids[:MICRO_BATCH])
     del warm
@@ -573,6 +657,8 @@ def serve(torch, params, cfg, index, requests, label, name, passes=1,
             "docs_per_s": st.n_rows / wall, "pad_rows": st.n_pad_rows,
             "h2d_bytes": st.h2d_bytes, "query_encode_s": st.query_encode_s,
             "load_s": st.load_s, "combine_s": st.combine_s,
+            "prefetch_depth": svc.engine.prefetch_depth,
+            "fused": svc.engine.fused,
             "join_dispatch": st.n_join_dispatch,
             "decode_dispatch": st.n_decode_dispatch, "finite": finite,
             "launches": launches}
@@ -600,7 +686,7 @@ def serve(torch, params, cfg, index, requests, label, name, passes=1,
         raise AssertionError(f"serve {label}: {st.n_decode_dispatch} decode "
                              f"dispatches, {st.n_join_dispatch} joins for "
                              f"{st.n_batches} micro-batches")
-    return runs, launches, svc
+    return runs, launches, line
 
 
 def profile_serve(torch, params, cfg, index, requests, name):
@@ -650,6 +736,51 @@ def max_diff(a, b):
     return max(abs(a[k] - b[k]) for k in a)
 
 
+def serve_faults(torch, params, cfg, index, requests, name, clean):
+    """One seeded staging error in the kernel bf16 service: only that
+    micro-batch's rows fail (-inf, responses degraded) and every other
+    score is bit-equal to the clean run; then ``max_queue=2`` sheds the
+    third submit."""
+    from repro_torch.serving import (FaultPlan, FaultSpec, RankingService,
+                                     RankRequest, ServiceOverloadError)
+    svc = RankingService(params, cfg, index, micro_batch=MICRO_BATCH)
+    spec = FaultSpec("engine.stage", "error", after=FAULT_AFTER)
+    with FaultPlan([spec], seed=SEED) as plan:
+        for i, (q, qv, ids) in enumerate(requests):
+            svc.submit(RankRequest(q, qv, ids, request_id=f"r{i}"))
+        resps = svc.drain()
+    failed = {(r.request_id, d) for r in resps for d in r.failed_doc_ids}
+    want = lambda key: -math.inf if key in failed else clean[key]
+    wrong = [(r.request_id, d) for r in resps
+             for d, sc in zip(r.doc_ids, r.scores)
+             if sc != want((r.request_id, d))]
+    degraded = sorted(r.request_id for r in resps if r.degraded)
+    shed = RankingService(params, cfg, index, micro_batch=MICRO_BATCH,
+                          max_queue=2)
+    q, qv, ids = requests[0]
+    for i in range(2):
+        shed.submit(RankRequest(q, qv, ids, request_id=f"s{i}"))
+    try:
+        shed.submit(RankRequest(q, qv, ids, request_id="s2"))
+        shed_error = None
+    except ServiceOverloadError as e:
+        shed_error = type(e).__name__
+    n_served = len(shed.drain())
+    line = {"phase": "serve_faults", "device": name,
+            "fired": plan.n_fired(), "failed_rows": len(failed),
+            "n_failed_rows": svc.stats.n_failed_rows,
+            "degraded_requests": degraded,
+            "n_degraded": svc.stats.n_degraded,
+            "wrong_scores": len(wrong), "shed_error": shed_error,
+            "n_shed": shed.stats.n_shed, "served_after_shed": n_served}
+    emit(line)
+    if not (plan.n_fired() == 1 and len(failed) == MICRO_BATCH
+            and svc.stats.n_failed_rows == MICRO_BATCH and degraded
+            and svc.stats.n_degraded == len(degraded) and not wrong
+            and shed_error and shed.stats.n_shed == 1 and n_served == 2):
+        raise AssertionError(f"serve_faults: {line}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -697,6 +828,7 @@ def main():
     requests = make_requests(rng, cfg)
 
     launches = {}                  # path -> kernel -> launches
+    lines = {}                     # path -> its serve line
     plain = lambda c: dataclasses.replace(c, backbone=dataclasses.replace(
         c.backbone, attn_impl="plain", compress_impl="plain"))
 
@@ -726,7 +858,7 @@ def main():
         runs = {}
         for path, label, c in zip(paths, labels, (cfg, plain(cfg), cfg32,
                                                   plain(cfg32))):
-            runs[path], launches[path], _ = serve(
+            runs[path], launches[path], lines[path] = serve(
                 torch, params, c, index, reqs, label, name, passes=passes,
                 **kw)
         s_bf16, p_bf16, s_f32, p_f32 = (runs[p][0] for p in paths)
@@ -752,10 +884,51 @@ def main():
     # 3. index, fp16 streams
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
         index = build(tmp, "index", codec="fp16")
-        # 4. serve: kernels against the plain impl, bf16 and float32
-        serve_both(index, requests, ("serve", "plain_bf16", "serve_f32",
-                                     "plain_f32"),
-                   ("cuda_bf16", "plain_bf16", "cuda_f32", "plain_f32"))
+        # 4. serve: kernels against the plain impl, bf16 and float32,
+        #    through the fused join and the legacy concat join
+        fused_runs = serve_both(
+            index, requests, ("serve", "plain_bf16", "serve_f32",
+                              "plain_f32"),
+            ("cuda_bf16", "plain_bf16", "cuda_f32", "plain_f32"))
+        legacy_runs = serve_both(
+            index, requests, ("serve_legacy", "plain_legacy_bf16",
+                              "serve_legacy_f32", "plain_legacy_f32"),
+            ("cuda_legacy_bf16", "plain_legacy_bf16", "cuda_legacy_f32",
+             "plain_legacy_f32"), fused=False)
+        legacy = {"phase": "legacy_vs_fused", "device": name,
+                  "f32_max_abs_diff": max_diff(
+                      legacy_runs["serve_legacy_f32"][0],
+                      fused_runs["serve_f32"][0]),
+                  "tol": LEGACY_TOL,
+                  "qps_legacy_bf16": lines["serve_legacy"]["qps"],
+                  "qps_fused_bf16": lines["serve"]["qps"]}
+        emit(legacy)
+        if legacy["f32_max_abs_diff"] > LEGACY_TOL:
+            raise AssertionError("the legacy concat join disagrees with "
+                                 "the fused join")
+        # the prefetch thread against staging and scoring in turn, then
+        # the prefetched run once more, in this order in one call
+        sync_runs, launches["serve_sync"], lines["serve_sync"] = serve(
+            torch, params, cfg, index, requests, "cuda_bf16_sync", name,
+            prefetch_depth=0)
+        again, _, again_line = serve(torch, params, cfg, index, requests,
+                                     "cuda_bf16_prefetch", name)
+        sync = {"phase": "serve_sync", "device": name,
+                "max_abs_diff": max_diff(sync_runs[0],
+                                         fused_runs["serve"][0]),
+                "max_abs_diff_second_prefetched": max_diff(
+                    sync_runs[0], again[0]),
+                "qps_prefetch": [lines["serve"]["qps"], again_line["qps"]],
+                "qps_sync": lines["serve_sync"]["qps"],
+                "load_s_prefetch": [lines["serve"]["load_s"],
+                                    again_line["load_s"]],
+                "load_s_sync": lines["serve_sync"]["load_s"]}
+        emit(sync)
+        if sync["max_abs_diff"] or sync["max_abs_diff_second_prefetched"]:
+            raise AssertionError("prefetched scores differ from the "
+                                 "synchronous drain's")
+        serve_faults(torch, params, cfg, index, requests, name,
+                     fused_runs["serve"][0])
         profile_serve(torch, params, cfg, index, requests, name)
         del index
 

@@ -1,5 +1,5 @@
 """PreTTR: Precomputing Transformer Term Representations (paper section 4),
-the port of ``repro.core.prettr`` for the fused, no-stored-K/V path.
+the port of ``repro.core.prettr``.
 
 * **Index** -- :func:`precompute_docs` runs documents alone through layers
   ``0..l`` and returns the (compressed, fp16) term reps the index stores.
@@ -8,11 +8,14 @@ the port of ``repro.core.prettr`` for the fused, no-stored-K/V path.
   ``l..n-1`` over the split residual (query and doc segments stay separate
   tensors; attention runs over the split K/V pair through the
   ``join_attention`` backend op), finishing with a CLS-only final layer.
+  ``fused=False`` is the legacy concat join: it materialises
+  ``[B, Lq + Ld, d]``, runs the join layers over it through the
+  ``attention`` op and ends in :func:`_cls_only_layer`, a decode-shaped
+  attention through the ``decode_attention`` op.
 * **Train-time forward** -- :func:`rank_forward` runs the joint input with
-  the split mask below ``l``.  It is kept for the soundness invariant
-  ``rank_forward == join_and_score(encode_query, precompute_docs)`` up to
-  storage rounding; its CLS-only layer is the same split-residual layer
-  with the K/V cut at ``max_query_len``.
+  the split mask below ``l`` and the same :func:`_cls_only_layer`.  It is
+  kept for the soundness invariant ``rank_forward ==
+  join_and_score(encode_query, precompute_docs)`` up to storage rounding.
 
 * **Stored layer-``l`` K/V** -- :func:`precompute_doc_kv` moves the
   join's query-invariant doc-side K/V projections of layer ``l`` to index
@@ -20,8 +23,7 @@ the port of ``repro.core.prettr`` for the fused, no-stored-K/V path.
   raw int8 with per-token scales) or as a :class:`PagedDocKV` view of the
   device doc cache's page pools.
 
-Not ported yet: the legacy concat join, ``doc_salience`` and
-``rank_pairs_loss``.
+Not ported yet: ``doc_salience`` and ``rank_pairs_loss``.
 """
 from __future__ import annotations
 
@@ -137,6 +139,28 @@ def _positions(start: int, n: int, b: int, device):
     return (start + torch.arange(n, device=device)).expand(b, n)
 
 
+def _cls_only_layer(lp, x, cfg: T.TransformerConfig, *, positions, valid):
+    """Final layer computing only the [CLS] (index 0) row of attention
+    (paper section 6.3): a decode-shaped attention through the
+    ``decode_attention`` backend op (the flash-decode kernel under
+    ``"cuda"``).  x: [B, S, d]; positions, valid: [B, S] -> cls rep
+    [B, d]."""
+    b = x.shape[0]
+    h = L.apply_norm(lp["ln1"], x)
+    p = lp["attn"]
+    q = T.project_q(p, h[:, :1], cfg)
+    k, v = T.project_kv(p, h, cfg)
+    # bidirectional: the query row sits past every key
+    q_pos = torch.full((b, 1), (2**31 - 1) // 2, dtype=positions.dtype,
+                       device=x.device)
+    out = B.get_impl("decode_attention", cfg.attn_impl)(
+        q, k, v, cfg=cfg, scale=1.0 / math.sqrt(cfg.dh), k_pos=positions,
+        q_pos=q_pos, window=-1, k_valid=valid, static_window=-1)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.dh) \
+        @ p["wo"].to(cfg.compute_dtype)
+    return T.block_tail(lp, cfg, x[:, :1], out)[:, 0]
+
+
 # ---------------------------------------------------------------------------
 # Train-time joint forward
 # ---------------------------------------------------------------------------
@@ -148,8 +172,8 @@ def rank_forward(params, cfg: PreTTRConfig, tokens, segs, valid):
     [B, S] with S = max_query_len + max_doc_len.  Returns scores [B]."""
     bcfg = cfg.backbone
     b, s = tokens.shape
-    x = T.embed(params["backbone"], bcfg, tokens,
-                _positions(0, s, b, tokens.device), segs)
+    positions = _positions(0, s, b, tokens.device)
+    x = T.embed(params["backbone"], bcfg, tokens, positions, segs)
     x = T.run_layer_range(params["backbone"], bcfg, x, 0, cfg.l, segs=segs,
                           valid=valid, seg_boundary=cfg.max_query_len)
     if cfg.compress_dim:
@@ -162,10 +186,8 @@ def rank_forward(params, cfg: PreTTRConfig, tokens, segs, valid):
     x = T.run_layer_range(params["backbone"], bcfg, x, cfg.l, last,
                           segs=segs, valid=valid)
     if cfg.cls_only_last_layer:
-        lq = cfg.max_query_len
-        cls = _cls_only_layer_split(params["backbone"]["layers"][-1], bcfg,
-                                    x[:, :lq], x[:, lq:], valid[:, :lq],
-                                    valid[:, lq:])
+        cls = _cls_only_layer(params["backbone"]["layers"][-1], x, bcfg,
+                              positions=positions, valid=valid)
     else:
         cls = x[:, 0]
     return _score_from_cls(params, cfg, cls)
@@ -246,7 +268,9 @@ class JoinState:
     stored layer-``l`` K/V in model layout (layer ``l`` then skips the
     doc-side K/V projections); with ``doc_k_scale``/``doc_v_scale`` they
     are raw int8 payload, dequantised inside the join.  ``doc_kv_paged``
-    replaces the dense pair with a :class:`PagedDocKV`."""
+    replaces the dense pair with a :class:`PagedDocKV`.  ``fused`` picks
+    the path :func:`score_join` runs: the split residual, or the legacy
+    concat join."""
     x_q: torch.Tensor                # [B, Lq, d] query reps (compute dtype)
     q_valid: torch.Tensor            # [B, Lq] bool
     x_d: torch.Tensor                # [B, Ld, d] decoded doc reps
@@ -256,6 +280,7 @@ class JoinState:
     doc_k_scale: torch.Tensor | None = None  # [B, Ld] f32 (raw int8 doc_k)
     doc_v_scale: torch.Tensor | None = None  # [B, Ld] f32 (raw int8 doc_v)
     doc_kv_paged: PagedDocKV | None = None
+    fused: bool = True
 
 
 def _stored_kv_operand(st: JoinState):
@@ -278,15 +303,12 @@ def prepare_join(params, cfg: PreTTRConfig, q_reps, q_valid, doc_store,
     ``(k, v, k_scale, v_scale)`` int8 payload with [B, Ld] float32 scales
     (dequantised inside the join); or a :class:`PagedDocKV` whose pools
     may arrive flat ([P, page, d_kv], [P, page] scales) from the device
-    doc cache and are reshaped to the kernel's page layout here."""
-    if not fused:
-        if doc_kv is not None:
-            raise ValueError(
-                "stored layer-l doc K/V streams require the fused join "
-                "path (the legacy concat path re-projects at layer l)")
-        raise NotImplementedError(
-            "the legacy concat join is not ported; the fused split-KV join "
-            "is the port's query-time path")
+    doc cache and are reshaped to the kernel's page layout here.
+    ``fused=False`` (the legacy concat path) takes no stored K/V."""
+    if doc_kv is not None and not fused:
+        raise ValueError(
+            "stored layer-l doc K/V streams require the fused join path "
+            "(the legacy concat path re-projects at layer l)")
     bcfg = cfg.backbone
     x_d = _decode_doc_store(params, cfg, doc_store)
     doc_k = doc_v = doc_k_scale = doc_v_scale = paged = None
@@ -315,7 +337,7 @@ def prepare_join(params, cfg: PreTTRConfig, q_reps, q_valid, doc_store,
                      q_valid=q_valid.bool(), x_d=x_d,
                      d_valid=doc_valid.bool(), doc_k=doc_k, doc_v=doc_v,
                      doc_k_scale=doc_k_scale, doc_v_scale=doc_v_scale,
-                     doc_kv_paged=paged)
+                     doc_kv_paged=paged, fused=fused)
 
 
 def _unpack_stored_kv(doc_kv):
@@ -410,12 +432,50 @@ def _score_join_fused(params, cfg: PreTTRConfig, st: JoinState):
     return _score_from_cls(params, cfg, cls)
 
 
+def _score_join_concat(params, cfg: PreTTRConfig, st: JoinState):
+    """Legacy concat join: materialise [B, Lq + Ld, d] at the joint
+    forward's positions (``[0, Lq) ++ max_query_len + [0, Ld)``) and run
+    layers ``l..n-2`` over it, then the CLS-only layer and the score."""
+    bcfg = cfg.backbone
+    layers = params["backbone"]["layers"]
+    b, lq, _ = st.x_q.shape
+    ld = st.x_d.shape[1]
+    dev = st.x_q.device
+    x = torch.cat([st.x_q, st.x_d], dim=1)
+    positions = torch.cat([torch.arange(lq, device=dev),
+                           cfg.max_query_len
+                           + torch.arange(ld, device=dev)]).expand(b, lq + ld)
+    segs = torch.cat([torch.zeros((b, lq), dtype=torch.long, device=dev),
+                      torch.ones((b, ld), dtype=torch.long, device=dev)],
+                     dim=1)
+    valid = torch.cat([st.q_valid, st.d_valid], dim=1)
+    last = bcfg.n_layers - (1 if cfg.cls_only_last_layer else 0)
+    for li in range(cfg.l, last):
+        x = T.layer_step(layers[li], x, bcfg, split_flag=False, segs=segs,
+                         valid=valid, seg_boundary=-1)
+    if cfg.cls_only_last_layer:
+        cls = _cls_only_layer(layers[-1], x, bcfg, positions=positions,
+                              valid=valid)
+    else:
+        cls = x[:, 0]
+    return _score_from_cls(params, cfg, cls)
+
+
+def score_join(params, cfg: PreTTRConfig, st: JoinState):
+    """Scores [B] of a prepared :class:`JoinState`, on the path its
+    ``fused`` flag names."""
+    return (_score_join_fused if st.fused else _score_join_concat)(
+        params, cfg, st)
+
+
 def join_and_score(params, cfg: PreTTRConfig, q_reps, q_valid, doc_store,
                    doc_valid, *, doc_kv=None, fused: bool = True):
     """Query-time join: q_reps [B, Lq, d] (+ valid), doc_store
     [B, Ld, e|d] as loaded from the index (decoded from its codec) and
     optional stored layer-``l`` ``doc_kv`` (see :func:`prepare_join`) ->
-    scores [B] float32."""
+    scores [B] float32.  ``fused=True`` (the serving path) keeps the two
+    segments apart through the ``join_attention`` op; ``fused=False`` is
+    the legacy concat join."""
     st = prepare_join(params, cfg, q_reps, q_valid, doc_store, doc_valid,
                       doc_kv=doc_kv, fused=fused)
-    return _score_join_fused(params, cfg, st)
+    return score_join(params, cfg, st)

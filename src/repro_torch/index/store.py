@@ -99,6 +99,9 @@ class TermRepIndex:
         self.checksum = manifest.get("checksum")   # read, not verified yet
         spec = self.streams_spec()
         self._streams: list[dict[str, np.ndarray]] = []
+        # per shard, stream name -> file (the fault injector's corrupt
+        # kind flips bytes there)
+        self._stream_paths: list[dict[str, str]] = []
         rows = []
         for si, sh in enumerate(shards):
             try:
@@ -108,9 +111,9 @@ class TermRepIndex:
                 raise IndexFormatError(f"malformed manifest at {path!r}: "
                                        f"shard {si}: {e!r}") from e
             n_tok = int(lengths.sum())
-            opened = {}
+            opened, paths = {}, {}
             for name, (dt, row_shape) in spec.items():
-                fp = os.path.join(sdir, f"{name}.bin")
+                fp = paths[name] = os.path.join(sdir, f"{name}.bin")
                 if n_tok and not os.path.exists(fp):
                     raise IndexFormatError(
                         f"index at {path!r}: shard stream {fp!r} is "
@@ -118,6 +121,7 @@ class TermRepIndex:
                         f"shard)")
                 opened[name] = _open_stream(fp, dt, row_shape, n_tok)
             self._streams.append(opened)
+            self._stream_paths.append(paths)
             starts = np.cumsum(lengths) - lengths
             rows.append(np.stack([np.full(len(lengths), si), starts,
                                   lengths], axis=1).astype(np.int64))

@@ -48,6 +48,11 @@ SIGNATURES = {
                                 I, I, I, I, I, I, I, *_STRIDES * 4, F, P],
     "rt_join_attention_row": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                               I, *_STRIDES * 6, F, P],
+    # q, k, v, out, lengths, k_valid, dtype, B, Hq, Hkv, S, D, q (batch,
+    # head) strides, k/v strides, out (batch, head) strides, window,
+    # scale, stream
+    "rt_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, LL, LL,
+                            *_STRIDES * 2, LL, LL, I, F, P],
     # x, w, b, out, in_dtype, out_dtype, T, d, e, stream
     "rt_compress": [P, P, P, P, I, I, I, I, I, P],
     # r, w, b, gamma, beta, out, in_dtype, out_dtype, T, e, d, eps, stream

@@ -6,6 +6,11 @@ Kinds and call contracts (model layout ``[B, S, H, D]``, boolean masks):
 
 * ``attention(q, k, v, *, cfg, scale, split_flag, segs, valid,
   seg_boundary, window=-1)`` -- q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D].
+* ``decode_attention(q, k, v, *, cfg, scale, q_pos, k_pos, window,
+  k_valid=None, lengths=None, static_window=None)`` -- one query row, q
+  [B, 1, Hq, D], against k/v [B, S, Hkv, D]: keys with ``k_pos <= q_pos``,
+  inside ``window`` and ``k_valid`` (the CLS-only final layer of the
+  concat join and of ``rank_forward``).
 * ``join_attention(q, kq, vq, kd, vd, *, cfg, scale, q_valid, kq_valid,
   kd_valid, kd_scale, vd_scale, paged)`` -- attention over the union of
   the query-segment and doc-segment K/V, never concatenated by the kernel.
@@ -24,8 +29,11 @@ compute dtype, paged pools densified and sliced to ``kd_valid``'s
 length); ``"cuda"`` runs the kernel wrappers, which launch the
 hand-written Hopper kernels on CUDA tensors (and their plain versions on
 CPU tensors): int8 K/V go to the kernel's int8 form, paged pools to its
-paged form.  Causal and window masks are not ported yet and raise
-``NotImplementedError`` in every impl.
+paged form; ``decode_attention`` goes to the flash-decode kernel, which
+derives its scale (``1/sqrt(D)``) and its query position
+(``lengths - 1``) itself and needs ``static_window``, as the Pallas impl
+does.  The causal and window forms of ``attention`` are not ported yet
+and raise ``NotImplementedError`` in every impl.
 """
 from __future__ import annotations
 
@@ -33,13 +41,15 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels.decode_attention import flash_decode_attention
 from repro_torch.kernels.fused_compress import fused_compress, fused_decompress
 from repro_torch.kernels.join_attention import (join_flash_attention,
                                                 join_flash_attention_paged)
 from repro_torch.kernels.split_attention import split_flash_attention
 from repro_torch.models import layers as L
 
-KINDS = ("attention", "join_attention", "compress", "decompress")
+KINDS = ("attention", "decode_attention", "join_attention", "compress",
+         "decompress")
 
 _REGISTRY: dict[str, dict[str, Callable]] = {k: {} for k in KINDS}
 
@@ -68,6 +78,7 @@ def get_impl(kind: str, name: str) -> Callable:
 def validate_config(attn_impl: str, compress_impl: str) -> None:
     """Raise ValueError for an impl name some kind does not know."""
     for kind, name, knob in (("attention", attn_impl, "attn_impl"),
+                             ("decode_attention", attn_impl, "attn_impl"),
                              ("join_attention", attn_impl, "attn_impl"),
                              ("compress", compress_impl, "compress_impl"),
                              ("decompress", compress_impl, "compress_impl")):
@@ -150,6 +161,32 @@ def _attention_cuda(q, k, v, *, cfg, scale, split_flag, segs, valid,
                           v.transpose(1, 2), None, k_valid=valid,
                           seg_boundary=seg_boundary if split_flag else -1,
                           out=out_t)
+    return out
+
+
+# -- decode_attention --------------------------------------------------------
+
+
+@register("decode_attention", "plain")
+def _decode_plain(q, k, v, *, cfg, scale, q_pos, k_pos, window,
+                  k_valid=None, lengths=None, static_window=None):
+    del cfg, lengths, static_window
+    return L.decode_attention(q, k, v, scale=scale, k_pos=k_pos, q_pos=q_pos,
+                              window=window, k_valid=k_valid)
+
+
+@register("decode_attention", "cuda")
+def _decode_cuda(q, k, v, *, cfg, scale, q_pos, k_pos, window, k_valid=None,
+                 lengths=None, static_window=None):
+    del cfg, scale, q_pos, k_pos, window   # the kernel's static contract
+    if static_window is None:
+        raise ValueError(
+            "attn_impl='cuda' decode needs a static window; this layer "
+            "range mixes window sizes -- use 'plain'")
+    out, out_t = _model_layout_out(q)
+    flash_decode_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), lengths, k_valid=k_valid,
+                           window=int(static_window), out=out_t)
     return out
 
 

@@ -54,3 +54,26 @@ def plain_attention(q, k, v, mask, *, scale: float):
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def decode_attention(q, k_cache, v_cache, *, scale: float, k_pos, q_pos,
+                     window=-1, k_valid=None):
+    """One query row against a K/V sequence, as
+    ``repro.models.layers.decode_attention``.  q: [B, 1, Hq, D]; k_cache,
+    v_cache: [B, S, Hkv, D]; k_pos: [B, S] and q_pos: [B, 1] positions;
+    keys attend when ``k_pos <= q_pos``, inside ``window`` (> 0) and
+    ``k_valid``.  Logits in float32, probabilities cast to V's dtype
+    before the second product."""
+    n_rep = q.shape[2] // k_cache.shape[2]
+    kk, vv = repeat_kv(k_cache, n_rep), repeat_kv(v_cache, n_rep)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * scale
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    msk = dk <= dq
+    if window >= 0:
+        msk = msk & (dq - dk < window)
+    if k_valid is not None:
+        msk = msk & k_valid.bool()[..., None, :]
+    s = s.masked_fill(~msk[:, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(vv.dtype), vv)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version on the same inputs, the wrappers' argument checks, and
-the smoke-size service through the kernels against the plain impl.
+the smoke-size service through the kernels against the plain impl (fused
+and legacy concat joins, prefetched and synchronous drains, an injected
+staging fault).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; this file imports neither JAX nor the JAX package, so it runs on a
@@ -15,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                  flash_decode_attention)
 from repro_torch.kernels.fused_compress import (compress_ref, decompress_ref,
                                                 fused_compress,
                                                 fused_decompress)
@@ -387,3 +391,179 @@ def test_smoke_int8_kv_service_kernels_match_plain(dev, tmp_path, cache_mb):
         assert svc.stats.n_decode_dispatch == 0
     for doc, s in scores["plain"].items():
         assert abs(scores["cuda"][doc] - s) < 1e-4, doc
+
+
+def _decode_world(g, dev, dt, b, hq, hkv, s, d):
+    """q/k/v, lengths >= 1 with every row's query key valid, and a
+    non-prefix validity mask (about one key in five masked)."""
+    q = _rand(g, dev, dt, b, hq, 1, d)
+    k, v = (_rand(g, dev, dt, b, hkv, s, d) for _ in range(2))
+    lengths = torch.tensor([s, max(1, s // 2 + 3), 7][:b], device=dev,
+                           dtype=torch.int32)
+    valid = torch.rand((b, s), generator=g, device=dev) < 0.8
+    valid[torch.arange(b, device=dev), lengths.long() - 1] = True
+    return q, k, v, lengths, valid
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("window", [-1, 32, 1024])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_decode_attention_kernel(dev, d, group, window, dtype):
+    """Every head dim, GQA group and window form against the plain
+    version, at S = 1100 (not a multiple of the 32-key tile)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    hkv = 2
+    q, k, v, lengths, valid = _decode_world(g, dev, DTYPES[dtype], 3,
+                                            hkv * group, hkv, 1100, d)
+    before = flash_decode_attention.launches
+    got = flash_decode_attention(q, k, v, lengths, valid, window=window)
+    assert flash_decode_attention.launches == before + 1
+    _close(got, decode_attention_ref(q, k, v, lengths, valid,
+                                     window=window), dtype)
+
+
+@pytest.mark.parametrize("hq,hkv", [(3, 1), (10, 2), (16, 2), (12, 12)])
+def test_decode_attention_groups_and_defaults(dev, hq, hkv):
+    """Group sizes the kernel rounds up (3, 5), the largest (8) and MHA;
+    lengths derived from k_valid; a model-layout output view."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, _, valid = _decode_world(g, dev, torch.float32, 3, hq, hkv,
+                                      70, 64)
+    out = torch.empty((3, 1, hq, 64), device=dev)
+    flash_decode_attention(q, k, v, None, valid, out=out.transpose(1, 2))
+    _close(out.transpose(1, 2), decode_attention_ref(
+        q, k, v, last_valid_lengths(valid), valid), "float32")
+    _close(flash_decode_attention(q, k, v),
+           decode_attention_ref(q, k, v, torch.full((3,), 70, device=dev)),
+           "float32")
+
+
+def test_decode_attention_gemma3_window(dev):
+    """The LM slice's shape: GQA 8/4 at D = 256 over 4096 keys with a
+    1024-key window, bf16."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = _rand(g, dev, torch.bfloat16, 4, 8, 1, 256)
+    k, v = (_rand(g, dev, torch.bfloat16, 4, 4, 4096, 256)
+            for _ in range(2))
+    lengths = torch.tensor([4096, 2048, 4089, 1000], device=dev,
+                           dtype=torch.int32)
+    _close(flash_decode_attention(q, k, v, lengths, window=1024),
+           decode_attention_ref(q, k, v, lengths, window=1024), "bfloat16")
+
+
+def test_decode_attention_rejects_what_it_does_not_take(dev):
+    q = torch.zeros((2, 18, 1, 64), device=dev)
+    k = torch.zeros((2, 2, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="at most 8"):
+        flash_decode_attention(q, k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros((2, 2, 8, 48), device=dev)
+        flash_decode_attention(z[:, :, :1], z, z)
+    with pytest.raises(ValueError, match="one query row"):
+        flash_decode_attention(k, k, k)
+
+
+def _smoke_world(tmp_path, codec="fp16", **build_kw):
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.core.prettr import init_prettr
+    from repro_torch.index import IndexBuilder
+
+    rng = np.random.default_rng(14)
+    docs = [rng.integers(4, 512, rng.integers(3, 40)) for _ in range(24)]
+    cfg = smoke_config()
+    params = init_prettr(cfg, torch.Generator().manual_seed(0),
+                         device="cuda")
+    IndexBuilder(str(tmp_path), cfg, params, codec=codec, batch_size=8,
+                 **build_kw).build(docs)
+    reqs = []
+    for i in range(5):
+        q = np.zeros(8, np.int64)
+        q[:5] = [1, 17 + i, 99, 250 - i, 2]
+        reqs.append((q, q != 0, [int(d) for d in rng.choice(24, 10, False)]))
+    return params, reqs
+
+
+def _serve_all(svc, reqs):
+    from repro_torch.serving import RankRequest
+    for i, (q, qv, ids) in enumerate(reqs):
+        svc.submit(RankRequest(q, qv, ids, request_id=f"r{i}"))
+    return {r.request_id: r for r in svc.drain()}
+
+
+def test_smoke_legacy_service_kernels_match_plain(dev, tmp_path):
+    """The legacy concat join served through the kernels (split attention
+    and flash decode, no join kernel) against the plain impl and against
+    the fused join, float32 on the card."""
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.index import TermRepIndex
+    from repro_torch.serving import RankingService
+
+    params, reqs = _smoke_world(tmp_path)
+    index = TermRepIndex.open(str(tmp_path))
+    runs = {}
+    for impl, fused in (("plain", False), ("cuda", False), ("cuda", True)):
+        cfg = smoke_config(attn_impl=impl, compress_impl=impl)
+        before = (flash_decode_attention.launches,
+                  join_flash_attention.launches
+                  + join_flash_attention.row_launches)
+        got = _serve_all(RankingService(params, cfg, index, micro_batch=8,
+                                        fused=fused), reqs)
+        runs[impl, fused] = {(rid, d): s for rid, r in got.items()
+                             for d, s in zip(r.doc_ids, r.scores)}
+        if impl == "cuda":
+            launched = (flash_decode_attention.launches - before[0],
+                        join_flash_attention.launches
+                        + join_flash_attention.row_launches - before[1])
+            assert (launched[0] > 0, launched[1] > 0) == (not fused, fused)
+    for key, s in runs["plain", False].items():
+        assert abs(runs["cuda", False][key] - s) < 1e-4, key
+        assert abs(runs["cuda", True][key] - s) < 1e-4, key
+
+
+@pytest.mark.parametrize("cache_mb", [0, 8])
+def test_prefetched_scores_equal_synchronous(dev, tmp_path, cache_mb):
+    """The prefetch thread (side-stream copies) and the synchronous drain
+    give the same bits, with and without the doc cache."""
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.index import TermRepIndex
+    from repro_torch.serving import RankingService
+
+    params, reqs = _smoke_world(tmp_path, codec="int8", store_layer_kv=True,
+                                kv_codec="int8")
+    index = TermRepIndex.open(str(tmp_path))
+    runs = {}
+    for depth in (0, 2):
+        svc = RankingService(params, smoke_config(), index, micro_batch=4,
+                             prefetch_depth=depth, doc_cache_mb=cache_mb,
+                             page_tokens=16)
+        runs[depth] = [_serve_all(svc, reqs) for _ in range(2)]
+    for a, b in zip(runs[0], runs[2]):
+        for rid in a:
+            assert a[rid].doc_ids == b[rid].doc_ids
+            np.testing.assert_array_equal(a[rid].scores, b[rid].scores)
+
+
+def test_staging_fault_fails_only_its_micro_batch(dev, tmp_path):
+    """An injected staging error on the prefetch thread fails one
+    micro-batch's rows; every other score is bit-equal to a clean run."""
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.index import TermRepIndex
+    from repro_torch.serving import FaultPlan, FaultSpec, RankingService
+
+    params, reqs = _smoke_world(tmp_path)
+    index = TermRepIndex.open(str(tmp_path))
+    svc = lambda: RankingService(params, smoke_config(), index,
+                                 micro_batch=4)
+    clean = _serve_all(svc(), reqs)
+    faulty = svc()
+    with FaultPlan([FaultSpec("engine.stage", "error", after=3)]) as plan:
+        got = _serve_all(faulty, reqs)
+    assert plan.n_fired() == 1
+    failed = [(rid, d) for rid, r in got.items() for d in r.failed_doc_ids]
+    assert 0 < len(failed) <= 4 and faulty.stats.n_failed_rows == 4
+    for rid, r in got.items():
+        want = dict(zip(clean[rid].doc_ids, clean[rid].scores))
+        assert r.degraded == bool(r.failed_doc_ids)
+        for d, s in zip(r.doc_ids, r.scores):
+            assert s == (-np.inf if d in r.failed_doc_ids else want[d])

@@ -2,7 +2,8 @@
 ``precompute_docs``, ``join_and_score`` and ``rank_forward`` against the
 JAX ``blocked`` backend's fused path on the same weights (bridged from
 JAX) and the same numpy inputs, the soundness invariant inside the port,
-and the backend's config-time and not-ported errors.
+and the backend's config-time and not-ported errors (the legacy concat
+join is held against JAX in tests/test_torch_decode_legacy.py).
 
 float32 compute and storage, so the tolerance is rtol = atol = 2e-5
 (tests/test_kernels.py); the soundness invariant stores fp16 and holds to
@@ -186,7 +187,10 @@ def test_join_and_score_rejects_unported_paths():
         TP.join_and_score(params, tcfg, qr, qv, store, dv,
                           doc_kv=TP.precompute_doc_kv(params, tcfg, store),
                           fused=False)
-    with pytest.raises(NotImplementedError, match="concat"):
-        TP.join_and_score(params, tcfg, qr, qv, store, dv, fused=False)
+    # the concat path is ported: it scores what the fused path scores
+    np.testing.assert_allclose(
+        TP.join_and_score(params, tcfg, qr, qv, store, dv,
+                          fused=False).numpy(),
+        TP.join_and_score(params, tcfg, qr, qv, store, dv).numpy(), **TOL)
     with pytest.raises(ValueError, match="split_layers"):
         dataclasses.replace(tcfg, l=1)
