@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's main paths at the paper's full width
-(``repro_torch.configs.prettr_bert.full_config``: 12 layers, d=768, split
-at l=6, e=256, bf16 compute) with seeded random weights:
+Drives the port's main paths at full width with seeded random weights:
+PreTTR at the paper's (``repro_torch.configs.prettr_bert.full_config``:
+12 layers, d=768, split at l=6, e=256, bf16 compute), then the
+transformer LM at gemma3-4b's:
 
 1. device  -- the card's name and power limit, the kernel build time;
 2. kernels -- each hand-written kernel form at its main-path shape against
    its plain PyTorch version on the same inputs, with times (CUDA events,
    median of 20 after warm-up) beside the plain version, one library call
    that computes the same function, and the least time the card could
-   take: split and join attention (dense float, raw int8 K/V, paged over
-   int8 and fp16 pools, the CLS row), flash decode (the CLS-only layer's
-   shape, and GQA with a window at gemma3's), compress and decompress
-   (fp16 and float32 storage);
+   take: split attention (PreTTR's validity + seg_boundary form, gemma3's
+   causal and causal + window forms at [4, 8, 2048, 256], raw int8 K/V),
+   join attention (dense float, raw int8 K/V, paged over int8 and fp16
+   pools, the CLS row), flash decode (the CLS-only layer's shape, and
+   gemma3's decode shape with and without its window), compress and
+   decompress (fp16 and float32 storage);
 3. index   -- ``IndexBuilder`` writes a 512-document fp16 index, reopened
    with ``TermRepIndex``;
 4. serve   -- ``RankingService`` (prefetch thread on, its default)
@@ -39,14 +42,26 @@ at l=6, e=256, bf16 compute) with seeded random weights:
 5. soundness -- ``rank_forward == join_and_score(encode_query,
    precompute_docs)`` on 4 pairs, float32 over fp16 storage
    (``rank_forward`` ends in the flash-decode CLS layer, the split path in
-   the join kernel's CLS row).
+   the join kernel's CLS row);
+6. lm -- gemma3-4b at full width (``gemma3_4b.full_config``, bf16
+   weights from ``init_params``, depth not cut): ``lm_prefill``, 4 seeded
+   prompts of 2048 tokens through ``forward(collect_cache=True)`` and
+   ``logits`` (split attention's causal and window forms);
+   ``lm_decode``, the K/V copied into ``init_decode_cache(cfg, 4, 2080)``
+   and 32 greedy ``decode_step``s (both window forms of flash decode);
+   ``lm_agreement``, the same through the plain impl in bf16 and float32
+   and through the kernels in float32, fed the timed run's tokens;
+   ``lm_soundness``, prefill + one ``decode_step`` against ``forward``
+   over 2049 tokens, float32 through the kernels; then a profile of one
+   prefill and 4 decode steps.
 
 Kernel launches are counted per path: every counter is set to 0 just
-before each index build, each timed serving run and the soundness check,
-and read just after.  A path that misses a kernel it must run
+before each index build, each timed serving run, the soundness check and
+each LM run, and read just after.  A path that misses a kernel it must run
 (``PATH_KERNELS``), or a plain run that launches any, fails the script.
 The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
-the index builds and the bf16 kernel runs of each serving form),
+the index builds, the bf16 kernel runs of each serving form and the LM's
+bf16 prefill and decode),
 ``launches_by_path`` gives each path's own.
 
 Every phase that fails raises and the script exits non-zero.  It prints
@@ -91,6 +106,23 @@ SOUND_TOL = 1e-4
 LEGACY_TOL = 1e-4
 # the injected staging fault: the 4th micro-batch of the fp16 drain
 FAULT_AFTER = 3
+# gemma3-4b at full width (bf16 weights, depth not cut): 4 prompts of 2048
+# seeded tokens (above the 1024-key window, so the local layers skip
+# tiles), then 32 greedy decode steps into a 2080-token cache
+LM_B, LM_S, LM_STEPS, LM_WINDOW = 4, 2048, 32, 1024
+# kernels against the plain impl in float32: the same function summed in
+# other orders, as the serving limit
+LM_F32_TOL = 1e-3
+# prefill + decode_step against forward over 2049 tokens, float32 through
+# the kernels: the two differ in summation order only (the decode kernel
+# against the split kernel, and cuBLAS products of 4 rows against 8196).
+# float32 rounds at 6e-8 relative; a dot of up to 10240 terms summed in
+# another order moves by ~sqrt(10240) * 6e-8 = 6e-6 relative, and 34
+# post-normed layers of 7 products add such errors to the residual
+# (~sqrt(34 * 7) * 6e-6 = 1e-4 relative).  The logits are ~1 (unit-RMS
+# hidden states against 0.02-scaled tied embeddings over d = 2560), so
+# 1e-3 leaves a factor of ~10 over that estimate.
+LM_SOUND_TOL = 1e-3
 
 
 def emit(obj):
@@ -233,6 +265,78 @@ def check_kernels(torch, cfg):
            2 * nbytes(q) + kv_bytes(lengths, h, dh, q.element_size())
            + nbytes(valid, lengths), PEAK_BF16_FLOPS, "bf16 tensor cores")
 
+    # -- split attention's LM forms at gemma3's prefill shape (q [4, 8,
+    #    2048, 256] against GQA K/V [4, 4, 2048, 256]): causal (the global
+    #    layers) and causal + 1024-key window (the local layers), float32
+    #    and bf16; the bf16 one is timed.  Every key is visible to some
+    #    row, so the K/V bytes are the whole operands
+    lb, lhq, lhkv, ls, ldh = LM_B, 8, 4, LM_S, 256
+    full = torch.full((lb,), ls, dtype=torch.int32, device="cuda")
+    pos = torch.arange(ls, device="cuda")
+    for name, window in (("split_attention_causal", -1),
+                         ("split_attention_window", LM_WINDOW)):
+        for dtype, dname in ((torch.float32, "float32"),
+                             (torch.bfloat16, "bfloat16")):
+            q = rand(lb, lhq, ls, ldh, dtype=dtype)
+            k, v = (rand(lb, lhkv, ls, ldh, dtype=dtype) for _ in range(2))
+            kw = dict(causal=True, window=window)
+            err = compare(name, split_flash_attention(q, k, v, **kw),
+                          split_attention_ref(q, k, v, full, **kw), dname,
+                          [lb, lhq, ls, ldh, window])
+        visible = pos[None] <= pos[:, None]
+        if window > 0:
+            visible = visible & (pos[:, None] - pos[None] < window)
+        library = (
+            (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                    enable_gqa=True))
+            if window < 0 else
+            (lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=visible, enable_gqa=True)))
+        record(name, "src/repro_torch/csrc/split_attention.cu",
+               "src/repro/kernels/split_attention/kernel.py:109", err,
+               lambda: split_flash_attention(q, k, v, **kw),
+               lambda: split_attention_ref(q, k, v, full, **kw), library,
+               4 * ldh * lhq * lb * int(visible.sum()),
+               2 * nbytes(q) + nbytes(k, v), PEAK_BF16_FLOPS,
+               "bf16 tensor cores")
+    del q, k, v, visible
+
+    # -- split attention over raw int8 K/V + per-token scales (no path
+    #    reaches it in either package; held at PreTTR's join-layer shape
+    #    [32, 12, 512, 64], keys in two prefixes)
+    b, s = MICRO_BATCH, lq + ld
+    q = rand(b, h, s, dh)
+    k8, v8 = (torch.randint(-127, 128, (b, h, s, dh), generator=gen,
+                            device="cuda", dtype=torch.int32)
+              .to(torch.int8) for _ in range(2))
+    ks8, vs8 = (1e-3 + 0.05 * torch.rand((b, s), generator=gen,
+                                         device="cuda") for _ in range(2))
+    valid = torch.cat([_prefix_mask(torch, gen, b, lq, 3),
+                       _prefix_mask(torch, gen, b, ld, ld // 4)], 1)
+    lengths = last_valid_lengths(valid)
+    compare("split_attention_int8",
+            split_flash_attention(q.float(), k8, v8, lengths, valid, ks8, vs8),
+            split_attention_ref(q.float(), k8, v8, lengths, valid, ks8, vs8),
+            "float32", [b, h, s, dh])
+    err = compare("split_attention_int8",
+                  split_flash_attention(q, k8, v8, lengths, valid, ks8, vs8),
+                  split_attention_ref(q, k8, v8, lengths, valid, ks8, vs8),
+                  "bfloat16", [b, h, s, dh])
+    mask = valid[:, None, None, :].expand(b, 1, s, s)
+    record("split_attention_int8", "src/repro_torch/csrc/split_attention.cu",
+           "src/repro/kernels/split_attention/kernel.py:109", err,
+           lambda: split_flash_attention(q, k8, v8, lengths, valid, ks8,
+                                         vs8),
+           lambda: split_attention_ref(q, k8, v8, lengths, valid, ks8, vs8),
+           lambda: F.scaled_dot_product_attention(
+               q, (k8.float() * ks8[:, None, :, None]).to(q.dtype),
+               (v8.float() * vs8[:, None, :, None]).to(q.dtype),
+               attn_mask=mask),
+           4 * dh * h * s * valid.sum().item(),
+           2 * nbytes(q) + kv_bytes(lengths, h, dh, 1)
+           + 2 * 4 * int(lengths.sum()) + nbytes(valid, lengths),
+           PEAK_BF16_FLOPS, "bf16 tensor cores")
+
     # -- join attention: the join layers (Sq = Lq + Ld) and the CLS row
     b = MICRO_BATCH
     kq, vq = (rand(b, h, lq, dh) for _ in range(2))
@@ -373,8 +477,10 @@ def check_kernels(torch, cfg):
 
     # -- flash decode: the CLS-only layer of the concat join and of
     #    rank_forward (q [32, 12, 1, 64] against the two-prefix 32 + 480
-    #    keys), float32 and bf16; then GQA 8/4 with a 1024-key window at
-    #    gemma3's head dim over 4096 keys (the LM slice's shape)
+    #    keys), float32 and bf16; then GQA 8/4 at gemma3's head dim:
+    #    ragged lengths over 4096 keys with a 1024-key window (checked
+    #    only), and the LM decode's shape, a 2080-key cache at position
+    #    2063 (mid-decode), global and with the window
     s = lq + ld
     k, v = (rand(b, h, s, dh) for _ in range(2))
     q = rand(b, h, 1, dh)
@@ -402,31 +508,42 @@ def check_kernels(torch, cfg):
            2 * nbytes(q) + 2 * int(cls_valid.sum()) * h * dh * q.element_size()
            + nbytes(cls_valid, lengths), PEAK_BF16_FLOPS,
            "bf16 tensor cores")
-    gb, ghq, ghkv, gs, gd, window = 4, 8, 4, 4096, 256, 1024
+    gb, ghq, ghkv, gd = LM_B, 8, 4, 256
     q = rand(gb, ghq, 1, gd)
-    k, v = (rand(gb, ghkv, gs, gd) for _ in range(2))
+    k, v = (rand(gb, ghkv, 4096, gd) for _ in range(2))
     lengths = torch.tensor([4096, 2048, 4089, 1000], device="cuda",
                            dtype=torch.int32)
-    err = compare("decode_attention",
-                  flash_decode_attention(q, k, v, lengths, window=window),
-                  decode_attention_ref(q, k, v, lengths, window=window),
-                  "bfloat16", [gb, ghq, 1, gd, gs, window])
+    compare("decode_attention_window",
+            flash_decode_attention(q, k, v, lengths, window=LM_WINDOW),
+            decode_attention_ref(q, k, v, lengths, window=LM_WINDOW),
+            "bfloat16", [gb, ghq, 1, gd, 4096, LM_WINDOW])
+    gs = LM_S + LM_STEPS
+    k, v = (rand(gb, ghkv, gs, gd) for _ in range(2))
+    lengths = torch.full((gb,), LM_S + LM_STEPS // 2, device="cuda",
+                         dtype=torch.int32)
     pos = torch.arange(gs, device="cuda")[None]
-    in_window = (pos < lengths[:, None]) & (pos >= lengths[:, None] - window)
-    n_window = int(in_window.sum())
-    # K/V bytes from each row's first to its last key in the window
-    record("decode_attention_gqa_window",
-           "src/repro_torch/csrc/decode_attention.cu",
-           "src/repro/kernels/decode_attention/kernel.py:75", err,
-           lambda: flash_decode_attention(q, k, v, lengths, window=window),
-           lambda: decode_attention_ref(q, k, v, lengths, window=window),
-           lambda: F.scaled_dot_product_attention(
-               q, k, v, attn_mask=in_window[:, None, None, :],
-               enable_gqa=True),
-           4 * gd * ghq * n_window,
-           2 * nbytes(q) + 2 * n_window * ghkv * gd * q.element_size()
-           + nbytes(lengths), PEAK_BF16_FLOPS, "bf16 tensor cores",
-           row=False)
+    for name, window in (("decode_attention_lm_global", -1),
+                         ("decode_attention_window", LM_WINDOW)):
+        err = compare(name.replace("_lm_global", ""),
+                      flash_decode_attention(q, k, v, lengths, window=window),
+                      decode_attention_ref(q, k, v, lengths, window=window),
+                      "bfloat16", [gb, ghq, 1, gd, gs, window])
+        keys = pos < lengths[:, None]
+        if window > 0:
+            keys = keys & (pos >= lengths[:, None] - window)
+        n_keys = int(keys.sum())
+        record(name, "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:75", err,
+               lambda: flash_decode_attention(q, k, v, lengths,
+                                              window=window),
+               lambda: decode_attention_ref(q, k, v, lengths, window=window),
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=keys[:, None, None, :],
+                   enable_gqa=True),
+               4 * gd * ghq * n_keys,
+               2 * nbytes(q) + 2 * n_keys * ghkv * gd * q.element_size()
+               + nbytes(lengths), PEAK_BF16_FLOPS, "bf16 tensor cores",
+               row=window > 0)
 
     # -- compress (index time) and decompress (every micro-batch); their
     #    weights stay float32, so the products are float32 operations
@@ -556,7 +673,14 @@ def launch_counters():
                                                     join_flash_attention_paged)
     from repro_torch.kernels.split_attention import split_flash_attention
     return {"split_attention": (split_flash_attention, "launches"),
+            "split_attention_causal": (split_flash_attention,
+                                       "causal_launches"),
+            "split_attention_window": (split_flash_attention,
+                                       "window_launches"),
+            "split_attention_int8": (split_flash_attention, "int8_launches"),
             "decode_attention": (flash_decode_attention, "launches"),
+            "decode_attention_window": (flash_decode_attention,
+                                        "window_launches"),
             "join_attention": (join_flash_attention, "launches"),
             "join_attention_row": (join_flash_attention, "row_launches"),
             "join_attention_int8": (join_flash_attention, "int8_launches"),
@@ -587,6 +711,8 @@ _CACHED_SERVE = ("split_attention", "join_attention", "join_attention_paged",
 # the concat join: split attention over [B, 512], no join kernel, and the
 # flash-decode CLS-only layer
 _LEGACY_SERVE = ("split_attention", "decompress", "decode_attention")
+_LM_PREFILL = ("split_attention_causal", "split_attention_window")
+_LM_DECODE = ("decode_attention", "decode_attention_window")
 PATH_KERNELS = {
     "index": ("split_attention", "compress"),
     "serve": _FP16_SERVE, "serve_f32": _FP16_SERVE,
@@ -603,11 +729,17 @@ PATH_KERNELS = {
     "plain_legacy_bf16": (), "plain_legacy_f32": (),
     "plain_int8_kv_bf16": (), "plain_int8_kv_f32": (),
     "plain_cached_bf16": (), "plain_cached_f32": (),
+    # gemma3-4b: prefill through the causal (global) and window (local)
+    # forms, decode through both window forms of flash decode
+    "lm_prefill": _LM_PREFILL, "lm_decode": _LM_DECODE,
+    "lm_cuda_f32": _LM_PREFILL + _LM_DECODE, "lm_soundness": _LM_PREFILL,
+    "lm_plain_bf16": (), "lm_plain_f32": (),
 }
 # the paths whose launches make the kernels line's `launches`: the index
-# builds and the bf16 drains of each serving form
+# builds, the bf16 drains of each serving form, and the LM's bf16 prefill
+# and decode
 MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
-              "serve_int8_kv", "serve_cached")
+              "serve_int8_kv", "serve_cached", "lm_prefill", "lm_decode")
 
 
 def serve(torch, params, cfg, index, requests, label, name, passes=1,
@@ -693,9 +825,6 @@ def profile_serve(torch, params, cfg, index, requests, name):
     """Where a drain's device time goes: one drain of two requests (four
     micro-batches) under torch.profiler, the device's busy share of the
     wall time and its kernels by total time."""
-    import re
-
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import RankingService, RankRequest
     svc = RankingService(params, cfg, index, micro_batch=MICRO_BATCH)
@@ -711,25 +840,9 @@ def profile_serve(torch, params, cfg, index, requests, name):
         svc.drain()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = e.cuda_time_total
-        ours = re.search(r"(\w+_kernel)\b", e.key)
-        key = ours.group(1) if ours else e.key[:60]
-        n, t = by_name.get(key, (0, 0.0))
-        by_name[key] = (n + e.count, t + us / 1e3)
-    busy_ms = sum(t for _, t in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     emit({"phase": "profile", "run": "cuda_bf16", "device": name,
           "micro_batches": 2 * N_CANDIDATES // MICRO_BATCH,
-          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_busy_share": busy_ms / wall_ms if busy_ms else None,
-          "top": [{"name": k, "count": n, "device_ms": t}
-                  for k, (n, t) in top]})
+          "wall_ms": wall_ms, **_device_time(prof, wall_ms)})
 
 
 def max_diff(a, b):
@@ -779,6 +892,229 @@ def serve_faults(torch, params, cfg, index, requests, name, clean):
             and svc.stats.n_degraded == len(degraded) and not wrong
             and shed_error and shed.stats.n_shed == 1 and n_served == 2):
         raise AssertionError(f"serve_faults: {line}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: gemma3-4b prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def lm_prefill(torch, T, params, cfg, prompts):
+    """``forward(collect_cache=True)`` then the last position's logits;
+    returns (logits [B, 1, V] float32, the collected (k, v), seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        hidden, kv, _ = T.forward(params, cfg, prompts, collect_cache=True)
+        lg = T.logits(params, cfg, hidden[:, -1:])
+    torch.cuda.synchronize()
+    return lg, kv, time.perf_counter() - t0
+
+
+def lm_decode(torch, T, params, cfg, kv, first, forced=None):
+    """The collected K/V (S keys) copied into ``init_decode_cache(cfg, B,
+    S + LM_STEPS)``, then LM_STEPS ``decode_step``s from position S:
+    greedy from ``first`` [B, 1], or fed ``forced`` [B, LM_STEPS]
+    (teacher forcing).  Returns (each step's logits, the tokens fed
+    [B, LM_STEPS], seconds of the steps alone)."""
+    b, s = kv[0].shape[1], kv[0].shape[2]
+    with torch.inference_mode():
+        cache = T.init_decode_cache(cfg, b, s + LM_STEPS)
+        cache[0][:, :, :s] = kv[0]
+        cache[1][:, :, :s] = kv[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, fed, out = first, [], []
+        for i in range(LM_STEPS):
+            if forced is not None:
+                tok = forced[:, i:i + 1]
+            fed.append(tok)
+            lg, cache = T.decode_step(params, cfg, tok, cache, s + i)
+            out.append(lg)
+            tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+    return out, torch.cat(fed, 1), time.perf_counter() - t0
+
+
+def lm_max_diff(a, b):
+    """Max |a - b| over the last-position logits and every step's."""
+    return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+def profile_lm(torch, T, params, cfg, prompts, fed, name):
+    """Where the LM's device time goes: one prefill of 4 x 2048 tokens,
+    then 4 decode steps, each under torch.profiler: the device's busy
+    time beside the wall time, and its kernels by total time."""
+    from torch.profiler import ProfilerActivity, profile
+    _, kv, _ = lm_prefill(torch, T, params, cfg, prompts)     # warm
+    with torch.inference_mode():
+        cache = T.init_decode_cache(cfg, LM_B, LM_S + LM_STEPS)
+        cache[0][:, :, :LM_S] = kv[0]
+        cache[1][:, :, :LM_S] = kv[1]
+    del kv
+
+    def steps():
+        with torch.inference_mode():
+            for i in range(4):
+                T.decode_step(params, cfg, fed[:, i:i + 1], cache, LM_S + i)
+
+    for label, fn in (("lm_prefill",
+                       lambda: lm_prefill(torch, T, params, cfg, prompts)),
+                      ("lm_decode_4_steps", steps)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "profile", "run": label, "device": name,
+              "wall_ms": wall_ms, **_device_time(prof, wall_ms)})
+
+
+def _device_time(prof, wall_ms):
+    """The device's busy time, its share of ``wall_ms`` and its kernels by
+    total time, from a finished profiler."""
+    import re
+
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        ours = re.search(r"(\w+_kernel)\b", e.key)
+        key = ours.group(1) if ours else e.key[:60]
+        n, t = by_name.get(key, (0, 0.0))
+        by_name[key] = (n + e.count, t + us / 1e3)
+    busy_ms = sum(t for _, t in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+            "top": [{"name": k, "count": n, "device_ms": t}
+                    for k, (n, t) in top]}
+
+
+def lm_phases(torch, name, launches):
+    """gemma3-4b at full width on the card: the timed bf16 prefill and
+    greedy decode through the kernels, the same through the plain impl
+    and in float32 (fed the kernel run's tokens), the soundness of
+    prefill + decode against a longer forward, and a profile."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.gemma3_4b import full_config
+    from repro_torch.models import transformer as T
+
+    cfg = full_config(param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_B, LM_S))).cuda()
+    impl = lambda c, attn, dt: dataclasses.replace(c, attn_impl=attn,
+                                                   compute_dtype=dt)
+    cfg32 = impl(cfg, "cuda", torch.float32)
+    emit({"phase": "lm_model", "device": name, "config": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "params": cfg.num_params(),
+          "param_bytes": sum(t.numel() * t.element_size() for t in
+                             _leaves(params)),
+          "layer_windows": cfg.layer_windows(), "init_s": init_s})
+
+    # warm-up (cuBLAS handles, the kernel library), not counted
+    lg, kv, _ = lm_prefill(torch, T, params, cfg, prompts[:, :64])
+    lm_decode(torch, T, params, cfg, kv, lg.argmax(-1))
+    del lg, kv
+
+    # the main path: bf16 prefill, then greedy decode, through the kernels
+    (lg0, kv, prefill_s), launches["lm_prefill"] = counted(
+        lambda: lm_prefill(torch, T, params, cfg, prompts))
+    flops = 2 * cfg.num_active_params() * LM_B * LM_S
+    emit({"phase": "lm_prefill", "device": name, "batch": LM_B,
+          "prompt": LM_S, "ms": prefill_s * 1e3,
+          "tokens_per_s": LM_B * LM_S / prefill_s, "model_flops": flops,
+          "model_flops_share_of_bf16_peak":
+              flops / prefill_s / PEAK_BF16_FLOPS,
+          "finite": bool(torch.isfinite(lg0).all()),
+          "launches": launches["lm_prefill"]})
+    (steps, fed, decode_s), launches["lm_decode"] = counted(
+        lambda: lm_decode(torch, T, params, cfg, kv, lg0.argmax(-1)))
+    del kv
+    emit({"phase": "lm_decode", "device": name, "batch": LM_B,
+          "steps": LM_STEPS, "cache": LM_S + LM_STEPS,
+          "ms_per_step": decode_s / LM_STEPS * 1e3,
+          "tokens_per_s": LM_B * LM_STEPS / decode_s,
+          "finite": all(bool(torch.isfinite(x).all()) for x in steps),
+          "launches": launches["lm_decode"]})
+    cuda_bf16 = [lg0, *steps]
+    if not all(bool(torch.isfinite(x).all()) for x in cuda_bf16) \
+            or lg0.shape != (LM_B, 1, cfg.vocab_size):
+        raise AssertionError("lm: non-finite or misshapen logits")
+
+    # agreement: the plain impl in bf16 and float32 and the kernels in
+    # float32, all fed the kernel run's tokens
+    runs = {}
+    for path, c in (("lm_plain_bf16", impl(cfg, "plain", torch.bfloat16)),
+                    ("lm_plain_f32", impl(cfg, "plain", torch.float32)),
+                    ("lm_cuda_f32", cfg32)):
+        def run(c=c):
+            lg, kv, _ = lm_prefill(torch, T, params, c, prompts)
+            out, _, _ = lm_decode(torch, T, params, c, kv, None, forced=fed)
+            return [lg, *out]
+        runs[path], launches[path] = counted(run)
+    bf16_noise = lm_max_diff(runs["lm_plain_bf16"],
+                             runs["lm_plain_f32"])
+    agree = {"phase": "lm_agreement", "device": name,
+             "f32_max_abs_diff": lm_max_diff(runs["lm_cuda_f32"],
+                                             runs["lm_plain_f32"]),
+             "f32_tol": LM_F32_TOL,
+             "bf16_max_abs_diff": lm_max_diff(cuda_bf16,
+                                              runs["lm_plain_bf16"]),
+             "bf16_tol": 2 * bf16_noise, "bf16_rounding_of_plain": bf16_noise,
+             "bf16_kernels_vs_plain_f32": lm_max_diff(
+                 cuda_bf16, runs["lm_plain_f32"]),
+             "logit_abs_max": runs["lm_plain_f32"][0].abs().max().item(),
+             "same_greedy_tokens_plain_bf16": int(sum(
+                 (a.argmax(-1) == b.argmax(-1)).sum().item()
+                 for a, b in zip(cuda_bf16, runs["lm_plain_bf16"]))),
+             "of": LM_B * (LM_STEPS + 1),
+             "launches": {p: launches[p] for p in runs}}
+    emit(agree)
+    if agree["f32_max_abs_diff"] > LM_F32_TOL \
+            or agree["bf16_max_abs_diff"] > agree["bf16_tol"]:
+        raise AssertionError("lm: the kernels disagree with the plain impl")
+
+    # soundness: prefill over 2048 + one decode step == forward over 2049
+    def sound():
+        with torch.inference_mode():
+            h, _, _ = T.forward(params, cfg32,
+                                torch.cat([prompts, fed[:, :1]], 1))
+            return T.logits(params, cfg32, h[:, -1:])
+    longer, launches["lm_soundness"] = counted(sound)
+    err = (longer - runs["lm_cuda_f32"][1]).abs().max().item()
+    emit({"phase": "lm_soundness", "device": name, "max_abs_err": err,
+          "tol": LM_SOUND_TOL, "launches": launches["lm_soundness"]})
+    if not err <= LM_SOUND_TOL:
+        raise AssertionError("lm: prefill + decode_step != forward")
+    del runs, longer
+    profile_lm(torch, T, params, cfg, prompts, fed, name)
+
+
+def _leaves(t):
+    if isinstance(t, dict):
+        for v in t.values():
+            yield from _leaves(v)
+    elif isinstance(t, list):
+        for v in t:
+            yield from _leaves(v)
+    else:
+        yield t
 
 
 def main():
@@ -1003,9 +1339,12 @@ def main():
         raise AssertionError("rank_forward != join_and_score(encode_query, "
                              "precompute_docs)")
 
-    # 6. kernels line: `launches` counts the main paths (the index builds
-    #    and the bf16 drains, MAIN_PATHS); `launches_by_path` each counted
-    #    path alone
+    # 6. gemma3-4b prefill and decode
+    lm_phases(torch, name, launches)
+
+    # 7. kernels line: `launches` counts the main paths (the index builds,
+    #    the bf16 drains and the LM's bf16 prefill and decode,
+    #    MAIN_PATHS); `launches_by_path` each counted path alone
     for row in rows:
         k = row["name"]
         row["launches"] = sum(launches[p][k] for p in MAIN_PATHS)

@@ -1,10 +1,10 @@
-"""Weight bridge: the JAX package's PreTTR params pytree -> the port's
-params.
+"""Weight bridge: the JAX package's params pytrees (PreTTR's and the
+transformer LM's) -> the port's params.
 
 The JAX tree comes in as nested dicts of numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``); this module needs neither JAX nor
 the JAX package.  Layer leaves are stacked on a leading ``[L]`` axis there
-and become one dict per layer here; ``lm_head`` is unused by PreTTR and
+and become one dict per layer here; PreTTR's ``lm_head`` is unused and
 skipped.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.prettr import PreTTRConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import TransformerConfig
 
 
 def _tensor(a, device):
@@ -31,23 +32,39 @@ def params_from_jax(tree: dict, cfg: PreTTRConfig, device=None) -> dict:
     ``device`` (``None`` means the card)."""
     dev = resolve_device(device)
     bb = tree["backbone"]
-    stacked = bb["layers"]
-    n = cfg.backbone.n_layers
-    lead = {np.asarray(a).shape[0] for a in _leaves(stacked)}
-    if lead != {n}:
-        raise ValueError(f"stacked layer leaves have leading sizes {lead}, "
-                         f"config has n_layers={n}")
-
-    def layer(i):
-        return _map(stacked, lambda a: _tensor(np.asarray(a)[i], dev))
-
     out = {"backbone": {"embed": _tree(bb["embed"], dev),
-                        "layers": [layer(i) for i in range(n)],
+                        "layers": _unstack_layers(
+                            bb["layers"], cfg.backbone.n_layers, dev),
                         "final_norm": _tree(bb["final_norm"], dev)},
            "score_head": _tensor(tree["score_head"], dev)}
     if cfg.compress_dim:
         out["compressor"] = _tree(tree["compressor"], dev)
     return out
+
+
+def lm_params_from_jax(tree: dict, cfg: TransformerConfig,
+                       device=None) -> dict:
+    """JAX ``transformer.init_params`` params (numpy leaves) -> the port's
+    ``transformer`` params on ``device`` (``None`` means the card): layer
+    leaves unstacked into a list; ``lm_head`` kept when the head is not
+    tied."""
+    dev = resolve_device(device)
+    out = {"embed": _tree(tree["embed"], dev),
+           "layers": _unstack_layers(tree["layers"], cfg.n_layers, dev),
+           "final_norm": _tree(tree["final_norm"], dev)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = _tensor(tree["lm_head"], dev)
+    return out
+
+
+def _unstack_layers(stacked: dict, n: int, device) -> list[dict]:
+    """Leaves stacked on a leading ``[n]`` axis -> ``n`` layer dicts."""
+    lead = {np.asarray(a).shape[0] for a in _leaves(stacked)}
+    if lead != {n}:
+        raise ValueError(f"stacked layer leaves have leading sizes {lead}, "
+                         f"config has n_layers={n}")
+    return [_map(stacked, lambda a: _tensor(np.asarray(a)[i], device))
+            for i in range(n)]
 
 
 def _leaves(t):

@@ -67,50 +67,31 @@ def make_backbone(n_layers=12, d_model=768, n_heads=12, d_ff=3072,
     return T.TransformerConfig(
         name="prettr_bert", n_layers=n_layers, d_model=d_model,
         n_heads=n_heads, n_kv_heads=n_kv_heads or n_heads, d_ff=d_ff,
-        vocab_size=vocab_size, causal=False, learned_pos=max_len,
-        segment_vocab=2, split_layers=l, **kw)
+        vocab_size=vocab_size, causal=False, rope=False,
+        learned_pos=max_len, segment_vocab=2, norm="layernorm",
+        gated_mlp=False, activation="gelu", mlp_bias=True, qkv_bias=True,
+        split_layers=l, **kw)
 
 
 def init_prettr(cfg: PreTTRConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random params with the JAX ``init_prettr`` tree (per-layer list
-    instead of stacked leaves; no ``lm_head``) and scales.  Normals are
+    instead of stacked leaves; no ``lm_head``) and scales: the backbone
+    from :func:`repro_torch.models.transformer.init_params`.  Normals are
     drawn on ``generator``'s device, then moved to ``device`` (``None``
     means the card)."""
     dev = resolve_device(device)
     bb = cfg.backbone
-    pd = bb.param_dtype
-    d, dh = bb.d_model, bb.dh
-
-    def normal(shape, scale):
-        x = torch.randn(shape, generator=generator, device=generator.device)
-        return (x * scale).to(device=dev, dtype=pd)
-
-    dense = lambda i, o: normal((i, o), 1.0 / math.sqrt(i))
-    zeros = lambda n: torch.zeros((n,), device=dev, dtype=pd)
-    norm = lambda: {"scale": torch.ones((d,), device=dev, dtype=pd),
-                    "bias": zeros(d)}
-    layers = []
-    for _ in range(bb.n_layers):
-        hq, hkv = bb.n_heads * dh, bb.n_kv_heads * dh
-        layers.append({
-            "attn": {"wq": dense(d, hq), "wk": dense(d, hkv),
-                     "wv": dense(d, hkv), "wo": dense(hq, d),
-                     "bq": zeros(hq), "bk": zeros(hkv), "bv": zeros(hkv)},
-            "ln1": norm(), "ln2": norm(),
-            "mlp": {"w_in": dense(d, bb.d_ff), "b_in": zeros(bb.d_ff),
-                    "w_out": dense(bb.d_ff, d), "b_out": zeros(d)}})
-    embed = {"tokens": normal((bb.vocab_size, d), 0.02)}
-    if bb.learned_pos:
-        embed["pos"] = normal((bb.learned_pos, d), 0.02)
-    if bb.segment_vocab:
-        embed["segment"] = normal((bb.segment_vocab, d), 0.02)
-    params = {"backbone": {"embed": embed, "layers": layers,
-                           "final_norm": norm()},
-              "score_head": dense(d, 1)}
+    backbone = T.init_params(bb, generator, dev)
+    backbone.pop("lm_head", None)
+    score = torch.randn((bb.d_model, 1), generator=generator,
+                        device=generator.device) / math.sqrt(bb.d_model)
+    params = {"backbone": backbone,
+              "score_head": score.to(device=dev, dtype=bb.param_dtype)}
     if cfg.compress_dim:
-        params["compressor"] = C.init_compressor(d, cfg.compress_dim,
-                                                 generator, dev, pd)
+        params["compressor"] = C.init_compressor(bb.d_model, cfg.compress_dim,
+                                                 generator, dev,
+                                                 bb.param_dtype)
     return params
 
 
@@ -121,7 +102,8 @@ def init_prettr(cfg: PreTTRConfig, generator: torch.Generator,
 
 def _score_from_cls(params, cfg: PreTTRConfig, cls_rep):
     """cls_rep: [B, d] -> [B] float32 ranking score."""
-    h = L.apply_norm(params["backbone"]["final_norm"], cls_rep)
+    h = L.apply_norm(params["backbone"]["final_norm"], cls_rep,
+                     cfg.backbone.norm)
     return (h @ params["score_head"].to(h.dtype))[..., 0].float()
 
 
@@ -146,7 +128,7 @@ def _cls_only_layer(lp, x, cfg: T.TransformerConfig, *, positions, valid):
     ``"cuda"``).  x: [B, S, d]; positions, valid: [B, S] -> cls rep
     [B, d]."""
     b = x.shape[0]
-    h = L.apply_norm(lp["ln1"], x)
+    h = L.apply_norm(lp["ln1"], x, cfg.norm)
     p = lp["attn"]
     q = T.project_q(p, h[:, :1], cfg)
     k, v = T.project_kv(p, h, cfg)
@@ -226,7 +208,7 @@ def precompute_doc_kv(params, cfg: PreTTRConfig, doc_store):
     x_d = _decode_doc_store(params, cfg, doc_store)
     n, ld, _ = x_d.shape
     lp = params["backbone"]["layers"][cfg.l]
-    h_d = L.apply_norm(lp["ln1"], x_d)
+    h_d = L.apply_norm(lp["ln1"], x_d, bcfg.norm)
     k, v = T.project_kv(lp["attn"], h_d, bcfg)
     flat = bcfg.n_kv_heads * bcfg.dh
     return (k.reshape(n, ld, flat).to(cfg.store_dtype),
@@ -362,8 +344,8 @@ def _join_layer_split(lp, bcfg: T.TransformerConfig, x_q, x_d, q_valid,
     dh = bcfg.dh
     lq = x_q.shape[1]
     p = lp["attn"]
-    h_q = L.apply_norm(lp["ln1"], x_q)
-    h_d = L.apply_norm(lp["ln1"], x_d)
+    h_q = L.apply_norm(lp["ln1"], x_q, bcfg.norm)
+    h_d = L.apply_norm(lp["ln1"], x_d, bcfg.norm)
     kq, vq = T.project_kv(p, h_q, bcfg)
     if doc_kv is None:
         kd, vd = T.project_kv(p, h_d, bcfg)
@@ -393,8 +375,8 @@ def _cls_only_layer_split(lp, bcfg: T.TransformerConfig, x_q, x_d, q_valid,
     cd = bcfg.compute_dtype
     b = x_q.shape[0]
     p = lp["attn"]
-    h_q = L.apply_norm(lp["ln1"], x_q)
-    h_d = L.apply_norm(lp["ln1"], x_d)
+    h_q = L.apply_norm(lp["ln1"], x_q, bcfg.norm)
+    h_d = L.apply_norm(lp["ln1"], x_d, bcfg.norm)
     q = T.project_q(p, h_q[:, :1], bcfg)
     kq, vq = T.project_kv(p, h_q, bcfg)
     if doc_kv is None:

@@ -15,13 +15,15 @@
 // shared-memory K/V row and never conflict).  A row's dot product is the
 // lanes' partial sums reduced with TPR-wide xor shuffles, so every lane of
 // the row ends with the full score.  Rows per block: kThreads / TPR
-// (32 at D = 64).
+// (32 at D = 64, 8 at D = 256).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace rt {
 
@@ -66,7 +68,7 @@ constexpr int kChunks = kDims / 4;
 
 template <int D>
 struct Geo {
-  static_assert(D % kDims == 0 && D / kDims <= 32, "head dim must be 16, 32, 64 or 128");
+  static_assert(D % kDims == 0 && D / kDims <= 16, "head dim must be 16, 32, 64, 128 or 256");
   static constexpr int TPR = D / kDims;        // lanes per query row
   static constexpr int ROWS = kThreads / TPR;  // query rows per block
 };
@@ -106,18 +108,28 @@ __device__ __forceinline__ void store_row(const RowState& st, T* op, int t) {
     for (int c = 0; c < 4; ++c) op[dim_of<D>(t, i, c)] = from_f32<T>(st.acc[4 * i + c] * inv);
 }
 
-// Stage keys [k0, k0 + n) of one K/V head into shared memory as float32,
-// with each key's "side": -1 when masked (invalid or past `bound`), else
-// its segment (0 or 1; always 0 without a split boundary).  Called by
-// every thread of the block; the caller synchronises around it.
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(const T* kp, const T* vp, long long kss, long long vss,
-                                           int k0, int n, const uint8_t* valid, int bound,
-                                           int seg_boundary, float* ks, float* vs, int* kside) {
+// Stage keys [k0, k0 + n) (n <= BK) of one K/V head into shared memory as
+// float32, with each key's "side": -1 when masked (invalid or past
+// `bound`), else its segment (0 or 1; always 0 without a split boundary).
+// Raw int8 K/V (KT = int8_t) are widened and multiplied by their token's
+// float32 scale (ksc/vsc, indexed by key position).  Called by every
+// thread of the block; the caller synchronises around it.
+template <typename KT, int D, int BK = kBlockK>
+__device__ __forceinline__ void stage_tile(const KT* kp, const KT* vp, long long kss,
+                                           long long vss, int k0, int n, const uint8_t* valid,
+                                           int bound, int seg_boundary, float* ks, float* vs,
+                                           int* kside, const float* ksc = nullptr,
+                                           const float* vsc = nullptr) {
   for (int i = threadIdx.x; i < n * D; i += kThreads) {
     const int j = i / D, d = i - j * D;
-    ks[i] = to_f32(kp[(long long)(k0 + j) * kss + d]);
-    vs[i] = to_f32(vp[(long long)(k0 + j) * vss + d]);
+    float kx = to_f32(kp[(long long)(k0 + j) * kss + d]);
+    float vx = to_f32(vp[(long long)(k0 + j) * vss + d]);
+    if constexpr (std::is_same<KT, int8_t>::value) {
+      kx *= ksc[k0 + j];
+      vx *= vsc[k0 + j];
+    }
+    ks[i] = kx;
+    vs[i] = vx;
   }
   for (int j = threadIdx.x; j < n; j += kThreads) {
     const int kpos = k0 + j;
@@ -126,19 +138,23 @@ __device__ __forceinline__ void stage_tile(const T* kp, const T* vp, long long k
   }
 }
 
-// Fold one staged tile of n keys into a row's online-softmax state: keys
-// whose side differs from the row's are masked to NEG_INF, exactly as the
-// Pallas kernel masks them inside a tile it does not skip.  Every lane of
-// the block must call it (the shuffles span whole warps).
-template <int D>
+// Fold one staged tile of n keys (n <= BK) into a row's online-softmax
+// state: keys whose side differs from the row's are masked to NEG_INF, and
+// so, for a row at position qi and a tile starting at position k0, are
+// keys past the row (causal) or at or beyond `window` before it (window >
+// 0), exactly as the Pallas kernel masks them inside a tile it does not
+// skip.  Every lane of the block must call it (the shuffles span whole
+// warps).
+template <int D, int BK = kBlockK>
 __device__ __forceinline__ void fold_tile(RowState& st, const float* ks, const float* vs,
                                           const int* kside, int n, int row_side, int t,
-                                          float scale) {
+                                          float scale, int k0 = 0, int qi = 0,
+                                          bool causal = false, int window = 0) {
   constexpr int TPR = Geo<D>::TPR;
-  float s[kBlockK];
+  float s[BK];
   float m_tile = kNegInf;
 #pragma unroll
-  for (int j = 0; j < kBlockK; ++j) {
+  for (int j = 0; j < BK; ++j) {
     float part = 0.f;
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
@@ -150,7 +166,10 @@ __device__ __forceinline__ void fold_tile(RowState& st, const float* ks, const f
     }
 #pragma unroll
     for (int off = TPR / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    const float sj = (j < n && kside[j] == row_side) ? part * scale : kNegInf;
+    const int kpos = k0 + j;
+    const bool keep = j < n && kside[j] == row_side && (!causal || kpos <= qi) &&
+                      (window <= 0 || qi - kpos < window);
+    const float sj = keep ? part * scale : kNegInf;
     s[j] = sj;
     m_tile = fmaxf(m_tile, sj);
   }
@@ -160,7 +179,7 @@ __device__ __forceinline__ void fold_tile(RowState& st, const float* ks, const f
   for (int d = 0; d < kDims; ++d) st.acc[d] *= corr;
   float psum = 0.f;
 #pragma unroll
-  for (int j = 0; j < kBlockK; ++j) {
+  for (int j = 0; j < BK; ++j) {
     if (j < n) {
       const float p = expf(s[j] - m_new);
       psum += p;

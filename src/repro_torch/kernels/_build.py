@@ -32,10 +32,11 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _STRIDES = [LL] * 3
 #: C signatures of the library's entry points (all return int).
 SIGNATURES = {
-    # q, k, v, out, lengths, k_valid, dtype, B, Hq, Hkv, Sq, Skv, D,
-    # q/k/v/out (batch, head, seq) strides, seg_boundary, scale, stream
-    "rt_split_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I,
-                           *_STRIDES * 4, I, F, P],
+    # q, k, v, out, lengths, k_valid, k_scales, v_scales, dtype, kv_dtype,
+    # B, Hq, Hkv, Sq, Skv, D, q/k/v/out (batch, head, seq) strides,
+    # causal, window, seg_boundary, scale, stream
+    "rt_split_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                           *_STRIDES * 4, I, I, I, F, P],
     # q, kq, vq, kd, vd, out, dlen, kq_valid, kd_valid, kd_scale, vd_scale,
     # dtype, kd_dtype, B, Hq, Hkv, Sq, Lq, Ld, D, q/kq/vq/kd/vd/out
     # strides, scale, stream

@@ -1,8 +1,10 @@
 """Public wrapper of the flash-decode kernel (``csrc/decode_attention.cu``).
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-kernel or raise.  ``flash_decode_attention.launches`` counts kernel
-launches."""
+kernel or raise.  Launch counters, one per form:
+``flash_decode_attention.launches`` (no window: the CLS-only layer and
+the LM's global layers) and ``.window_launches`` (window > 0: the LM's
+local layers)."""
 from __future__ import annotations
 
 import math
@@ -64,11 +66,15 @@ def flash_decode_attention(q, k, v, lengths=None, k_valid=None, *,
         *_build.bhs_strides(v), os_[0], os_[1], int(window),
         1.0 / math.sqrt(d), _build.stream_ptr(dev))
     _build.check("decode_attention", code)
-    flash_decode_attention.launches += 1
+    if window > 0:
+        flash_decode_attention.window_launches += 1
+    else:
+        flash_decode_attention.launches += 1
     return out
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.window_launches = 0
 
 
 def _check(q, k, v):

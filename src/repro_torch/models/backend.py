@@ -5,7 +5,9 @@
 Kinds and call contracts (model layout ``[B, S, H, D]``, boolean masks):
 
 * ``attention(q, k, v, *, cfg, scale, split_flag, segs, valid,
-  seg_boundary, window=-1)`` -- q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D].
+  seg_boundary, window=-1, positions=None)`` -- q [B, Sq, Hq, D], k/v
+  [B, Skv, Hkv, D]; masks by ``valid`` keys, ``cfg.causal``, the layer's
+  ``window`` (> 0) and, with ``split_flag``, the PreTTR segments.
 * ``decode_attention(q, k, v, *, cfg, scale, q_pos, k_pos, window,
   k_valid=None, lengths=None, static_window=None)`` -- one query row, q
   [B, 1, Hq, D], against k/v [B, S, Hkv, D]: keys with ``k_pos <= q_pos``,
@@ -32,8 +34,13 @@ CPU tensors): int8 K/V go to the kernel's int8 form, paged pools to its
 paged form; ``decode_attention`` goes to the flash-decode kernel, which
 derives its scale (``1/sqrt(D)``) and its query position
 (``lengths - 1``) itself and needs ``static_window``, as the Pallas impl
-does.  The causal and window forms of ``attention`` are not ported yet
-and raise ``NotImplementedError`` in every impl.
+does.  ``attention`` under ``"cuda"`` runs the split-attention kernel
+with ``cfg.causal`` and the layer's window as runtime arguments; the
+model's layer loop is Python, so every layer passes its own static
+window and a gemma3 ``forward`` mixes local and global layers in one
+call.  That computes what the JAX ``plain``/``blocked`` impls compute
+(the JAX ``pallas`` impl takes uniform layer ranges only); it adds no
+feature.
 """
 from __future__ import annotations
 
@@ -87,14 +94,6 @@ def validate_config(attn_impl: str, compress_impl: str) -> None:
                              f"registration); available: {available(kind)}")
 
 
-def _unported_attention(cfg, window):
-    if cfg.causal or window > 0:
-        raise NotImplementedError(
-            "causal and sliding-window attention are not ported yet: they "
-            "arrive with the LM slice of the port (split_attention's causal/"
-            "window forms)")
-
-
 def _check_doc_operands(kd, kd_scale, vd_scale, paged):
     if (kd_scale is None) != (vd_scale is None):
         raise ValueError("pass both kd_scale and vd_scale or neither")
@@ -141,24 +140,27 @@ def _model_layout_out(q):
 
 @register("attention", "plain")
 def _attention_plain(q, k, v, *, cfg, scale, split_flag, segs, valid,
-                     seg_boundary=-1, window=-1):
+                     seg_boundary=-1, window=-1, positions=None):
     del seg_boundary
-    _unported_attention(cfg, window)
-    # key validity and (below l) same-segment: the mask the kernel applies
-    mask = valid.bool()[:, None, None, :]
-    if split_flag:
-        mask = mask & (segs[:, :, None] == segs[:, None, :])[:, None]
-    return L.plain_attention(q, k, v, mask, scale=scale)
+    if positions is None:
+        b, s = q.shape[:2]
+        positions = torch.arange(s, device=q.device).expand(b, s)
+    # key validity, causality, the window and (below l) same-segment: the
+    # masks the kernel applies
+    mask = L.attention_mask(positions, positions, causal=cfg.causal,
+                            window=window, q_seg=segs, k_seg=segs,
+                            split_segments=split_flag, k_valid=valid)
+    return L.plain_attention(q, k, v, mask[:, None], scale=scale)
 
 
 @register("attention", "cuda")
 def _attention_cuda(q, k, v, *, cfg, scale, split_flag, segs, valid,
-                    seg_boundary=-1, window=-1):
-    del scale, segs                  # the kernel derives both
-    _unported_attention(cfg, window)
+                    seg_boundary=-1, window=-1, positions=None):
+    del scale, segs, positions       # the kernel derives all three
     out, out_t = _model_layout_out(q)
     split_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), None, k_valid=valid,
+                          causal=cfg.causal, window=int(window),
                           seg_boundary=seg_boundary if split_flag else -1,
                           out=out_t)
     return out

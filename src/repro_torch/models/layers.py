@@ -1,5 +1,5 @@
-"""Shared NN layers (the PreTTR subset of ``repro.models.layers``), as
-plain functions over dicts of tensors.
+"""Shared NN layers (``repro.models.layers``), as plain functions over dicts
+of tensors.
 
 Matmuls run in the compute dtype; normalisation statistics and softmax in
 float32.  Parameters stay in their own dtype and are cast at the use site,
@@ -13,6 +13,16 @@ import torch.nn.functional as F
 NEG_INF = -1e30          # finite mask value: all-pad rows stay finite
 
 
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMSNorm scaling by ``1 + scale`` (zero-initialised scales), float32
+    inside."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dtype)
+
+
 def layer_norm(x, scale, bias, eps: float = 1e-6):
     dtype = x.dtype
     x = x.float()
@@ -22,19 +32,65 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
     return out.to(dtype)
 
 
-def apply_norm(params: dict, x):
+def apply_norm(params: dict, x, kind: str):
+    if kind == "rmsnorm":
+        return rms_norm(x, params["scale"])
     return layer_norm(x, params["scale"], params["bias"])
 
 
-def gelu(x):
-    """``jax.nn.gelu``'s default: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
 
 
-def mlp(params: dict, x):
-    """Ungated BERT MLP with biases; ``params`` already in ``x``'s dtype."""
-    h = gelu(x @ params["w_in"] + params["b_in"])
-    return h @ params["w_out"] + params["b_out"]
+def rope(x, positions, *, base: float = 10000.0, fraction: float = 1.0):
+    """RoPE on ``x [..., S, H, D]`` at ``positions [..., S]``; only the
+    first ``fraction * D`` dims (rounded down to even) rotate.  Angles are
+    float32: ``positions / base ** (arange(half) / half)``."""
+    d = x.shape[-1]
+    rot = int(d * fraction)
+    rot -= rot % 2
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    exponents = torch.arange(half, dtype=torch.float32,
+                             device=x.device) / half
+    # a Python base, not a device tensor: a host-to-device copy would
+    # wait for the stream on every call
+    timescale = torch.pow(float(base), exponents)
+    angles = positions.float()[..., None, None] / timescale
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x_rot[..., :half].float(), x_rot[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                    dim=-1).to(x.dtype)
+    return torch.cat([out, x_pass], dim=-1) if rot < d else out
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def attention_mask(q_pos, k_pos, *, causal: bool, window: int,
+                   q_seg=None, k_seg=None, split_segments: bool = False,
+                   q_valid=None, k_valid=None):
+    """Boolean ``[**, Sq, Skv]`` mask, True = may attend.  ``window < 0``
+    disables windowing; ``split_segments`` keeps tokens inside their own
+    segment (the PreTTR split mask)."""
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    m = torch.ones(torch.broadcast_shapes(dq.shape, dk.shape),
+                   dtype=torch.bool, device=dq.device)
+    if causal:
+        m = m & (dk <= dq)
+    if window >= 0:
+        m = m & (dq - dk < window)
+    if q_seg is not None and k_seg is not None and split_segments:
+        m = m & (q_seg[..., :, None] == k_seg[..., None, :])
+    if q_valid is not None:
+        m = m & q_valid.bool()[..., :, None]
+    if k_valid is not None:
+        m = m & k_valid.bool()[..., None, :]
+    return m
 
 
 def repeat_kv(k, n_rep: int):
@@ -67,13 +123,36 @@ def decode_attention(q, k_cache, v_cache, *, scale: float, k_pos, q_pos,
     n_rep = q.shape[2] // k_cache.shape[2]
     kk, vv = repeat_kv(k_cache, n_rep), repeat_kv(v_cache, n_rep)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * scale
-    dq = q_pos[..., :, None]
-    dk = k_pos[..., None, :]
-    msk = dk <= dq
-    if window >= 0:
-        msk = msk & (dq - dk < window)
-    if k_valid is not None:
-        msk = msk & k_valid.bool()[..., None, :]
+    msk = attention_mask(q_pos, k_pos, causal=True, window=window,
+                         k_valid=k_valid)
     s = s.masked_fill(~msk[:, None], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(vv.dtype), vv)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
+
+
+def mlp(params: dict, x, *, gated: bool, activation: str):
+    """Gated (``act(x Wg) * x Wu -> Wd``) or plain MLP with optional
+    biases; ``params`` already in ``x``'s dtype."""
+    act = ACTIVATIONS[activation]
+    if gated:
+        return (act(x @ params["w_gate"]) * (x @ params["w_up"])) \
+            @ params["w_down"]
+    h = x @ params["w_in"]
+    if "b_in" in params:
+        h = h + params["b_in"]
+    out = act(h) @ params["w_out"]
+    if "b_out" in params:
+        out = out + params["b_out"]
+    return out

@@ -1,11 +1,18 @@
-"""The encoder subset of ``repro.models.transformer`` that PreTTR-BERT
-runs: config, embeddings, Q/K/V projections, the block tail and a plain
-Python loop over a range of layers.
+"""Generic transformer LM / encoder, the port of ``repro.models.transformer``:
+config, init, embeddings, Q/K/V projections with bias, qk-norm and RoPE,
+the block tail with post-norms and gated MLP, a plain Python loop over
+layers, full-sequence ``forward``, ``logits`` and the KV-cache
+``decode_step``.
 
 Parameters are plain dicts of tensors; ``params["layers"]`` is a list with
 one dict per layer (the JAX package stacks them on a leading axis;
-``repro_torch.bridge`` slices them).  Learned positions only: no RoPE,
-windows, qk-norm or MoE.
+``repro_torch.bridge`` slices them).  Because the layer loop is Python,
+every layer hands its own static window and RoPE base to the backend, so
+one ``forward`` runs gemma3's 5 local : 1 global pattern through the
+kernels (the JAX ``pallas`` impl traces one scan body and takes uniform
+layer ranges only; this computes what its ``plain``/``blocked`` impls
+compute).  Not ported: MoE (``n_experts > 0`` raises) and
+``causal_lm_loss`` (the training slice).
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import backend as B
 from repro_torch.models import layers as L
 
@@ -28,92 +36,384 @@ class TransformerConfig:
     d_ff: int = 512
     vocab_size: int = 1024
     head_dim: int | None = None          # defaults to d_model // n_heads
-    causal: bool = False                 # not ported: raises in attention
-    learned_pos: int = 0                 # learned position table size
-    segment_vocab: int = 0               # segment embedding table size
+    # --- attention ---
+    causal: bool = True
+    window_pattern: tuple[int, ...] = (-1,)   # cycled over layers; -1 = global
+    window_size: int = 1024                   # width used where pattern > 0
+    rope: bool = True
+    rope_base: float = 1e4
+    rope_base_local: float | None = None      # base for windowed (local) layers
+    rope_fraction: float = 1.0                # ChatGLM "2d" RoPE: 0.5
+    use_qk_norm: bool = False
+    qkv_bias: bool = False
+    attn_logit_softcap: float = 0.0           # read by nothing, as in JAX
+    # --- norms / mlp ---
+    norm: str = "rmsnorm"                     # "rmsnorm" | "layernorm"
+    gated_mlp: bool = True
+    activation: str = "silu"
+    use_post_norm: bool = False               # Gemma-style post-block norms
+    mlp_bias: bool = False
+    # --- embeddings ---
+    scale_embeddings: bool = False            # Gemma: x *= sqrt(d)
+    learned_pos: int = 0                      # >0: learned positions (BERT)
+    segment_vocab: int = 0                    # >0: segment embeddings (BERT)
+    tie_embeddings: bool = False
+    # --- MoE (the MoE slice) ---
+    n_experts: int = 0
+    top_k: int = 0
+    # --- execution ---
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     attn_impl: str = "cuda"              # "plain" | "cuda"
     compress_impl: str = "cuda"          # "plain" | "cuda"
+    block_kv: int = 512                  # JAX "blocked" tile; kept for parity
+    logits_chunk: int = 0                # the loss's seq chunk (training)
     # PreTTR hook: layers below split_layers mask query<->doc attention
     split_layers: int = 0
 
     def __post_init__(self):
         # unknown impl names fail here, not at the first forward
         B.validate_config(self.attn_impl, self.compress_impl)
+        if self.n_experts:
+            raise NotImplementedError(
+                "MoE layers are not ported yet: they arrive with the MoE "
+                "slice of the port (qwen3-moe, granite-moe)")
 
     @property
     def dh(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def layer_windows(self) -> list[int]:
+        pat = [w if w <= 0 else self.window_size for w in self.window_pattern]
+        return [pat[i % len(pat)] for i in range(self.n_layers)]
 
-def embed(params, cfg: TransformerConfig, tokens, positions, segs):
-    """Token + learned-position + segment embeddings in compute dtype."""
-    cd = cfg.compute_dtype
-    emb = params["embed"]
-    x = emb["tokens"][tokens].to(cd)
+    def layer_rope_bases(self) -> list[float]:
+        local = self.rope_base_local if self.rope_base_local \
+            else self.rope_base
+        return [local if w > 0 else self.rope_base
+                for w in self.layer_windows()]
+
+    def num_params(self) -> int:
+        """Analytic parameter count (norms excluded), as the JAX config."""
+        return self._count(self.n_experts)
+
+    def num_active_params(self) -> int:
+        return self._count(self.top_k)
+
+    def _count(self, experts: int) -> int:
+        d, dh = self.d_model, self.dh
+        attn = d * self.n_heads * dh * 2 + d * self.n_kv_heads * dh * 2
+        if self.n_experts:
+            ffn = experts * 3 * d * self.d_ff + d * self.n_experts
+        else:
+            ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + ffn) + emb
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: TransformerConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random params with the JAX ``init_params`` tree (a list of layer
+    dicts instead of stacked leaves), scales and dtypes: dense weights
+    ``N(0, 1/d_in)``, embeddings ``N(0, 0.02^2)``, RMSNorm and qk-norm
+    scales 0, LayerNorm scales 1, biases 0.  Normals are drawn on
+    ``generator``'s device, then moved to ``device`` (``None`` means the
+    card)."""
+    dev = resolve_device(device)
+    pd = cfg.param_dtype
+    d, dh = cfg.d_model, cfg.dh
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, device=generator.device)
+        return (x * scale).to(device=dev, dtype=pd)
+
+    dense = lambda i, o: normal((i, o), 1.0 / math.sqrt(i))
+    zeros = lambda n: torch.zeros((n,), device=dev, dtype=pd)
+
+    def norm():
+        if cfg.norm == "rmsnorm":
+            return {"scale": zeros(d)}
+        return {"scale": torch.ones((d,), device=dev, dtype=pd),
+                "bias": zeros(d)}
+
+    def layer():
+        hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+        attn = {"wq": dense(d, hq), "wk": dense(d, hkv), "wv": dense(d, hkv),
+                "wo": dense(hq, d)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(hq), bk=zeros(hkv), bv=zeros(hkv))
+        if cfg.use_qk_norm:
+            attn.update(q_norm=zeros(dh), k_norm=zeros(dh))
+        p = {"attn": attn, "ln1": norm(), "ln2": norm()}
+        if cfg.use_post_norm:
+            p.update(ln1_post=norm(), ln2_post=norm())
+        if cfg.gated_mlp:
+            p["mlp"] = {"w_gate": dense(d, cfg.d_ff),
+                        "w_up": dense(d, cfg.d_ff),
+                        "w_down": dense(cfg.d_ff, d)}
+        else:
+            p["mlp"] = {"w_in": dense(d, cfg.d_ff),
+                        "w_out": dense(cfg.d_ff, d)}
+            if cfg.mlp_bias:
+                p["mlp"].update(b_in=zeros(cfg.d_ff), b_out=zeros(d))
+        return p
+
+    layers = [layer() for _ in range(cfg.n_layers)]
+    embed = {"tokens": normal((cfg.vocab_size, d), 0.02)}
     if cfg.learned_pos:
-        x = x + emb["pos"][positions].to(cd)
-    if cfg.segment_vocab and segs is not None:
-        x = x + emb["segment"][segs].to(cd)
-    return x
+        embed["pos"] = normal((cfg.learned_pos, d), 0.02)
+    if cfg.segment_vocab:
+        embed["segment"] = normal((cfg.segment_vocab, d), 0.02)
+    params = {"embed": embed, "layers": layers, "final_norm": norm()}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense(d, cfg.vocab_size)
+    return params
 
 
-def project_q(p, x, cfg: TransformerConfig):
-    """Q projection in model layout ``[B, S, Hq, Dh]``."""
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _positions(x, positions):
+    """Token-index positions ``[B, S]`` when the caller gives none."""
+    if positions is not None:
+        return positions
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device).expand(b, s)
+
+
+def project_q(p, x, cfg: TransformerConfig, *, positions=None,
+              rope_base=None):
+    """Q projection in model layout ``[B, S, Hq, Dh]`` (bias, qk-norm and
+    RoPE at ``rope_base``, default ``cfg.rope_base``)."""
     b, s, _ = x.shape
     cd = cfg.compute_dtype
     q = (x @ p["wq"].to(cd)).reshape(b, s, cfg.n_heads, cfg.dh)
-    return q + p["bq"].to(cd).reshape(cfg.n_heads, cfg.dh)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd).reshape(cfg.n_heads, cfg.dh)
+    if cfg.use_qk_norm:
+        q = L.rms_norm(q, p["q_norm"])
+    if cfg.rope:
+        q = L.rope(q, _positions(x, positions),
+                   base=cfg.rope_base if rope_base is None else rope_base,
+                   fraction=cfg.rope_fraction)
+    return q
 
 
-def project_kv(p, x, cfg: TransformerConfig):
-    """K/V projections in model layout ``[B, S, Hkv, Dh]``."""
+def project_kv(p, x, cfg: TransformerConfig, *, positions=None,
+               rope_base=None):
+    """K/V projections in model layout ``[B, S, Hkv, Dh]``: the
+    query-invariant half of an attention block, shared with PreTTR's
+    index-time layer-``l`` K/V precompute."""
     b, s, _ = x.shape
     cd = cfg.compute_dtype
     k = (x @ p["wk"].to(cd)).reshape(b, s, cfg.n_kv_heads, cfg.dh)
     v = (x @ p["wv"].to(cd)).reshape(b, s, cfg.n_kv_heads, cfg.dh)
-    k = k + p["bk"].to(cd).reshape(cfg.n_kv_heads, cfg.dh)
-    v = v + p["bv"].to(cd).reshape(cfg.n_kv_heads, cfg.dh)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(cd).reshape(cfg.n_kv_heads, cfg.dh)
+        v = v + p["bv"].to(cd).reshape(cfg.n_kv_heads, cfg.dh)
+    if cfg.use_qk_norm:
+        k = L.rms_norm(k, p["k_norm"])
+    if cfg.rope:
+        k = L.rope(k, _positions(x, positions),
+                   base=cfg.rope_base if rope_base is None else rope_base,
+                   fraction=cfg.rope_fraction)
     return k, v
 
 
+def _attention(p, x, cfg: TransformerConfig, *, positions, window,
+               rope_base, split_flag, segs, valid, seg_boundary=-1,
+               cache=None, cache_pos=None):
+    """One attention block through the ``cfg.attn_impl`` backend.  With
+    ``cache=(k, v)`` ([B, S, Hkv, Dh] views of the stacked cache) it is a
+    decode step: this step's K/V are written into the cache in place (the
+    torch form of JAX's donated cache) and the query attends through the
+    ``decode_attention`` kind with ``lengths = position + 1``.  Returns
+    ``(out [B, S, d], (k, v))``: this block's K/V, or the cache."""
+    b, s, _ = x.shape
+    q = project_q(p, x, cfg, positions=positions, rope_base=rope_base)
+    k, v = project_kv(p, x, cfg, positions=positions, rope_base=rope_base)
+    scale = 1.0 / math.sqrt(cfg.dh)
+    if cache is not None:
+        ck, cv = cache
+        ck[:, cache_pos:cache_pos + s] = k
+        cv[:, cache_pos:cache_pos + s] = v
+        k_pos = torch.arange(ck.shape[1], device=x.device).expand(
+            b, ck.shape[1])
+        out = B.get_impl("decode_attention", cfg.attn_impl)(
+            q, ck, cv, cfg=cfg, scale=scale, q_pos=positions, k_pos=k_pos,
+            window=window, lengths=positions[:, 0] + 1, static_window=window)
+        kv = cache
+    else:
+        out = B.get_impl("attention", cfg.attn_impl)(
+            q, k, v, cfg=cfg, scale=scale, positions=positions,
+            window=window, split_flag=split_flag, segs=segs, valid=valid,
+            seg_boundary=seg_boundary)
+        kv = (k, v)
+    proj = out.reshape(b, s, cfg.n_heads * cfg.dh) \
+        @ p["wo"].to(cfg.compute_dtype)
+    return proj, kv
+
+
 def block_tail(lp, cfg: TransformerConfig, x, attn_out):
-    """Everything after attention in a block: residual, LayerNorm, MLP,
-    residual.  Shared by the layer step and the split-residual join."""
+    """Everything after attention in a block: post-norm, residual, norm,
+    MLP, post-norm, residual.  Shared by the layer step and the PreTTR
+    split-residual join."""
     cd = cfg.compute_dtype
+    if cfg.use_post_norm:
+        attn_out = L.apply_norm(lp["ln1_post"], attn_out, cfg.norm)
     x = x + attn_out
-    h = L.apply_norm(lp["ln2"], x)
+    h = L.apply_norm(lp["ln2"], x, cfg.norm)
     mlp_p = {k: v.to(cd) for k, v in lp["mlp"].items()}
-    return x + L.mlp(mlp_p, h)
+    ff = L.mlp(mlp_p, h, gated=cfg.gated_mlp, activation=cfg.activation)
+    if cfg.use_post_norm:
+        ff = L.apply_norm(lp["ln2_post"], ff, cfg.norm)
+    return x + ff
+
+
+def _layer_step(lp, x, cfg: TransformerConfig, **kw):
+    """One full block over ``x [B, S, d]``; returns ``(x, kv)``."""
+    h = L.apply_norm(lp["ln1"], x, cfg.norm)
+    attn_out, kv = _attention(lp["attn"], h, cfg, **kw)
+    return block_tail(lp, cfg, x, attn_out), kv
 
 
 def layer_step(lp, x, cfg: TransformerConfig, *, split_flag: bool, segs,
-               valid, seg_boundary: int = -1):
-    """One full block over ``x [B, S, d]``."""
-    b, s, _ = x.shape
-    h = L.apply_norm(lp["ln1"], x)
-    p = lp["attn"]
-    q = project_q(p, h, cfg)
-    k, v = project_kv(p, h, cfg)
-    out = B.get_impl("attention", cfg.attn_impl)(
-        q, k, v, cfg=cfg, scale=1.0 / math.sqrt(cfg.dh),
-        split_flag=split_flag, segs=segs, valid=valid,
-        seg_boundary=seg_boundary)
-    attn_out = out.reshape(b, s, cfg.n_heads * cfg.dh) \
-        @ p["wo"].to(cfg.compute_dtype)
-    return block_tail(lp, cfg, x, attn_out)
+               valid, seg_boundary: int = -1, positions=None,
+               window: int = -1, rope_base=None):
+    """One full block over ``x [B, S, d]`` -> ``x``."""
+    return _layer_step(lp, x, cfg, positions=_positions(x, positions),
+                       window=window, rope_base=rope_base,
+                       split_flag=split_flag, segs=segs, valid=valid,
+                       seg_boundary=seg_boundary)[0]
+
+
+def _run_layers(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
+                positions, segs=None, valid=None, seg_boundary=-1,
+                collect_cache=False, cache=None, cache_pos=None):
+    """Layers [lo, hi), each with its own window, RoPE base and split
+    flag.  Returns ``(x, kv)``: the per-layer K/V stacked to
+    ``[hi - lo, B, S, Hkv, Dh]`` pairs (``collect_cache``), the updated
+    cache (``cache``), else None."""
+    windows, bases = cfg.layer_windows(), cfg.layer_rope_bases()
+    ks, vs = [], []
+    for i in range(lo, hi):
+        x, (k, v) = _layer_step(
+            params["layers"][i], x, cfg, positions=positions,
+            window=windows[i], rope_base=bases[i],
+            split_flag=i < cfg.split_layers, segs=segs, valid=valid,
+            seg_boundary=seg_boundary,
+            cache=None if cache is None else (cache[0][i], cache[1][i]),
+            cache_pos=cache_pos)
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    if cache is not None:
+        return x, cache
+    return x, ((torch.stack(ks), torch.stack(vs)) if collect_cache else None)
 
 
 def run_layer_range(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
-                    segs=None, valid=None, seg_boundary: int = -1):
+                    positions=None, segs=None, valid=None,
+                    seg_boundary: int = -1):
     """Run layers [lo, hi) over already-embedded ``x``: the hook PreTTR
     uses for precompute (0..l) and join (l..n).  Layers below
     ``cfg.split_layers`` carry the split mask: by segment ids in the plain
     impl, at the static token index ``seg_boundary`` in the kernel impl
     (-1 = single segment)."""
-    for i in range(lo, hi):
-        x = layer_step(params["layers"][i], x, cfg,
-                       split_flag=i < cfg.split_layers, segs=segs,
-                       valid=valid, seg_boundary=seg_boundary)
+    return _run_layers(params, cfg, x, lo, hi,
+                       positions=_positions(x, positions), segs=segs,
+                       valid=valid, seg_boundary=seg_boundary)[0]
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+def embed(params, cfg: TransformerConfig, tokens, positions, segs):
+    """Token (+ learned-position + segment) embeddings in compute dtype;
+    ``scale_embeddings`` multiplies by ``sqrt(d)`` rounded to the compute
+    dtype first, as JAX does."""
+    cd = cfg.compute_dtype
+    emb = params["embed"]
+    x = emb["tokens"].to(cd)[tokens]
+    if cfg.scale_embeddings:
+        # rounded on the host (no stream-waiting copy to the card)
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cd))
+    if cfg.learned_pos:
+        x = x + emb["pos"].to(cd)[positions]
+    if cfg.segment_vocab and segs is not None:
+        x = x + emb["segment"].to(cd)[segs]
     return x
+
+
+def forward(params, cfg: TransformerConfig, tokens, *, positions=None,
+            segs=None, valid=None, collect_cache=False, seg_boundary=-1):
+    """Full-sequence forward.  Returns ``(hidden [B, S, d], kv, aux)``:
+    ``kv`` the per-layer K/V as a ``(k, v)`` pair of
+    ``[L, B, S, Hkv, Dh]`` (``collect_cache``) or None; ``aux`` the MoE
+    load loss, 0 here."""
+    positions = _positions(tokens, positions)
+    x = embed(params, cfg, tokens, positions, segs)
+    x, kv = _run_layers(params, cfg, x, 0, cfg.n_layers, positions=positions,
+                        segs=segs, valid=valid, seg_boundary=seg_boundary,
+                        collect_cache=collect_cache)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    return x, kv, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _head(params, cfg: TransformerConfig):
+    """The LM head ``[d, V]`` in compute dtype (tied: the token table)."""
+    head = params["embed"]["tokens"].T if cfg.tie_embeddings \
+        else params["lm_head"]
+    return head.to(cfg.compute_dtype)
+
+
+def logits(params, cfg: TransformerConfig, hidden):
+    """``hidden [B, S, d]`` -> float32 logits ``[B, S, V]``: the compute
+    dtype product summed and returned in float32, not rounded to bf16
+    (JAX's ``preferred_element_type``).  On the card a 16-bit product
+    asks cuBLAS for a float32 output; elsewhere the operands are widened
+    first, which is exact (a 16-bit product fits a float32)."""
+    head = _head(params, cfg)
+    b, s, d = hidden.shape
+    h = hidden.reshape(b * s, d)
+    if hidden.is_cuda and h.dtype in (torch.bfloat16, torch.float16):
+        out = torch.mm(h, head, out_dtype=torch.float32)
+    else:
+        out = h.float() @ head.float()
+    return out.reshape(b, s, -1)
+
+
+def init_decode_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                      dtype=None, device=None):
+    """Zero KV cache: a ``(k, v)`` pair of ``[L, B, max_len, Hkv, Dh]`` in
+    ``dtype`` (default the compute dtype) on ``device`` (``None`` means
+    the card)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.dh)
+    kw = dict(dtype=dtype or cfg.compute_dtype, device=resolve_device(device))
+    return torch.zeros(shape, **kw), torch.zeros(shape, **kw)
+
+
+def decode_step(params, cfg: TransformerConfig, tokens, cache,
+                cache_pos: int):
+    """One decode step.  tokens: [B, 1] at position ``cache_pos``; cache:
+    ``(k, v)`` each ``[L, B, S, Hkv, Dh]``, written in place at
+    ``cache_pos`` (callers that reuse a cache clone it first).  Returns
+    ``(logits [B, 1, V] float32, cache)``."""
+    b = tokens.shape[0]
+    positions = torch.full((b, 1), int(cache_pos), dtype=torch.long,
+                           device=tokens.device)
+    x = embed(params, cfg, tokens, positions, None)
+    x, cache = _run_layers(params, cfg, x, 0, cfg.n_layers,
+                           positions=positions, cache=cache,
+                           cache_pos=int(cache_pos))
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    return logits(params, cfg, x), cache

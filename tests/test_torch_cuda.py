@@ -2,7 +2,8 @@
 PyTorch version on the same inputs, the wrappers' argument checks, and
 the smoke-size service through the kernels against the plain impl (fused
 and legacy concat joins, prefetched and synchronous drains, an injected
-staging fault).
+staging fault), and gemma3's smoke_config forward and decode through the
+kernels against the plain impl.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; this file imports neither JAX nor the JAX package, so it runs on a
@@ -91,6 +92,82 @@ def test_split_attention_kernel(dev, b, hq, hkv, s, d, boundary, dtype):
     want = split_attention_ref(q, k, v, last_valid_lengths(valid), valid,
                                seg_boundary=boundary)
     _close(got, want, dtype)
+
+
+def _visible_rows(sq, skv, lengths, valid, causal, window, boundary):
+    """[B, Sq]: rows that see at least one key.  A row that sees none is
+    out of the kernel's contract (it skips that row's tiles, as the Pallas
+    kernel does; the plain version averages every key)."""
+    dev = lengths.device
+    qp = torch.arange(sq, device=dev)[:, None]
+    kp = torch.arange(skv, device=dev)[None, :]
+    ok = (kp < lengths[:, None, None]) & valid[:, None, :] & (qp >= 0)
+    if causal:
+        ok = ok & (kp <= qp)
+    if window > 0:
+        ok = ok & (qp - kp < window)
+    if boundary >= 0:
+        ok = ok & ((qp >= boundary) == (kp >= boundary))
+    return ok.any(-1)
+
+
+# form, (causal, window, seg_boundary, int8 K/V), its launch counter
+SPLIT_FORMS = {
+    "causal": (True, -1, -1, False, "causal_launches"),
+    "window": (True, 24, -1, False, "window_launches"),
+    "window_bidirectional": (False, 40, -1, False, "window_launches"),
+    "int8": (False, -1, -1, True, "int8_launches"),
+    "int8_causal_window": (True, 24, -1, True, "int8_launches"),
+    "seg_boundary": (False, -1, 37, False, "launches"),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("form", list(SPLIT_FORMS))
+def test_split_attention_lm_forms_kernel(dev, form, d, dtype):
+    """Every mask form and the int8 form at every head dim, GQA 8/4, ragged
+    Sq = 70 and Skv = 100 (neither a multiple of the 16- or 32-key tile),
+    ragged lengths and non-prefix validity, against the plain version on
+    the rows that see a key; each form counts in its own counter."""
+    causal, window, boundary, int8, counter = SPLIT_FORMS[form]
+    g = torch.Generator(device=dev).manual_seed(14)
+    dt = DTYPES[dtype]
+    b, sq, skv = 3, 70, 100
+    q = _rand(g, dev, dt, b, 8, sq, d)
+    if int8:
+        k, v = (torch.randint(-127, 128, (b, 4, skv, d), generator=g,
+                              device=dev, dtype=torch.int32).to(torch.int8)
+                for _ in range(2))
+        ks, vs = (1e-3 + 0.05 * torch.rand((b, skv), generator=g, device=dev)
+                  for _ in range(2))
+    else:
+        k, v = (_rand(g, dev, dt, b, 4, skv, d) for _ in range(2))
+        ks = vs = None
+    lengths = torch.tensor([skv, 61, 83], device=dev, dtype=torch.int32)
+    valid = torch.rand((b, skv), generator=g, device=dev) < 0.85
+    valid[:, 0] = True
+    kw = dict(causal=causal, window=window, seg_boundary=boundary)
+    before = getattr(split_flash_attention, counter)
+    got = split_flash_attention(q, k, v, lengths, valid, ks, vs, **kw)
+    assert getattr(split_flash_attention, counter) == before + 1
+    want = split_attention_ref(q, k, v, lengths, valid, ks, vs, **kw)
+    rows = _visible_rows(sq, skv, lengths, valid, causal, window, boundary)
+    assert rows.float().mean() > 0.8
+    _close(got.transpose(1, 2)[rows], want.transpose(1, 2)[rows], dtype)
+
+
+def test_split_attention_gemma3_prefill_shape(dev):
+    """The LM slice's prefill shape: [4, 8, 2048, 256] bf16 against GQA
+    [4, 4, 2048, 256], causal and causal + 1024-key window."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    q = _rand(g, dev, torch.bfloat16, 4, 8, 2048, 256)
+    k, v = (_rand(g, dev, torch.bfloat16, 4, 4, 2048, 256) for _ in range(2))
+    for window in (-1, 1024):
+        _close(split_flash_attention(q, k, v, causal=True, window=window),
+               split_attention_ref(q, k, v, torch.full((4,), 2048,
+                                                       device=dev),
+                                   causal=True, window=window), "bfloat16")
 
 
 def test_split_attention_writes_strided_out(dev):
@@ -416,9 +493,10 @@ def test_decode_attention_kernel(dev, d, group, window, dtype):
     hkv = 2
     q, k, v, lengths, valid = _decode_world(g, dev, DTYPES[dtype], 3,
                                             hkv * group, hkv, 1100, d)
-    before = flash_decode_attention.launches
+    counter = "window_launches" if window > 0 else "launches"
+    before = getattr(flash_decode_attention, counter)
     got = flash_decode_attention(q, k, v, lengths, valid, window=window)
-    assert flash_decode_attention.launches == before + 1
+    assert getattr(flash_decode_attention, counter) == before + 1
     _close(got, decode_attention_ref(q, k, v, lengths, valid,
                                      window=window), dtype)
 
@@ -567,3 +645,58 @@ def test_staging_fault_fails_only_its_micro_batch(dev, tmp_path):
         assert r.degraded == bool(r.failed_doc_ids)
         for d, s in zip(r.doc_ids, r.scores):
             assert s == (-np.inf if d in r.failed_doc_ids else want[d])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemma3_smoke_forward_and_decode_kernels_match_plain(dev, dtype):
+    """gemma3's smoke_config (5 local : 1 global, window 8) on the card:
+    the last prefill position after 16 tokens, 4 teacher-forced decode
+    steps and a forward over all 20 tokens (the window bites), kernels
+    against the plain impl.  The prefill launches the causal and window
+    forms, the decode the flash-decode kernel's two window forms.  Logits
+    within 2e-4 in float32 (tests/test_models.py); in bfloat16 within twice
+    the plain impl's own bf16 distance from float32, the rule of
+    chip_smoke.py (the kernels round at other places than the plain
+    impl)."""
+    import dataclasses
+
+    from repro_torch.configs.gemma3_4b import smoke_config
+    from repro_torch.models import transformer as T
+
+    cfg = smoke_config()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(16),
+                           device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(17))
+
+    def run(impl, dt):
+        c = dataclasses.replace(cfg, attn_impl=impl, compute_dtype=dt)
+        before = (split_flash_attention.causal_launches,
+                  split_flash_attention.window_launches,
+                  flash_decode_attention.launches,
+                  flash_decode_attention.window_launches)
+        h, kv, _ = T.forward(params, c, toks[:, :16], collect_cache=True)
+        cache = T.init_decode_cache(c, 2, 24, device=dev)
+        cache[0][:, :, :16] = kv[0]
+        cache[1][:, :, :16] = kv[1]
+        steps = [T.decode_step(params, c, toks[:, 16 + i:17 + i], cache,
+                               16 + i)[0] for i in range(4)]
+        after = (split_flash_attention.causal_launches,
+                 split_flash_attention.window_launches,
+                 flash_decode_attention.launches,
+                 flash_decode_attention.window_launches)
+        launched = tuple(a - b for a, b in zip(after, before))
+        assert launched == ((1, 5, 4, 20) if impl == "cuda" else (0,) * 4)
+        full, _, _ = T.forward(params, c, toks)
+        torch.cuda.synchronize()
+        return np.concatenate([t.float().cpu().numpy().ravel() for t in (
+            T.logits(params, c, h[:, -1:]), *steps,
+            T.logits(params, c, full))])
+
+    dt = DTYPES[dtype]
+    got, want = run("cuda", dt), run("plain", dt)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        limit = 2 * np.abs(want - run("plain", torch.float32)).max()
+        assert np.abs(got - want).max() <= limit

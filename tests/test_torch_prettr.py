@@ -167,13 +167,25 @@ def test_unported_join_operands_raise(impl, operand):
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("causal,window", [(True, -1), (False, 16)])
 def test_unported_masks_raise(impl, causal, window):
-    t, _ = _attn_args()
+    """The causal and window masks raised until the LM slice ported them;
+    now both impls apply them, as plain attention under
+    ``attention_mask`` does."""
+    from repro_torch.models import layers as TL
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 20, 2, 16), generator=g) for _ in range(3))
     cfg = TransformerConfig(causal=causal)
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        TB.get_impl("attention", impl)(
-            t, t, t, cfg=cfg, scale=0.25, split_flag=False,
-            segs=torch.zeros((2, 6), dtype=torch.long),
-            valid=torch.ones((2, 6), dtype=torch.bool), window=window)
+    valid = torch.ones((2, 20), dtype=torch.bool)
+    valid[1, 15:] = False
+    got = TB.get_impl("attention", impl)(
+        q, k, v, cfg=cfg, scale=0.25, split_flag=False,
+        segs=torch.zeros((2, 20), dtype=torch.long), valid=valid,
+        window=window)
+    pos = torch.arange(20).expand(2, 20)
+    mask = TL.attention_mask(pos, pos, causal=causal, window=window,
+                             k_valid=valid)
+    want = TL.plain_attention(q, k, v, mask[:, None], scale=0.25)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
 
 
 def test_join_and_score_rejects_unported_paths():
