@@ -3,8 +3,8 @@
 
 Drives the port's main paths at full width with seeded random weights:
 PreTTR at the paper's (``repro_torch.configs.prettr_bert.full_config``:
-12 layers, d=768, split at l=6, e=256, bf16 compute), then the
-transformer LM at gemma3-4b's:
+12 layers, d=768, split at l=6, e=256, bf16 compute), the transformer LM
+at gemma3-4b's, then the recsys models at their published configs:
 
 1. device  -- the card's name and power limit, the kernel build time;
 2. kernels -- each hand-written kernel form at its main-path shape against
@@ -53,15 +53,33 @@ transformer LM at gemma3-4b's:
    and through the kernels in float32, fed the timed run's tokens;
    ``lm_soundness``, prefill + one ``decode_step`` against ``forward``
    over 2049 tokens, float32 through the kernels; then a profile of one
-   prefill and 4 decode steps.
+   prefill and 4 decode steps;
+7. recsys -- once the LM's state is freed, every lookup through the
+   embedding-bag kernel and, on the same inputs, through its plain
+   version (each pair within a limit scaled to the data, ``REC_REL``;
+   each line gives both times, the limit, the card's free memory and the
+   peak allocated): DLRM-MLPerf
+   (``dlrm_mlperf.full_config`` with ``param_dtype=torch.bfloat16``: the
+   whole Criteo-1TB vocabulary, 187,767,808 rows, a 48.1 GB table drawn
+   in chunks on the card; the phase fails if the card cannot hold it)
+   ``dlrm_forward`` on ``click_batch`` ids at serve_p99 (B = 512) and
+   serve_bulk (B = 262,144), ``retrieval_scores`` of one user against
+   1,000,192 seeded float32 item vectors, ``item_tower`` over 1,000,192
+   items; DeepFM (``deepfm.full_config``: 39 x 1M rows of 10, float32)
+   ``deepfm_forward`` at both batches, ``item_vectors`` over 1,000,192
+   items and ``retrieval_scores`` for one user; xDeepFM at serve_p99 only
+   (its line says why not serve_bulk); a profile of each serve_bulk
+   forward; then the kernel's sum, mean and cast forms at their
+   main-path shapes beside the plain version and ``F.embedding_bag``.
 
 Kernel launches are counted per path: every counter is set to 0 just
-before each index build, each timed serving run, the soundness check and
-each LM run, and read just after.  A path that misses a kernel it must run
+before each index build, each timed serving run, the soundness check,
+each LM run and each recsys run, and read just after.  A path that misses a kernel it must run
 (``PATH_KERNELS``), or a plain run that launches any, fails the script.
 The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
-the index builds, the bf16 kernel runs of each serving form and the LM's
-bf16 prefill and decode),
+the index builds, the bf16 kernel runs of each serving form, the LM's
+bf16 prefill and decode, and the recsys serve_bulk forwards, retrieval
+runs and towers),
 ``launches_by_path`` gives each path's own.
 
 Every phase that fails raises and the script exits non-zero.  It prints
@@ -70,6 +88,7 @@ last ``{"ok": true, "device": ...}``.  Run from the repository root::
 
     python3 chip_smoke.py
 """
+import functools
 import json
 import math
 import os
@@ -123,6 +142,28 @@ LM_F32_TOL = 1e-3
 # hidden states against 0.02-scaled tied embeddings over d = 2560), so
 # 1e-3 leaves a factor of ~10 over that estimate.
 LM_SOUND_TOL = 1e-3
+# the JAX package's recsys shapes (src/repro/configs/__init__.py
+# RECSYS_SHAPES): serve_p99 B = 512, serve_bulk B = 262,144, and
+# retrieval_cand's 1,000,000 candidates padded to a multiple of 256 as
+# src/repro/launch/steps.py (_pad_mult) feeds them
+REC_P99, REC_BULK, REC_CANDIDATES = 512, 262_144, 1_000_192
+# the port's kernels by symbol (csrc/*.cu), held against the launch
+# counters in each profile
+OUR_KERNELS = ("split_attention_kernel", "join_tiled_kernel",
+               "join_attention_row_kernel", "decode_attention_kernel",
+               "compress_kernel", "decompress_kernel", "embedding_bag_kernel")
+# recsys limits, scaled to the data (the tables are N(0, 0.01^2), so a
+# fixed 2e-2 would pass a kernel that returned zeros).  The kernel and its
+# plain version sum the same float32 terms in other orders and round once:
+# - "bits": a bag of one slot of weight 1 has nothing to reorder, and
+#   DLRM's forward has no other bag, so these must be bit-equal;
+# - "bfloat16": a reordered sum that rounds to bf16 can land on the other
+#   side of a tie, one bf16 ulp of the value, at most 2^-7 of it: the
+#   limit is 2^-7 * max|plain|, no relative term;
+# - "float32": float32 sums of up to 39 terms in another order differ by
+#   a few float32 ulps (2^-23); 2^-16 * max|plain| is 128 ulps of the
+#   largest value.
+REC_REL = {"bits": 0.0, "bfloat16": 2.0 ** -7, "float32": 2.0 ** -16}
 
 
 def emit(obj):
@@ -169,6 +210,42 @@ def bound(flops, n_bytes, flops_peak):
 # ---------------------------------------------------------------------------
 
 
+def compare(name, got, want, dtype_name, shape):
+    """A kernel's output against its plain version's, within TOL of the
+    type (relative and absolute); returns the max abs error."""
+    import torch
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    tol = TOL[dtype_name]
+    ok = bool(torch.all(err <= tol + tol * want.float().abs()))
+    emit({"phase": "kernel_check", "kernel": name, "shape": shape,
+          "dtype": dtype_name, "max_abs_err": err.max().item(),
+          "tol": {"rtol": tol, "atol": tol}, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} {shape} {dtype_name}: kernel "
+                             f"disagrees with its plain version")
+    return err.max().item()
+
+
+def record_kernel(rows, name, source, replaces, err, kernel_fn, plain_fn,
+                  library_fn, flops, n_bytes, peak, peak_name, row=True,
+                  **extra):
+    """Time a kernel beside its plain version and library call; with
+    ``row`` False (a second form of a kernel already in the line) only the
+    kernel_time line is printed.  ``extra`` goes on that line."""
+    ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+    library_ms = time_ms(library_fn)
+    bound_ms, bound_by = bound(flops, n_bytes, peak)
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": 0, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    emit({"phase": "kernel_time", **out, "peak": peak_name,
+          "flops": flops, "bytes": n_bytes, **extra})
+    if row:
+        rows.append(out)
+
+
 def _prefix_mask(torch, gen, b, n, lo):
     lengths = torch.randint(lo, n + 1, (b, 1), generator=gen, device="cuda")
     return torch.arange(n, device="cuda")[None] < lengths
@@ -203,37 +280,8 @@ def check_kernels(torch, cfg):
         return (torch.randn(*shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
-    def compare(name, got, want, dtype_name, shape):
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        tol = TOL[dtype_name]
-        ok = bool(torch.all(err <= tol + tol * want.float().abs()))
-        emit({"phase": "kernel_check", "kernel": name, "shape": shape,
-              "dtype": dtype_name, "max_abs_err": err.max().item(),
-              "tol": {"rtol": tol, "atol": tol}, "ok": ok})
-        if not ok:
-            raise AssertionError(f"{name} {shape} {dtype_name}: kernel "
-                                 f"disagrees with its plain version")
-        return err.max().item()
-
     rows = []
-
-    def record(name, source, replaces, err, kernel_fn, plain_fn, library_fn,
-               flops, n_bytes, peak, peak_name, row=True):
-        """Time a kernel beside its plain version and library call; with
-        ``row`` False (a second form of a kernel already in the line) only
-        the kernel_time line is printed."""
-        ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
-        library_ms = time_ms(library_fn)
-        bound_ms, bound_by = bound(flops, n_bytes, peak)
-        out = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": 0, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms}
-        emit({"phase": "kernel_time", **out, "peak": peak_name,
-              "flops": flops, "bytes": n_bytes})
-        if row:
-            rows.append(out)
+    record = functools.partial(record_kernel, rows)
 
     # -- split attention: encode_query, rank_forward's seg_boundary form
     #    and precompute_docs in float32 and bf16; the last, the bf16
@@ -667,6 +715,7 @@ def make_zipf_requests(rng, cfg):
 def launch_counters():
     """Each kernel's launch counter, as (wrapper, attribute)."""
     from repro_torch.kernels.decode_attention import flash_decode_attention
+    from repro_torch.kernels.embedding_bag import embedding_bag_op
     from repro_torch.kernels.fused_compress import (fused_compress,
                                                     fused_decompress)
     from repro_torch.kernels.join_attention import (join_flash_attention,
@@ -688,7 +737,10 @@ def launch_counters():
             "compress": (fused_compress, "launches"),
             "compress_f32": (fused_compress, "f32_launches"),
             "decompress": (fused_decompress, "launches"),
-            "decompress_f32": (fused_decompress, "f32_launches")}
+            "decompress_f32": (fused_decompress, "f32_launches"),
+            "embedding_bag": (embedding_bag_op, "launches"),
+            "embedding_bag_mean": (embedding_bag_op, "mean_launches"),
+            "embedding_bag_cast": (embedding_bag_op, "cast_launches")}
 
 
 def counted(fn):
@@ -734,12 +786,31 @@ PATH_KERNELS = {
     "lm_prefill": _LM_PREFILL, "lm_decode": _LM_DECODE,
     "lm_cuda_f32": _LM_PREFILL + _LM_DECODE, "lm_soundness": _LM_PREFILL,
     "lm_plain_bf16": (), "lm_plain_f32": (),
+    # recsys: DLRM's single-hot gather is the sum form over a bf16 table,
+    # its towers mean bags; DeepFM's gather rounds float32 rows to bf16
+    # (the cast form) and its first-order term, item vectors and retrieval
+    # are sum bags
+    "dlrm_serve_p99": ("embedding_bag",), "dlrm_serve_bulk": ("embedding_bag",),
+    "dlrm_retrieval": ("embedding_bag_mean",),
+    "dlrm_item_tower": ("embedding_bag_mean",),
+    "deepfm_serve_p99": ("embedding_bag", "embedding_bag_cast"),
+    "deepfm_serve_bulk": ("embedding_bag", "embedding_bag_cast"),
+    "deepfm_item_vectors": ("embedding_bag",),
+    "deepfm_retrieval": ("embedding_bag",),
+    "xdeepfm_serve_p99": ("embedding_bag", "embedding_bag_cast"),
+    **{f"plain_{p}": () for p in (
+        "dlrm_serve_p99", "dlrm_serve_bulk", "dlrm_retrieval",
+        "dlrm_item_tower", "deepfm_serve_p99", "deepfm_serve_bulk",
+        "deepfm_item_vectors", "deepfm_retrieval", "xdeepfm_serve_p99")},
 }
 # the paths whose launches make the kernels line's `launches`: the index
-# builds, the bf16 drains of each serving form, and the LM's bf16 prefill
-# and decode
+# builds, the bf16 drains of each serving form, the LM's bf16 prefill and
+# decode, and the recsys serve_bulk forwards, retrieval and towers
 MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
-              "serve_int8_kv", "serve_cached", "lm_prefill", "lm_decode")
+              "serve_int8_kv", "serve_cached", "lm_prefill", "lm_decode",
+              "dlrm_serve_bulk", "dlrm_retrieval", "dlrm_item_tower",
+              "deepfm_serve_bulk", "deepfm_item_vectors", "deepfm_retrieval",
+              "xdeepfm_serve_p99")
 
 
 def serve(torch, params, cfg, index, requests, label, name, passes=1,
@@ -825,24 +896,19 @@ def profile_serve(torch, params, cfg, index, requests, name):
     """Where a drain's device time goes: one drain of two requests (four
     micro-batches) under torch.profiler, the device's busy share of the
     wall time and its kernels by total time."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import RankingService, RankRequest
     svc = RankingService(params, cfg, index, micro_batch=MICRO_BATCH)
     q, qv, ids = requests[0]
     svc.rank(q, qv, ids[:MICRO_BATCH])         # warm-up
-    svc._qcache.clear()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def drain():
+        svc._qcache.clear()
         for i, (q, qv, ids) in enumerate(requests[:2]):
             svc.submit(RankRequest(q, qv, ids, request_id=f"p{i}"))
         svc.drain()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    emit({"phase": "profile", "run": "cuda_bf16", "device": name,
-          "micro_batches": 2 * N_CANDIDATES // MICRO_BATCH,
-          "wall_ms": wall_ms, **_device_time(prof, wall_ms)})
+
+    profile_run(torch, name, "cuda_bf16", drain,
+                micro_batches=2 * N_CANDIDATES // MICRO_BATCH)
 
 
 def max_diff(a, b):
@@ -945,7 +1011,6 @@ def profile_lm(torch, T, params, cfg, prompts, fed, name):
     """Where the LM's device time goes: one prefill of 4 x 2048 tokens,
     then 4 decode steps, each under torch.profiler: the device's busy
     time beside the wall time, and its kernels by total time."""
-    from torch.profiler import ProfilerActivity, profile
     _, kv, _ = lm_prefill(torch, T, params, cfg, prompts)     # warm
     with torch.inference_mode():
         cache = T.init_decode_cache(cfg, LM_B, LM_S + LM_STEPS)
@@ -958,29 +1023,55 @@ def profile_lm(torch, T, params, cfg, prompts, fed, name):
             for i in range(4):
                 T.decode_step(params, cfg, fed[:, i:i + 1], cache, LM_S + i)
 
-    for label, fn in (("lm_prefill",
-                       lambda: lm_prefill(torch, T, params, cfg, prompts)),
-                      ("lm_decode_4_steps", steps)):
+    profile_run(torch, name, "lm_prefill",
+                lambda: lm_prefill(torch, T, params, cfg, prompts))
+    profile_run(torch, name, "lm_decode_4_steps", steps)
+
+
+def profile_run(torch, name, label, fn, **extra):
+    """One call of ``fn`` under torch.profiler: the wall time, the
+    device's busy time and its kernels by total time.
+
+    Late in this script's run on an H100 the profiler has dropped the
+    first device events of a window (DeepFM's forward lost its first 2 ms,
+    both embedding-bag launches among them), so a first call of ``fn``
+    is traced and discarded (the profiler's warm-up step) before the one
+    read; and the port's kernels in the profile are held against the
+    launch counters.  Where they differ the line says ``complete:
+    false`` and gives no busy time or share."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    read = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: read.append(p.key_averages())) \
+            as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        emit({"phase": "profile", "run": label, "device": name,
-              "wall_ms": wall_ms, **_device_time(prof, wall_ms)})
+        prof.step()
+        t0 = time.perf_counter()
+        _, launched = counted(fn)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    emit({"phase": "profile", "run": label, "device": name, **extra,
+          "wall_ms": wall_ms,
+          **_device_time(read[0], wall_ms, sum(launched.values()))})
 
 
-def _device_time(prof, wall_ms):
+def _device_time(events, wall_ms, launched):
     """The device's busy time, its share of ``wall_ms`` and its kernels by
-    total time, from a finished profiler."""
+    total time, from a profile's ``key_averages()``; ``launched`` kernels
+    of the port's must all be in it, else the busy time is not
+    reported."""
     import re
 
     from torch.autograd import DeviceType
     by_name = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    for e in events:
+        # ProfilerStep* sums the step's kernels: not a kernel of its own
+        if e.device_type != DeviceType.CUDA \
+                or e.key.startswith("ProfilerStep"):
             continue
         us = getattr(e, "device_time_total", None)
         if us is None:
@@ -989,10 +1080,14 @@ def _device_time(prof, wall_ms):
         key = ours.group(1) if ours else e.key[:60]
         n, t = by_name.get(key, (0, 0.0))
         by_name[key] = (n + e.count, t + us / 1e3)
+    profiled = sum(n for k, (n, _) in by_name.items() if k in OUR_KERNELS)
+    complete = profiled == launched
     busy_ms = sum(t for _, t in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+    return {"complete": complete, "launched": launched,
+            "profiled": profiled,
+            "device_busy_ms": busy_ms if complete else None,
+            "device_busy_share": busy_ms / wall_ms if complete else None,
             "top": [{"name": k, "count": n, "device_ms": t}
                     for k, (n, t) in top]}
 
@@ -1104,6 +1199,270 @@ def lm_phases(torch, name, launches):
         raise AssertionError("lm: prefill + decode_step != forward")
     del runs, longer
     profile_lm(torch, T, params, cfg, prompts, fed, name)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the recsys models (DLRM-MLPerf, DeepFM, xDeepFM)
+# ---------------------------------------------------------------------------
+
+
+def memory(torch):
+    free, total = torch.cuda.mem_get_info()
+    return {"free_bytes": free, "total_bytes": total,
+            "max_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def wall_ms(torch, fn, n=5):
+    """Median wall time of ``fn`` in ms, each call ended by a synchronize
+    (a request's latency as its caller sees it), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def held(torch, got, want, kind):
+    """``got`` against ``want`` within REC_REL[kind] * max|want| (``kind``
+    "bits": bit-equal): (max_abs_diff, atol, ok); non-finite output fails."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    atol = REC_REL[kind] * want.float().abs().max().item()
+    ok = (torch.equal(got, want) if kind == "bits" else err <= atol) \
+        and bool(torch.isfinite(got).all())
+    return err, atol, ok
+
+
+def rec_paths(torch, name, launches, model, run, path, fn, plain_fn, kind,
+              **extra):
+    """``fn`` (through the kernel) and ``plain_fn`` once each with the
+    counters zeroed (paths ``path`` and ``plain_<path>``), held against
+    each other by :func:`held` (``kind`` for every output), then timed;
+    prints the line and returns the kernel run's output (a tensor or a
+    tuple of them)."""
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+    got, launches[path] = counted(fn)
+    want, launches["plain_" + path] = counted(plain_fn)
+    checks = [held(torch, g, w, kind)
+              for g, w in zip(as_tuple(got), as_tuple(want))]
+    ok = all(c[2] for c in checks) and all(
+        e.get("ok", True) for e in extra.values() if isinstance(e, dict))
+    ms, plain_ms = wall_ms(torch, fn), wall_ms(torch, plain_fn)
+    line = {"phase": "recsys", "model": model, "run": run, "device": name,
+            **extra, "ms": ms, "plain_ms": plain_ms,
+            "shapes": [list(g.shape) for g in as_tuple(got)],
+            "max_abs_diff": [c[0] for c in checks],
+            "limit": {"kind": kind, "atol": [c[1] for c in checks]},
+            "bit_equal": all(torch.equal(g, w) for g, w in
+                             zip(as_tuple(got), as_tuple(want))),
+            "ok": ok, "launches": launches[path], **memory(torch)}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"{model} {run}: the kernel path disagrees with "
+                             f"the plain path or is not finite")
+    return got
+
+
+def bag_row(torch, rows, name, table, ids, *, mode="sum", out_dtype=None,
+            row=True, library=None, **extra):
+    """The embedding-bag kernel at a main-path shape against its plain
+    version, timed beside them and ``F.embedding_bag``.  Bound: bytes,
+    each distinct table row read once (what these ids need), the ids and
+    the output once; 2 FLOPs an element of a slot."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import (embedding_bag_op,
+                                                   embedding_bag_ref)
+    out_dtype = table.dtype if out_dtype is None else out_dtype
+    got = embedding_bag_op(table, ids, mode=mode, out_dtype=out_dtype)
+    want = embedding_bag_ref(table, ids, mode=mode, out_dtype=out_dtype)
+    kind = "bits" if ids.shape[1] == 1 else \
+        "float32" if out_dtype == torch.float32 else "bfloat16"
+    err, atol, ok = held(torch, got, want, kind)
+    shape = [*table.shape, *ids.shape, mode, str(table.dtype),
+             str(out_dtype)]
+    emit({"phase": "kernel_check", "kernel": name, "shape": shape,
+          "max_abs_err": err, "limit": {"kind": kind, "atol": atol},
+          "bit_equal": torch.equal(got, want), "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} {shape}: kernel disagrees with its "
+                             f"plain version ({kind}, atol {atol})")
+    del want
+    row_bytes = table.shape[1] * table.element_size()
+    distinct = torch.unique(ids).numel()
+    n_bytes = distinct * row_bytes + nbytes(ids, got)
+    if library is None:
+        library = lambda: F.embedding_bag(ids, table, mode=mode)
+    record_kernel(
+        rows, name, "src/repro_torch/csrc/embedding_bag.cu",
+        "src/repro/kernels/embedding_bag/kernel.py:45", err,
+        lambda: embedding_bag_op(table, ids, mode=mode, out_dtype=out_dtype),
+        lambda: embedding_bag_ref(table, ids, mode=mode, out_dtype=out_dtype),
+        library, 2 * ids.numel() * table.shape[1], n_bytes, PEAK_F32_FLOPS,
+        "f32 CUDA cores", row=row, distinct_rows=distinct,
+        slot_row_bytes=ids.numel() * row_bytes, **extra)
+
+
+def click_ids(torch, rng, batch, vocab_sizes, n_dense=0):
+    """``click_batch`` dense features and ids on the card."""
+    from repro_torch.data.recsys import click_batch
+    b = click_batch(rng, batch, n_dense=n_dense, vocab_sizes=vocab_sizes)
+    return (torch.from_numpy(b["dense"]).cuda(),
+            torch.from_numpy(b["sparse"]).cuda())
+
+
+def recsys_phases(torch, name, launches, rows):
+    """DLRM-MLPerf at full vocabulary (bf16 table, 48.1 GB), DeepFM at its
+    full config and xDeepFM at serve_p99 on the card, each path through
+    the embedding-bag kernel and through the plain version; then the
+    kernel's three forms at their main-path shapes."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import deepfm, dlrm_mlperf, xdeepfm
+    from repro_torch.models.recsys import deepfm as TF
+    from repro_torch.models.recsys import dlrm as TD
+    from repro_torch.models.recsys import embedding as E
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain = lambda c: dataclasses.replace(c, bag_impl="plain")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+
+    # -- DLRM-MLPerf: the whole Criteo-1TB vocabulary in bf16 (dlrm_forward
+    #    casts every parameter to bf16 first, so bf16 storage gives float32
+    #    storage's numbers)
+    cfg = dataclasses.replace(dlrm_mlperf.full_config(),
+                              param_dtype=torch.bfloat16)
+    n_rows = -(-sum(cfg.vocab_sizes) // 512) * 512
+    table_bytes = n_rows * cfg.embed_dim * 2
+    free = torch.cuda.mem_get_info()[0]
+    if free < table_bytes + (8 << 30):
+        raise AssertionError(f"dlrm-mlperf: the card has {free} bytes free, "
+                             f"the full table needs {table_bytes} and ~8 GB "
+                             f"beside it; the vocabulary is not cut")
+    t0 = time.perf_counter()
+    params = TD.init_dlrm(cfg, gen)
+    torch.cuda.synchronize()
+    emit({"phase": "recsys_model", "model": cfg.name, "device": name,
+          "table_rows": params["table"].shape[0], "embed_dim": cfg.embed_dim,
+          "table_dtype": str(params["table"].dtype),
+          "table_bytes": nbytes(params["table"]),
+          "param_bytes": sum(nbytes(t) for t in _leaves(params)),
+          "init_s": time.perf_counter() - t0, **memory(torch)})
+    dense, sparse = click_ids(torch, rng, REC_BULK, cfg.vocab_sizes, 13)
+    for run, b in (("serve_p99", REC_P99), ("serve_bulk", REC_BULK)):
+        rec_paths(torch, name, launches, cfg.name, run, f"dlrm_{run}",
+                  lambda: TD.dlrm_forward(params, cfg, dense[:b], sparse[:b]),
+                  lambda: TD.dlrm_forward(params, plain(cfg), dense[:b],
+                                          sparse[:b]), "bits", batch=b)
+    profile_run(torch, name, "dlrm_serve_bulk",
+                lambda: TD.dlrm_forward(params, cfg, dense, sparse))
+    offsets = E.fused_table_offsets(cfg.vocab_sizes)
+    u_dense, u_ids = click_ids(torch, rng, 1, cfg.vocab_sizes, 13)
+    u_ids = u_ids[:, cfg.user_fields]
+    item_vecs = torch.randn((REC_CANDIDATES, cfg.embed_dim), generator=gen,
+                            device="cuda")
+    # the user's mean bag is ~0.003 an element beside the bottom MLP's ~1,
+    # so the scores alone cannot show a wrong bag: the line holds the bag
+    # itself too
+    u_bag = lambda c: E.padded_bag(
+        params["table"], E.field_ids(u_ids, offsets[cfg.user_fields]),
+        mode="mean", out_dtype=c.compute_dtype, impl=c.bag_impl)
+    err, atol, ok = held(torch, u_bag(cfg), u_bag(plain(cfg)), "bfloat16")
+    rec_paths(torch, name, launches, cfg.name, "retrieval_cand",
+              "dlrm_retrieval",
+              lambda: TD.retrieval_scores(params, cfg, u_dense, u_ids,
+                                          item_vecs),
+              lambda: TD.retrieval_scores(params, plain(cfg), u_dense, u_ids,
+                                          item_vecs), "bfloat16", batch=1,
+              candidates=REC_CANDIDATES,
+              user_bag={"max_abs_diff": err,
+                        "limit": {"kind": "bfloat16", "atol": atol},
+                        "ok": ok})
+    del item_vecs
+    item_vocab = [cfg.vocab_sizes[f] for f in cfg.item_fields]
+    _, items = click_ids(torch, rng, REC_CANDIDATES, item_vocab)
+    rec_paths(torch, name, launches, cfg.name, "item_tower", "dlrm_item_tower",
+              lambda: TD.item_tower(params, cfg, items),
+              lambda: TD.item_tower(params, plain(cfg), items), "bfloat16",
+              items=REC_CANDIDATES)
+    bag_row(torch, rows, "embedding_bag", params["table"],
+            E.field_ids(sparse, offsets).reshape(-1, 1), path="dlrm serve_bulk")
+    bag_row(torch, rows, "embedding_bag_mean", params["table"],
+            E.field_ids(items, offsets[list(cfg.item_fields)]), mode="mean",
+            path="dlrm item_tower")
+    del params, dense, sparse, items
+    torch.cuda.empty_cache()
+
+    # -- DeepFM (float32 table, bf16 compute: the forward's gather is the
+    #    cast form) and xDeepFM at serve_p99
+    cfg = deepfm.full_config()
+    params = TF.init_deepfm(cfg, gen)
+    emit({"phase": "recsys_model", "model": cfg.name, "device": name,
+          "table_rows": params["table"].shape[0], "embed_dim": cfg.embed_dim,
+          "table_bytes": nbytes(params["table"]),
+          "w1_bytes": nbytes(params["w1"]),
+          "param_bytes": sum(nbytes(t) for t in _leaves(params)),
+          **memory(torch)})
+    _, sparse = click_ids(torch, rng, REC_BULK, cfg.vocab_sizes)
+    for run, b in (("serve_p99", REC_P99), ("serve_bulk", REC_BULK)):
+        rec_paths(torch, name, launches, cfg.name, run, f"deepfm_{run}",
+                  lambda: TF.deepfm_forward(params, cfg, sparse[:b]),
+                  lambda: TF.deepfm_forward(params, plain(cfg), sparse[:b]),
+                  "float32", batch=b)
+    profile_run(torch, name, "deepfm_serve_bulk",
+                lambda: TF.deepfm_forward(params, cfg, sparse))
+    item_vocab = [cfg.vocab_sizes[f] for f in cfg.item_fields]
+    _, items = click_ids(torch, rng, REC_CANDIDATES, item_vocab)
+    vecs, first = rec_paths(
+        torch, name, launches, cfg.name, "item_vectors",
+        "deepfm_item_vectors", lambda: TF.item_vectors(params, cfg, items),
+        lambda: TF.item_vectors(params, plain(cfg), items), "float32",
+        items=REC_CANDIDATES)
+    _, u_ids = click_ids(torch, rng, 1, cfg.vocab_sizes)
+    u_ids = u_ids[:, cfg.user_fields]
+    rec_paths(torch, name, launches, cfg.name, "retrieval_cand",
+              "deepfm_retrieval",
+              lambda: TF.retrieval_scores(params, cfg, u_ids, vecs, first),
+              lambda: TF.retrieval_scores(params, plain(cfg), u_ids, vecs,
+                                          first), "float32", batch=1,
+              candidates=REC_CANDIDATES)
+    flat = E.field_ids(sparse, E.fused_table_offsets(cfg.vocab_sizes))
+    single = flat.reshape(-1, 1)
+    bag_row(torch, rows, "embedding_bag_cast", params["table"], single,
+            out_dtype=torch.bfloat16,
+            library=lambda: F.embedding_bag(single, params["table"])
+            .to(torch.bfloat16), path="deepfm serve_bulk")
+    bag_row(torch, rows, "embedding_bag", params["w1"], flat, row=False,
+            path="deepfm serve_bulk first-order (w1)")
+    item_flat = E.field_ids(items, E.fused_table_offsets(cfg.vocab_sizes)[
+        list(cfg.item_fields)])
+    bag_row(torch, rows, "embedding_bag", params["table"], item_flat,
+            row=False, path="deepfm item_vectors")
+    del params, sparse, items, vecs, first, flat, single, item_flat
+    torch.cuda.empty_cache()
+
+    cfg = xdeepfm.full_config()
+    params = TF.init_deepfm(cfg, gen)
+    _, sparse = click_ids(torch, rng, REC_P99, cfg.vocab_sizes)
+    h = max(cfg.cin_layers)
+    rec_paths(torch, name, launches, cfg.name, "serve_p99",
+              "xdeepfm_serve_p99",
+              lambda: TF.deepfm_forward(params, cfg, sparse),
+              lambda: TF.deepfm_forward(params, plain(cfg), sparse),
+              "float32", batch=REC_P99,
+              serve_bulk=f"not run: CIN's [B, {h}, {cfg.n_fields}, "
+              f"{cfg.embed_dim}] bf16 outer product is "
+              f"{REC_BULK * h * cfg.n_fields * cfg.embed_dim * 2 / 1e9:.1f} "
+              f"GB at B = {REC_BULK}")
+    del params, sparse
+    torch.cuda.empty_cache()
 
 
 def _leaves(t):
@@ -1342,9 +1701,12 @@ def main():
     # 6. gemma3-4b prefill and decode
     lm_phases(torch, name, launches)
 
-    # 7. kernels line: `launches` counts the main paths (the index builds,
-    #    the bf16 drains and the LM's bf16 prefill and decode,
-    #    MAIN_PATHS); `launches_by_path` each counted path alone
+    # 7. the recsys models, once the LM's state is freed
+    recsys_phases(torch, name, launches, rows)
+
+    # 8. kernels line: `launches` counts the main paths (the index builds,
+    #    the bf16 drains, the LM's bf16 prefill and decode and the recsys
+    #    paths of MAIN_PATHS); `launches_by_path` each counted path alone
     for row in rows:
         k = row["name"]
         row["launches"] = sum(launches[p][k] for p in MAIN_PATHS)

@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's params pytrees (PreTTR's and the
-transformer LM's) -> the port's params.
+"""Weight bridge: the JAX package's params pytrees (PreTTR's, the
+transformer LM's and the recsys models') -> the port's params.
 
 The JAX tree comes in as nested dicts of numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``); this module needs neither JAX nor
@@ -14,6 +14,8 @@ import torch
 
 from repro_torch.core.prettr import PreTTRConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.recsys.deepfm import DeepFMConfig
+from repro_torch.models.recsys.dlrm import DLRMConfig
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -54,6 +56,35 @@ def lm_params_from_jax(tree: dict, cfg: TransformerConfig,
            "final_norm": _tree(tree["final_norm"], dev)}
     if not cfg.tie_embeddings:
         out["lm_head"] = _tensor(tree["lm_head"], dev)
+    return out
+
+
+def recsys_params_from_jax(tree: dict, cfg, device=None,
+                           table_dtype=None) -> dict:
+    """JAX ``init_dlrm`` / ``init_deepfm`` params (numpy leaves) -> the
+    port's on ``device`` (``None`` means the card): ``table``, ``w1``,
+    ``b0`` and ``cin_out`` as tensors, the ``bot`` / ``top`` / ``dnn`` /
+    ``cin`` layer lists as lists of dicts.  ``table_dtype`` converts the
+    embedding table (say to bf16, so a full DLRM table fits the card)."""
+    dev = resolve_device(device)
+    if isinstance(cfg, DLRMConfig):
+        keys = {"table", "bot", "top"}
+    elif isinstance(cfg, DeepFMConfig):
+        keys = {"table", "w1", "b0", "dnn"}
+        if cfg.interaction == "cin":
+            keys |= {"cin", "cin_out"}
+    else:
+        raise TypeError(f"not a recsys config: {type(cfg).__name__}")
+    if set(tree) != keys:
+        raise ValueError(f"params keys {sorted(tree)} do not match "
+                         f"{cfg.name}'s {sorted(keys)}")
+    out = {k: [_tree(lyr, dev) for lyr in v] if isinstance(v, (list, tuple))
+           else _tensor(v, dev) for k, v in tree.items()}
+    if out["table"].shape[1] != cfg.embed_dim:
+        raise ValueError(f"table width {out['table'].shape[1]} is not "
+                         f"embed_dim={cfg.embed_dim}")
+    if table_dtype is not None:
+        out["table"] = out["table"].to(table_dtype)
     return out
 
 

@@ -58,6 +58,9 @@ SIGNATURES = {
     "rt_compress": [P, P, P, P, I, I, I, I, I, P],
     # r, w, b, gamma, beta, out, in_dtype, out_dtype, T, e, d, eps, stream
     "rt_decompress": [P, P, P, P, P, P, I, I, I, I, I, F, P],
+    # table, ids, weights (or None), out, table_dtype, out_dtype, ids_64,
+    # rows, dim, n_bags, nnz, mean, stream
+    "rt_embedding_bag": [P, P, P, P, I, I, I, LL, I, LL, I, I, P],
 }
 
 _lock = threading.Lock()

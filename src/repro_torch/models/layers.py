@@ -32,6 +32,18 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
     return out.to(dtype)
 
 
+def mm_f32(a, b):
+    """``a @ b`` (2-D) summed and returned in float32, not rounded to the
+    operands' 16-bit type (JAX's ``preferred_element_type``).  On the card
+    a 16-bit product asks cuBLAS for a float32 output; elsewhere the
+    operands are widened first, which is exact (a 16-bit product fits a
+    float32)."""
+    if a.is_cuda and a.dtype == b.dtype and a.dtype in (torch.bfloat16,
+                                                         torch.float16):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def apply_norm(params: dict, x, kind: str):
     if kind == "rmsnorm":
         return rms_norm(x, params["scale"])

@@ -379,17 +379,10 @@ def _head(params, cfg: TransformerConfig):
 def logits(params, cfg: TransformerConfig, hidden):
     """``hidden [B, S, d]`` -> float32 logits ``[B, S, V]``: the compute
     dtype product summed and returned in float32, not rounded to bf16
-    (JAX's ``preferred_element_type``).  On the card a 16-bit product
-    asks cuBLAS for a float32 output; elsewhere the operands are widened
-    first, which is exact (a 16-bit product fits a float32)."""
-    head = _head(params, cfg)
+    (JAX's ``preferred_element_type``; ``layers.mm_f32``)."""
     b, s, d = hidden.shape
-    h = hidden.reshape(b * s, d)
-    if hidden.is_cuda and h.dtype in (torch.bfloat16, torch.float16):
-        out = torch.mm(h, head, out_dtype=torch.float32)
-    else:
-        out = h.float() @ head.float()
-    return out.reshape(b, s, -1)
+    return L.mm_f32(hidden.reshape(b * s, d), _head(params, cfg)) \
+        .reshape(b, s, -1)
 
 
 def init_decode_cache(cfg: TransformerConfig, batch: int, max_len: int,

@@ -2,8 +2,9 @@
 PyTorch version on the same inputs, the wrappers' argument checks, and
 the smoke-size service through the kernels against the plain impl (fused
 and legacy concat joins, prefetched and synchronous drains, an injected
-staging fault), and gemma3's smoke_config forward and decode through the
-kernels against the plain impl.
+staging fault), gemma3's smoke_config forward and decode through the
+kernels against the plain impl, and the embedding-bag kernel with the
+recsys smoke models through it.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; this file imports neither JAX nor the JAX package, so it runs on a
@@ -20,6 +21,8 @@ import torch
 
 from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   flash_decode_attention)
+from repro_torch.kernels.embedding_bag import (embedding_bag_op,
+                                               embedding_bag_ref)
 from repro_torch.kernels.fused_compress import (compress_ref, decompress_ref,
                                                 fused_compress,
                                                 fused_decompress)
@@ -700,3 +703,161 @@ def test_gemma3_smoke_forward_and_decode_kernels_match_plain(dev, dtype):
     else:
         limit = 2 * np.abs(want - run("plain", torch.float32)).max()
         assert np.abs(got - want).max() <= limit
+
+
+# ---------------------------------------------------------------------------
+# The embedding-bag kernel and the recsys models through it
+# ---------------------------------------------------------------------------
+
+# table dtype, output dtype, the counter the launch adds to
+BAG_FORMS = {"float32": (torch.float32, torch.float32, "launches"),
+             "bfloat16": (torch.bfloat16, torch.bfloat16, "launches"),
+             "cast": (torch.float32, torch.bfloat16, "cast_launches")}
+
+
+def _bag_case(dev, rows, dim, n_bags, nnz, table_dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = _rand(gen, dev, table_dtype, rows, dim)
+    ids = torch.randint(0, rows, (n_bags, nnz), generator=gen, device=dev)
+    w = (torch.rand((n_bags, nnz), generator=gen, device=dev) > 0.3).float()
+    w = w * (0.5 + 1.5 * torch.rand((n_bags, nnz), generator=gen,
+                                    device=dev))
+    w[0] = 0.0                           # a bag of pads only
+    return table, ids, w
+
+
+@pytest.mark.parametrize("form", list(BAG_FORMS))
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("nnz", [1, 13, 39])
+@pytest.mark.parametrize("dim", [1, 10, 16, 128])
+def test_embedding_bag_kernel(dev, dim, nnz, mode, form):
+    """Weighted sum / mean bags with weight-0 pads, int64 ids, against the
+    plain version: float32 and bf16 tables in their own type and bf16 rows
+    from a float32 table."""
+    table_dtype, out_dtype, counter = BAG_FORMS[form]
+    table, ids, w = _bag_case(dev, 1000, dim, 77, nnz, table_dtype,
+                              dim * 100 + nnz)
+    if mode == "mean" and counter == "launches":
+        counter = "mean_launches"
+    before = getattr(embedding_bag_op, counter)
+    got = embedding_bag_op(table, ids, w, mode=mode, out_dtype=out_dtype)
+    assert getattr(embedding_bag_op, counter) == before + 1
+    assert got.dtype == out_dtype and got.shape == (77, dim)
+    _close(got, embedding_bag_ref(table, ids, w, mode=mode,
+                                  out_dtype=out_dtype),
+           "float32" if out_dtype == torch.float32 else "bfloat16")
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_int32_ids_no_weights_and_bags_of_one(dev, mode):
+    """int32 ids and no weights (weight 1); a bag of one in the cast form
+    is bit-equal to the cast followed by the gather; an out-of-range id
+    gives its bag NaN and no fault."""
+    table, ids, _ = _bag_case(dev, 500, 10, 33, 5, torch.float32, 3)
+    ids32 = ids.to(torch.int32)
+    _close(embedding_bag_op(table, ids32, mode=mode),
+           embedding_bag_ref(table, ids, mode=mode), "float32")
+    one = embedding_bag_op(table, ids32[:, :1], out_dtype=torch.bfloat16)
+    assert torch.equal(one, table.to(torch.bfloat16)[ids[:, 0]])
+    bad = ids.clone()
+    bad[4, 2] = 500
+    out = embedding_bag_op(table, bad, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[4]).all() and torch.isfinite(out[:4]).all()
+
+
+def test_embedding_bag_reads_past_32_bit_offsets(dev):
+    """A bf16 table of 2^24 + 8 rows of 128 (2.1e9 elements, past 2^31):
+    its last rows come back exactly."""
+    rows = (1 << 24) + 8
+    table = torch.zeros((rows, 128), dtype=torch.bfloat16, device=dev)
+    tail = torch.arange(8 * 128, device=dev).reshape(8, 128)
+    table[-8:] = tail.to(torch.bfloat16)
+    ids = torch.tensor([[rows - 1], [rows - 8], [0]], device=dev,
+                       dtype=torch.int32)
+    got = embedding_bag_op(table, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], table[-1]) and torch.equal(got[1], table[-8])
+    assert not got[2].any()
+
+
+def test_embedding_bag_rejects_what_it_does_not_take(dev):
+    table = torch.zeros((10, 8), device=dev)
+    ids = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="CUDA device"):
+        embedding_bag_op(table, ids.cpu())
+    with pytest.raises(ValueError, match="mode"):
+        embedding_bag_op(table, ids, mode="max")
+    with pytest.raises(TypeError, match="reads and writes"):
+        embedding_bag_op(table.half(), ids)
+    with pytest.raises(TypeError, match="reads and writes"):
+        embedding_bag_op(table, ids, out_dtype=torch.float16)
+    with pytest.raises(TypeError, match="reads and writes"):
+        embedding_bag_op(table.bfloat16(), ids, out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        embedding_bag_op(table, ids.float())
+    with pytest.raises(ValueError, match="dim 300"):
+        embedding_bag_op(torch.zeros((10, 300), device=dev), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag_op(torch.zeros((8, 10), device=dev).t(), ids)
+    with pytest.raises(ValueError, match="match weights"):
+        embedding_bag_op(table, ids, torch.ones((2, 4), device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["dlrm", "deepfm", "xdeepfm"])
+def test_recsys_smoke_models_kernels_match_plain(dev, family, dtype):
+    """The smoke configs on the card, ``bag_impl`` "cuda" against
+    "plain" on the same weights and click-log ids: forward, the towers or
+    item vectors, and retrieval scores.  Each kernel run launches the
+    embedding-bag kernel, each plain run none."""
+    import dataclasses
+
+    from repro_torch.configs import deepfm, dlrm_mlperf, xdeepfm
+    from repro_torch.data.recsys import click_batch
+    from repro_torch.models.recsys import deepfm as TF
+    from repro_torch.models.recsys import dlrm as TD
+
+    mod = {"dlrm": dlrm_mlperf, "deepfm": deepfm, "xdeepfm": xdeepfm}[family]
+    cfg = dataclasses.replace(mod.smoke_config(),
+                              compute_dtype=DTYPES[dtype])
+    gen = torch.Generator(device=dev).manual_seed(21)
+    init = TD.init_dlrm if family == "dlrm" else TF.init_deepfm
+    params = init(cfg, gen, device=dev)
+    b = click_batch(np.random.default_rng(22), 64, n_dense=13 if family ==
+                    "dlrm" else 0, vocab_sizes=cfg.vocab_sizes)
+    dense = torch.from_numpy(b["dense"]).to(dev)
+    sparse = torch.from_numpy(b["sparse"]).to(dev)
+    items = sparse[:, list(cfg.item_fields)]
+    users = sparse[:8, cfg.user_fields]
+
+    def run(impl):
+        c = dataclasses.replace(cfg, bag_impl=impl)
+        before = (embedding_bag_op.launches, embedding_bag_op.mean_launches,
+                  embedding_bag_op.cast_launches)
+        if family == "dlrm":
+            iv = TD.item_tower(params, c, items)
+            out = [TD.dlrm_forward(params, c, dense, sparse), iv,
+                   TD.retrieval_scores(params, c, dense[:8], users, iv)]
+        else:
+            iv, first = TF.item_vectors(params, c, items)
+            out = [TF.deepfm_forward(params, c, sparse), iv, first,
+                   TF.retrieval_scores(params, c, users, iv, first)]
+        after = (embedding_bag_op.launches, embedding_bag_op.mean_launches,
+                 embedding_bag_op.cast_launches)
+        launched = tuple(a - b for a, b in zip(after, before))
+        torch.cuda.synchronize()
+        return [t.float().cpu().numpy() for t in out], launched
+
+    got, launched = run("cuda")
+    want, none = run("plain")
+    cast = int(dtype == "bfloat16")
+    # dlrm: the forward's gather (sum, or cast in bf16), item_tower and
+    # user_tower (mean; user_tower's cast in bf16); deepfm: the forward's
+    # gather (sum, or cast in bf16) and w1 bag, item_vectors' and
+    # retrieval's two sum bags each
+    assert launched == ((1 - cast, 2 - cast, 2 * cast) if family == "dlrm"
+                        else (6 - cast, 0, cast))
+    assert none == (0, 0, 0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **_tol(dtype))
