@@ -11,14 +11,22 @@ at gemma3-4b's, then the recsys models at their published configs:
    its plain PyTorch version on the same inputs, with times (CUDA events,
    median of 20 after warm-up) beside the plain version, one library call
    that computes the same function, and the least time the card could
-   take: split attention (PreTTR's validity + seg_boundary form, gemma3's
+   take (``device_ms``: the kernel's call queued behind a spin kernel, so
+   that the wrapper's host work is not counted): split attention (PreTTR's validity + seg_boundary form, gemma3's
    causal and causal + window forms at [4, 8, 2048, 256], raw int8 K/V),
    join attention (dense float, raw int8 K/V, paged over int8 and fp16
    pools, the CLS row), flash decode (the CLS-only layer's shape, and
    gemma3's decode shape with and without its window), compress and
-   decompress (fp16 and float32 storage);
+   decompress (fp16 and float32 storage; their library call is the same
+   function in float32 with TF32 off).  bf16 split and join attention
+   run on the tensor-core kernels, float32 on the CUDA-core ones; each
+   attention row names the kernel its timed call ran (``kernels_run``),
+   and each bf16 one is held to twice the distance of its plain
+   version's bf16 output from its float32 output on the same inputs;
 3. index   -- ``IndexBuilder`` writes a 512-document fp16 index, reopened
-   with ``TermRepIndex``;
+   with ``TermRepIndex`` (verified on open, the default; the line gives
+   ``open_s`` and the chunks checked, 0 for the port's builder, which
+   writes no checksums yet);
 4. serve   -- ``RankingService`` (prefetch thread on, its default)
    answers 8 requests x 64 candidates in micro-batches of 32, through the
    kernels and through the plain impl, in bf16 and in float32; the same
@@ -74,8 +82,10 @@ at gemma3-4b's, then the recsys models at their published configs:
 
 Kernel launches are counted per path: every counter is set to 0 just
 before each index build, each timed serving run, the soundness check,
-each LM run and each recsys run, and read just after.  A path that misses a kernel it must run
-(``PATH_KERNELS``), or a plain run that launches any, fails the script.
+each LM run and each recsys run, and read just after.  A path that
+misses a kernel it must run (``PATH_KERNELS``: the tensor-core split and
+join kernels on the bf16 paths, the CUDA-core ones on the float32
+paths), or a plain run that launches any, fails the script.
 The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
 the index builds, the bf16 kernel runs of each serving form, the LM's
 bf16 prefill and decode, and the recsys serve_bulk forwards, retrieval
@@ -149,9 +159,17 @@ LM_SOUND_TOL = 1e-3
 REC_P99, REC_BULK, REC_CANDIDATES = 512, 262_144, 1_000_192
 # the port's kernels by symbol (csrc/*.cu), held against the launch
 # counters in each profile
-OUR_KERNELS = ("split_attention_kernel", "join_tiled_kernel",
+OUR_KERNELS = ("split_attention_kernel", "split_attention_tc_kernel",
+               "join_tiled_kernel", "join_tc_kernel",
                "join_attention_row_kernel", "decode_attention_kernel",
                "compress_kernel", "decompress_kernel", "embedding_bag_kernel")
+# the counters of which attention kernel a call was routed to (the
+# tensor-core or the CUDA-core one); every launch also counts in its
+# form's counter, so a profile's launch total leaves these out
+ROUTE_COUNTERS = ("split_attention_tensor_core", "split_attention_cuda_core",
+                  "join_attention_tensor_core", "join_attention_cuda_core",
+                  "join_attention_paged_tensor_core",
+                  "join_attention_paged_cuda_core")
 # recsys limits, scaled to the data (the tables are N(0, 0.01^2), so a
 # fixed 2e-2 would pass a kernel that returned zeros).  The kernel and its
 # plain version sum the same float32 terms in other orders and round once:
@@ -164,14 +182,21 @@ OUR_KERNELS = ("split_attention_kernel", "join_tiled_kernel",
 #   a few float32 ulps (2^-23); 2^-16 * max|plain| is 128 ulps of the
 #   largest value.
 REC_REL = {"bits": 0.0, "bfloat16": 2.0 ** -7, "float32": 2.0 ** -16}
+# the spin kernel ahead of each call timed for ``device_ms``: ~2 ms at
+# the H100's 1.98 GHz, longer than any timed call's host work
+SPIN_CYCLES = 4_000_000
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, n=20, warmup=3):
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+def time_ms(fn, n=20, warmup=3, spin=False):
+    """Median time of ``fn`` in ms: CUDA events around each call, which
+    take in the host's enqueue time when that is the longer.  With
+    ``spin`` each call is queued behind a spin kernel of SPIN_CYCLES, so
+    the host enqueues it while the device is busy and the events bracket
+    the device's work alone."""
     import torch
     for _ in range(warmup):
         fn()
@@ -180,6 +205,8 @@ def time_ms(fn, n=20, warmup=3):
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -210,17 +237,28 @@ def bound(flops, n_bytes, flops_peak):
 # ---------------------------------------------------------------------------
 
 
-def compare(name, got, want, dtype_name, shape):
+def compare(name, got, want, dtype_name, shape, want_f32=None):
     """A kernel's output against its plain version's, within TOL of the
-    type (relative and absolute); returns the max abs error."""
+    type (relative and absolute); returns the max abs error.  With
+    ``want_f32``, the plain version's float32 output on the same inputs,
+    the kernel is also held to twice the distance of ``want`` (the plain
+    version rounded to the 16-bit type) from it: the tensor-core kernels
+    round P before P.V and the output once, the plain version only the
+    output."""
     import torch
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
     tol = TOL[dtype_name]
     ok = bool(torch.all(err <= tol + tol * want.float().abs()))
-    emit({"phase": "kernel_check", "kernel": name, "shape": shape,
-          "dtype": dtype_name, "max_abs_err": err.max().item(),
-          "tol": {"rtol": tol, "atol": tol}, "ok": ok})
+    line = {"phase": "kernel_check", "kernel": name, "shape": shape,
+            "dtype": dtype_name, "max_abs_err": err.max().item(),
+            "tol": {"rtol": tol, "atol": tol}}
+    if want_f32 is not None:
+        rounding = (want.float() - want_f32).abs().max().item()
+        line.update(err_vs_plain_f32=(got.float() - want_f32).abs().max()
+                    .item(), plain_rounding=rounding, limit=2 * rounding)
+        ok = ok and line["err_vs_plain_f32"] <= line["limit"]
+    emit({**line, "ok": ok})
     if not ok:
         raise AssertionError(f"{name} {shape} {dtype_name}: kernel "
                              f"disagrees with its plain version")
@@ -232,14 +270,21 @@ def record_kernel(rows, name, source, replaces, err, kernel_fn, plain_fn,
                   **extra):
     """Time a kernel beside its plain version and library call; with
     ``row`` False (a second form of a kernel already in the line) only the
-    kernel_time line is printed.  ``extra`` goes on that line."""
+    kernel_time line is printed.  ``extra`` goes on that line.  An
+    attention row names the kernel its call was routed to
+    (``kernels_run``)."""
+    _, launched = counted(kernel_fn)
     ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
     library_ms = time_ms(library_fn)
     bound_ms, bound_by = bound(flops, n_bytes, peak)
     out = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms}
+           "bound_by": bound_by, "library_ms": library_ms,
+           "device_ms": time_ms(kernel_fn, spin=True)}
+    routes = [k for k in ROUTE_COUNTERS if launched[k]]
+    if routes:
+        out["kernels_run"] = routes
     emit({"phase": "kernel_time", **out, "peak": peak_name,
           "flops": flops, "bytes": n_bytes, **extra})
     if row:
@@ -296,13 +341,16 @@ def check_kernels(torch, cfg):
                 valid = torch.cat([_prefix_mask(torch, gen, b, sb, 3),
                                    _prefix_mask(torch, gen, b, s - sb, 8)], 1)
             lengths = last_valid_lengths(valid)
+            f32 = (None if dtype == torch.float32 else split_attention_ref(
+                q.float(), k.float(), v.float(), lengths, valid,
+                seg_boundary=sb).float())
             err = compare("split_attention",
                           split_flash_attention(q, k, v, lengths,
                                                 k_valid=valid,
                                                 seg_boundary=sb),
                           split_attention_ref(q, k, v, lengths, valid,
                                               seg_boundary=sb),
-                          dname, [b, h, s, dh])
+                          dname, [b, h, s, dh], f32)
     mask = valid[:, None, None, :].expand(b, 1, s, s)
     record("split_attention", "src/repro_torch/csrc/split_attention.cu",
            "src/repro/kernels/split_attention/kernel.py:109", err,
@@ -328,9 +376,12 @@ def check_kernels(torch, cfg):
             q = rand(lb, lhq, ls, ldh, dtype=dtype)
             k, v = (rand(lb, lhkv, ls, ldh, dtype=dtype) for _ in range(2))
             kw = dict(causal=True, window=window)
+            f32 = (None if dtype == torch.float32 else split_attention_ref(
+                q.float(), k.float(), v.float(), full, **kw).float())
             err = compare(name, split_flash_attention(q, k, v, **kw),
                           split_attention_ref(q, k, v, full, **kw), dname,
-                          [lb, lhq, ls, ldh, window])
+                          [lb, lhq, ls, ldh, window], f32)
+            del f32
         visible = pos[None] <= pos[:, None]
         if window > 0:
             visible = visible & (pos[:, None] - pos[None] < window)
@@ -362,14 +413,14 @@ def check_kernels(torch, cfg):
     valid = torch.cat([_prefix_mask(torch, gen, b, lq, 3),
                        _prefix_mask(torch, gen, b, ld, ld // 4)], 1)
     lengths = last_valid_lengths(valid)
+    f32 = split_attention_ref(q.float(), k8, v8, lengths, valid, ks8, vs8)
     compare("split_attention_int8",
             split_flash_attention(q.float(), k8, v8, lengths, valid, ks8, vs8),
-            split_attention_ref(q.float(), k8, v8, lengths, valid, ks8, vs8),
-            "float32", [b, h, s, dh])
+            f32, "float32", [b, h, s, dh])
     err = compare("split_attention_int8",
                   split_flash_attention(q, k8, v8, lengths, valid, ks8, vs8),
                   split_attention_ref(q, k8, v8, lengths, valid, ks8, vs8),
-                  "bfloat16", [b, h, s, dh])
+                  "bfloat16", [b, h, s, dh], f32)
     mask = valid[:, None, None, :].expand(b, 1, s, s)
     record("split_attention_int8", "src/repro_torch/csrc/split_attention.cu",
            "src/repro/kernels/split_attention/kernel.py:109", err,
@@ -399,11 +450,12 @@ def check_kernels(torch, cfg):
     for name, sq in (("join_attention", lq + ld), ("join_attention_row", 1)):
         q = rand(b, h, sq, dh)
         f32 = [t.float() for t in (q, kq, vq, kd, vd)]
-        compare(name, fn(*f32, kqv, kdv), join_attention_ref(*f32, kqv, kdv),
-                "float32", [b, h, sq, dh])
+        want_f32 = join_attention_ref(*f32, kqv, kdv)
+        compare(name, fn(*f32, kqv, kdv), want_f32, "float32",
+                [b, h, sq, dh])
         err = compare(name, fn(q, kq, vq, kd, vd, kqv, kdv),
                       join_attention_ref(q, kq, vq, kd, vd, kqv, kdv),
-                      "bfloat16", [b, h, sq, dh])
+                      "bfloat16", [b, h, sq, dh], want_f32)
         mask = torch.cat([kqv, kdv], 1)[:, None, None, :].expand(b, 1, sq,
                                                                  lq + ld)
         record(name, "src/repro_torch/csrc/join_attention.cu",
@@ -441,15 +493,15 @@ def check_kernels(torch, cfg):
             torch.cat([vq, vd_f.to(q.dtype)], 2), attn_mask=mask)
 
     f32 = [t.float() for t in (q, kq, vq)]
+    want_f32 = join_attention_ref_quant(*f32, kd8, vd8, ks, vs, kqv, kdv)
     compare("join_attention_int8",
             join_flash_attention(*f32, kd8, vd8, kqv, kdv, ks, vs),
-            join_attention_ref_quant(*f32, kd8, vd8, ks, vs, kqv, kdv),
-            "float32", [b, h, sq, dh])
+            want_f32, "float32", [b, h, sq, dh])
     err = compare("join_attention_int8",
                   join_flash_attention(q, kq, vq, kd8, vd8, kqv, kdv, ks, vs),
                   join_attention_ref_quant(q, kq, vq, kd8, vd8, ks, vs, kqv,
                                            kdv),
-                  "bfloat16", [b, h, sq, dh])
+                  "bfloat16", [b, h, sq, dh], want_f32)
     record("join_attention_int8", "src/repro_torch/csrc/join_attention.cu",
            "src/repro/kernels/join_attention/kernel.py:130", err,
            lambda: join_flash_attention(q, kq, vq, kd8, vd8, kqv, kdv, ks,
@@ -482,16 +534,17 @@ def check_kernels(torch, cfg):
             ("float16", pool(kd8.half() * 0.01), pool(vd8.half() * 0.01),
              {})):
         args = (kd_p, vd_p, table, dval)
+        want_f32 = join_attention_ref_paged(*f32, *args, kqv, **scales)
         compare("join_attention_paged",
                 join_flash_attention_paged(*f32, *args, kqv, **scales),
-                join_attention_ref_paged(*f32, *args, kqv, **scales),
-                "float32", [b, h, sq, dh, PAGE_TOKENS, form])
+                want_f32, "float32", [b, h, sq, dh, PAGE_TOKENS, form])
         err = compare("join_attention_paged",
                       join_flash_attention_paged(q, kq, vq, *args, kqv,
                                                  **scales),
                       join_attention_ref_paged(q, kq, vq, *args, kqv,
                                                **scales),
-                      "bfloat16", [b, h, sq, dh, PAGE_TOKENS, form])
+                      "bfloat16", [b, h, sq, dh, PAGE_TOKENS, form],
+                      want_f32)
 
         def paged_sdpa(kd_p=kd_p, vd_p=vd_p, scales=scales):
             kd_f, vd_f = (pages_to_dense(p, table).transpose(1, 2).float()
@@ -594,7 +647,8 @@ def check_kernels(torch, cfg):
                row=window > 0)
 
     # -- compress (index time) and decompress (every micro-batch); their
-    #    weights stay float32, so the products are float32 operations
+    #    weights stay float32, so the products are float32 operations and
+    #    the same-function library call is a float32 addmm (TF32 off)
     w_c = rand(d, e, dtype=torch.float32, scale=d ** -0.5)
     b_c = rand(e, dtype=torch.float32, scale=0.1)
     t_c = INDEX_BATCH * ld
@@ -604,12 +658,12 @@ def check_kernels(torch, cfg):
     out = fused_compress(x, w_c, b_c)
     err = compare("compress", out, compress_ref(x, w_c, b_c), "float16",
                   [t_c, d, e])
-    w16, b16 = w_c.to(x.dtype), b_c.to(x.dtype)
     record("compress", "src/repro_torch/csrc/fused_compress.cu",
            "src/repro/kernels/fused_compress/kernel.py:45", err,
            lambda: fused_compress(x, w_c, b_c),
            lambda: compress_ref(x, w_c, b_c),
-           lambda: F.gelu(torch.addmm(b16, x, w16), approximate="tanh"),
+           lambda: F.gelu(torch.addmm(b_c, x.float(), w_c),
+                          approximate="tanh").to(torch.float16),
            2 * t_c * d * e, nbytes(x, w_c, b_c, out), PEAK_F32_FLOPS,
            "f32 CUDA cores")
 
@@ -626,13 +680,13 @@ def check_kernels(torch, cfg):
     err = compare("decompress", out,
                   decompress_ref(r, *dargs, out_dtype=torch.bfloat16),
                   "bfloat16", [t_d, e, d])
-    lib = [t.to(torch.float16) for t in dargs]
     record("decompress", "src/repro_torch/csrc/fused_compress.cu",
            "src/repro/kernels/fused_compress/kernel.py:64", err,
            lambda: fused_decompress(r, *dargs),
            lambda: decompress_ref(r, *dargs, out_dtype=torch.bfloat16),
-           lambda: F.layer_norm(torch.addmm(lib[1], r, lib[0]), (d,),
-                                lib[2], lib[3], eps=1e-6),
+           lambda: F.layer_norm(torch.addmm(dargs[1], r.float(), dargs[0]),
+                                (d,), dargs[2], dargs[3], eps=1e-6)
+           .to(torch.bfloat16),
            2 * t_d * e * d + 8 * t_d * d, nbytes(r, *dargs, out),
            PEAK_F32_FLOPS, "f32 CUDA cores")
 
@@ -646,8 +700,8 @@ def check_kernels(torch, cfg):
            "src/repro/kernels/fused_compress/kernel.py:45", err,
            lambda: fused_compress(x, w_c, b_c, out_dtype=torch.float32),
            lambda: compress_ref(x, w_c, b_c, out_dtype=torch.float32),
-           lambda: F.gelu(torch.addmm(b16, x, w16),
-                          approximate="tanh").float(),
+           lambda: F.gelu(torch.addmm(b_c, x.float(), w_c),
+                          approximate="tanh"),
            2 * t_c * d * e, nbytes(x, w_c, b_c, out), PEAK_F32_FLOPS,
            "f32 CUDA cores")
     r32 = r.float()
@@ -740,7 +794,19 @@ def launch_counters():
             "decompress_f32": (fused_decompress, "f32_launches"),
             "embedding_bag": (embedding_bag_op, "launches"),
             "embedding_bag_mean": (embedding_bag_op, "mean_launches"),
-            "embedding_bag_cast": (embedding_bag_op, "cast_launches")}
+            "embedding_bag_cast": (embedding_bag_op, "cast_launches"),
+            "split_attention_tensor_core": (split_flash_attention,
+                                            "tensor_core_launches"),
+            "split_attention_cuda_core": (split_flash_attention,
+                                          "cuda_core_launches"),
+            "join_attention_tensor_core": (join_flash_attention,
+                                           "tensor_core_launches"),
+            "join_attention_cuda_core": (join_flash_attention,
+                                         "cuda_core_launches"),
+            "join_attention_paged_tensor_core": (join_flash_attention_paged,
+                                                 "tensor_core_launches"),
+            "join_attention_paged_cuda_core": (join_flash_attention_paged,
+                                               "cuda_core_launches")}
 
 
 def counted(fn):
@@ -753,7 +819,13 @@ def counted(fn):
     return result, {k: getattr(w, a) for k, (w, a) in counters.items()}
 
 
-# the kernels each path must launch; a plain-impl run must launch none
+# the kernels each path must launch; a plain-impl run must launch none.
+# The bf16 paths route every split and join call to the tensor-core
+# kernels, the float32 ones to the CUDA-core kernels
+_SPLIT_TC, _SPLIT_CC = ("split_attention_tensor_core",), \
+    ("split_attention_cuda_core",)
+_JOIN_TC = ("split_attention_tensor_core", "join_attention_tensor_core")
+_JOIN_CC = ("split_attention_cuda_core", "join_attention_cuda_core")
 _FP16_SERVE = ("split_attention", "join_attention", "join_attention_row",
                "decompress")
 _INT8_SERVE = ("split_attention", "join_attention", "join_attention_int8",
@@ -766,25 +838,32 @@ _LEGACY_SERVE = ("split_attention", "decompress", "decode_attention")
 _LM_PREFILL = ("split_attention_causal", "split_attention_window")
 _LM_DECODE = ("decode_attention", "decode_attention_window")
 PATH_KERNELS = {
-    "index": ("split_attention", "compress"),
-    "serve": _FP16_SERVE, "serve_f32": _FP16_SERVE,
-    "serve_sync": _FP16_SERVE,
-    "serve_legacy": _LEGACY_SERVE, "serve_legacy_f32": _LEGACY_SERVE,
+    "index": ("split_attention", "compress", *_SPLIT_TC),
+    "serve": _FP16_SERVE + _JOIN_TC, "serve_f32": _FP16_SERVE + _JOIN_CC,
+    "serve_sync": _FP16_SERVE + _JOIN_TC,
+    "serve_legacy": _LEGACY_SERVE + _SPLIT_TC,
+    "serve_legacy_f32": _LEGACY_SERVE + _SPLIT_CC,
     # rank_forward ends in the decode layer, join_and_score in the row
     "soundness": ("split_attention", "join_attention", "join_attention_row",
-                  "decode_attention", "compress", "decompress"),
-    "index_int8": ("split_attention", "compress_f32", "decompress_f32"),
-    "serve_int8_kv": _INT8_SERVE, "serve_int8_kv_f32": _INT8_SERVE,
-    "serve_int8_kv_zipf_f32": _INT8_SERVE,
-    "serve_cached": _CACHED_SERVE, "serve_cached_f32": _CACHED_SERVE,
+                  "decode_attention", "compress", "decompress", *_JOIN_CC),
+    "index_int8": ("split_attention", "compress_f32", "decompress_f32",
+                   *_SPLIT_TC),
+    "serve_int8_kv": _INT8_SERVE + _JOIN_TC,
+    "serve_int8_kv_f32": _INT8_SERVE + _JOIN_CC,
+    "serve_int8_kv_zipf_f32": _INT8_SERVE + _JOIN_CC,
+    "serve_cached": _CACHED_SERVE + _JOIN_TC
+    + ("join_attention_paged_tensor_core",),
+    "serve_cached_f32": _CACHED_SERVE + _JOIN_CC
+    + ("join_attention_paged_cuda_core",),
     "plain_bf16": (), "plain_f32": (),
     "plain_legacy_bf16": (), "plain_legacy_f32": (),
     "plain_int8_kv_bf16": (), "plain_int8_kv_f32": (),
     "plain_cached_bf16": (), "plain_cached_f32": (),
     # gemma3-4b: prefill through the causal (global) and window (local)
     # forms, decode through both window forms of flash decode
-    "lm_prefill": _LM_PREFILL, "lm_decode": _LM_DECODE,
-    "lm_cuda_f32": _LM_PREFILL + _LM_DECODE, "lm_soundness": _LM_PREFILL,
+    "lm_prefill": _LM_PREFILL + _SPLIT_TC, "lm_decode": _LM_DECODE,
+    "lm_cuda_f32": _LM_PREFILL + _LM_DECODE + _SPLIT_CC,
+    "lm_soundness": _LM_PREFILL + _SPLIT_CC,
     "lm_plain_bf16": (), "lm_plain_f32": (),
     # recsys: DLRM's single-hot gather is the sum form over a bf16 table,
     # its towers mean bags; DeepFM's gather rounds float32 rows to bf16
@@ -1056,7 +1135,8 @@ def profile_run(torch, name, label, fn, **extra):
         prof.step()
     emit({"phase": "profile", "run": label, "device": name, **extra,
           "wall_ms": wall_ms,
-          **_device_time(read[0], wall_ms, sum(launched.values()))})
+          **_device_time(read[0], wall_ms, sum(
+              n for k, n in launched.items() if k not in ROUTE_COUNTERS))})
 
 
 def _device_time(events, wall_ms, launched):
@@ -1531,8 +1611,12 @@ def main():
         report, launches[label] = counted(
             lambda: IndexBuilder(tmp, cfg, params, batch_size=INDEX_BATCH,
                                  **kw).build(docs))
-        index = TermRepIndex.open(tmp)
+        t0 = time.perf_counter()
+        index = TermRepIndex.open(tmp)        # verify=True, the default
+        open_s = time.perf_counter() - t0
         emit({"phase": label, "device": name, "n_docs": len(index),
+              "open_s": open_s, "open_verify": True,
+              "verified_chunks": index.verify_integrity(),
               "n_tokens": report.n_tokens, "codec": report.codec,
               "streams": sorted(index.streams_spec()),
               "bytes_per_token": index.bytes_per_token(),

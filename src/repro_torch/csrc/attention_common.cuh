@@ -1,7 +1,8 @@
 // Shared pieces of the port's hand-written Hopper kernels: element
 // conversions, warp reductions, the dtype/head-dim dispatch, and the
-// flash-attention core
-// that split_attention.cu and join_attention.cu both run.
+// CUDA-core flash-attention core that split_attention.cu and
+// join_attention.cu run for float32 q and the shapes their tensor-core
+// kernels (attention_tc.cuh) do not take.
 //
 // Numerics follow the Pallas kernels they replace: NEG_INF = -1e30 (a
 // finite mask, so all-pad rows stay finite), scale 1/sqrt(D) applied to

@@ -14,15 +14,17 @@
 //
 // Bound on the H100: the join layers run q [32, 12, 512, 64] bf16 against
 // 32 + 480 keys: ~4 * D FLOPs per (row, key) over 2 bytes per element
-// read once (1 byte for int8 K/V), 100-200 FLOPs per byte, so float32
-// CUDA-core FMAs bound this kernel (tensor cores would make it
-// memory-bound).  The CLS row (Sq = 1) reads every K/V byte for 4 * D
+// read once (1 byte for int8 K/V), 100-200 FLOPs per byte, below the
+// bf16 tensor-core ridge (~295): memory bytes bound the 16-bit forms on
+// the tensor cores.  The CLS row (Sq = 1) reads every K/V byte for 4 * D
 // FLOPs per key: ~1 FLOP per byte, bound by memory bytes.
 //
-// Design: two kernels.
-//  * join_tiled_kernel (join_attention.cuh): Sq > 1, and Sq = 1 with int8
-//    K/V.  The query-segment K/V seeds the online softmax, then the doc
-//    tiles follow up to dlen[b].
+// Design: three kernels.
+//  * join_tc_kernel (join_attention.cuh, tensor cores): Sq > 1 with a
+//    16-bit q, D 64 or 128 -- the join layers of every 16-bit path.
+//  * join_tiled_kernel (join_attention.cuh, CUDA cores): float32 q, other
+//    head dims, and Sq = 1 with int8 K/V.  The query-segment K/V seeds the
+//    online softmax, then the doc tiles follow up to dlen[b].
 //  * join_attention_row_kernel (Sq = 1 with float K/V, the CLS-only final
 //    layer): one block of 128 threads per (head, batch row), parallel over
 //    keys so 12 * B blocks still fill the card.  Threads score strided
@@ -118,7 +120,8 @@ join_attention_row_kernel(const T* __restrict__ q, const T* __restrict__ kq,
 }  // namespace
 
 // Dense entry: float doc K/V of q's type, or raw int8 doc K/V (kd_dtype
-// kI8) with per-token scales kd_scale / vd_scale [B, Ld].
+// kI8) with per-token scales kd_scale / vd_scale [B, Ld].  *kernel is set
+// to 1 when the call went to join_tc_kernel, 0 for join_tiled_kernel.
 extern "C" int rt_join_attention(const void* q, const void* kq, const void* vq, const void* kd,
                                  const void* vd, void* o, const void* dlen, const void* kq_valid,
                                  const void* kd_valid, const void* kd_scale,
@@ -128,7 +131,7 @@ extern "C" int rt_join_attention(const void* q, const void* kq, const void* vq, 
                                  long long kqss, long long vqsb, long long vqsh, long long vqss,
                                  long long kdsb, long long kdsh, long long kdss, long long vdsb,
                                  long long vdsh, long long vdss, long long osb, long long osh,
-                                 long long oss, float scale, void* stream) {
+                                 long long oss, float scale, void* stream, int* kernel) {
   rt::JoinArgs a{q, kq, vq, o, (const int*)dlen, (const uint8_t*)kq_valid, B, Hq, Hkv, Sq, Lq,
                  D, {qsb, qsh, qss}, {kqsb, kqsh, kqss}, {vqsb, vqsh, vqss}, {osb, osh, oss},
                  scale};
@@ -142,14 +145,14 @@ extern "C" int rt_join_attention(const void* q, const void* kq, const void* vq, 
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case rt::kF32:
-      return quant ? rt::launch_join_tiled<float, int8_t, false>(a, s)
-                   : rt::launch_join_tiled<float, float, false>(a, s);
+      return quant ? rt::launch_join<float, int8_t, false>(a, s, kernel)
+                   : rt::launch_join<float, float, false>(a, s, kernel);
     case rt::kBF16:
-      return quant ? rt::launch_join_tiled<__nv_bfloat16, int8_t, false>(a, s)
-                   : rt::launch_join_tiled<__nv_bfloat16, __nv_bfloat16, false>(a, s);
+      return quant ? rt::launch_join<__nv_bfloat16, int8_t, false>(a, s, kernel)
+                   : rt::launch_join<__nv_bfloat16, __nv_bfloat16, false>(a, s, kernel);
     case rt::kF16:
-      return quant ? rt::launch_join_tiled<__half, int8_t, false>(a, s)
-                   : rt::launch_join_tiled<__half, __half, false>(a, s);
+      return quant ? rt::launch_join<__half, int8_t, false>(a, s, kernel)
+                   : rt::launch_join<__half, __half, false>(a, s, kernel);
     default: return (int)cudaErrorInvalidValue;
   }
 }

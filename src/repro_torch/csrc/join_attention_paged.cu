@@ -14,20 +14,22 @@
 // cache pools to a bfloat16 join.  No dense per-batch K/V copy is made.
 //
 // Bound on the H100: as the dense entry's (about 100-200 FLOPs per byte
-// of doc K/V read once): float32 CUDA-core FMAs bound it.  The page-table
-// indirection costs one integer division and one page-table load per key
-// per tile, resolved once per tile into shared memory (join_attention.cuh).
+// of doc K/V read once, below the bf16 tensor-core ridge): memory bytes
+// bound the 16-bit forms, which run on join_tc_kernel; float32 q and
+// float32 pools under a 16-bit q run on join_tiled_kernel (CUDA cores).
+// The page-table indirection costs one integer division and one
+// page-table load per key per tile (join_attention.cuh).
 #include "join_attention.cuh"
 
 namespace {
 
 template <typename T>
-int dispatch_pool(int kd_dtype, const rt::JoinArgs& a, cudaStream_t s) {
+int dispatch_pool(int kd_dtype, const rt::JoinArgs& a, cudaStream_t s, int* kernel) {
   switch (kd_dtype) {
-    case rt::kF32: return rt::launch_join_tiled<T, float, true>(a, s);
-    case rt::kBF16: return rt::launch_join_tiled<T, __nv_bfloat16, true>(a, s);
-    case rt::kF16: return rt::launch_join_tiled<T, __half, true>(a, s);
-    case rt::kI8: return rt::launch_join_tiled<T, int8_t, true>(a, s);
+    case rt::kF32: return rt::launch_join<T, float, true>(a, s, kernel);
+    case rt::kBF16: return rt::launch_join<T, __nv_bfloat16, true>(a, s, kernel);
+    case rt::kF16: return rt::launch_join<T, __half, true>(a, s, kernel);
+    case rt::kI8: return rt::launch_join<T, int8_t, true>(a, s, kernel);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -36,7 +38,9 @@ int dispatch_pool(int kd_dtype, const rt::JoinArgs& a, cudaStream_t s) {
 
 // q, kq, vq, out as the dense entry; k_pool / v_pool [P, page, Hkv, D]
 // contiguous; page_table [B, n_pages] int32; dval_pool [P, page] bytes;
-// k/v_scale_pool [P, page] float32 (int8 pools only); dlen [B].
+// k/v_scale_pool [P, page] float32 (int8 pools only); dlen [B].  *kernel
+// is set to 1 when the call went to join_tc_kernel, 0 for
+// join_tiled_kernel.
 extern "C" int rt_join_attention_paged(const void* q, const void* kq, const void* vq,
                                        const void* k_pool, const void* v_pool, void* o,
                                        const void* dlen, const void* kq_valid,
@@ -48,7 +52,7 @@ extern "C" int rt_join_attention_paged(const void* q, const void* kq, const void
                                        long long kqsh, long long kqss, long long vqsb,
                                        long long vqsh, long long vqss, long long osb,
                                        long long osh, long long oss, float scale,
-                                       void* stream) {
+                                       void* stream, int* kernel) {
   rt::JoinArgs a{q, kq, vq, o, (const int*)dlen, (const uint8_t*)kq_valid, B, Hq, Hkv, Sq, Lq,
                  D, {qsb, qsh, qss}, {kqsb, kqsh, kqss}, {vqsb, vqsh, vqss}, {osb, osh, oss},
                  scale};
@@ -61,9 +65,9 @@ extern "C" int rt_join_attention_paged(const void* q, const void* kq, const void
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case rt::kF32: return dispatch_pool<float>(kd_dtype, a, s);
-    case rt::kBF16: return dispatch_pool<__nv_bfloat16>(kd_dtype, a, s);
-    case rt::kF16: return dispatch_pool<__half>(kd_dtype, a, s);
+    case rt::kF32: return dispatch_pool<float>(kd_dtype, a, s, kernel);
+    case rt::kBF16: return dispatch_pool<__nv_bfloat16>(kd_dtype, a, s, kernel);
+    case rt::kF16: return dispatch_pool<__half>(kd_dtype, a, s, kernel);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,8 +9,13 @@ group: raw ``layer_k`` / ``layer_v`` rows of ``d_kv`` values in the
 recorded dtype, or, with ``layer_kv["codec"]``, that codec's payload and
 scale streams (``layer_k_scales`` / ``layer_v_scales`` for int8).
 
-The manifest's ``checksum`` block is read and kept but not verified yet.
-Indexes written by either package open in both.
+The manifest's optional ``checksum`` block (``{"algo": "crc32c",
+"chunk_bytes"}`` plus per-shard ``checksums``: one CRC-32C per chunk of
+each stream file) is verified as the JAX reader does it: :meth:`open`
+runs the full-file pass by default and ``verify_reads=True`` re-checks
+the chunks each read touches (``repro_torch.index.integrity``).  A
+manifest without the block opens unverified; the port's builder writes
+none yet.  Indexes written by either package open in both.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.index import _msgpack
 from repro_torch.index.codecs import get_codec
+from repro_torch.index.integrity import chunk_checksums, crc32c
 
 FORMAT_VERSION = 2
 
@@ -30,6 +36,13 @@ FORMAT_VERSION = 2
 class IndexFormatError(Exception):
     """The on-disk index is missing, unreadable, or a format this reader
     does not understand."""
+
+
+class IndexIntegrityError(IndexFormatError):
+    """Stored stream bytes fail their manifest CRC-32C chunk checksums:
+    the index was corrupted after build time.  Raised by
+    :meth:`TermRepIndex.open` (full-file pass) or, with
+    ``verify_reads=True``, by the read that touched the bad chunk."""
 
 
 def read_manifest(path: str) -> dict:
@@ -96,7 +109,17 @@ class TermRepIndex:
             raise IndexFormatError(f"malformed manifest at {path!r}: "
                                    f"{e!r}") from e
         self.path = path
-        self.checksum = manifest.get("checksum")   # read, not verified yet
+        cksum = manifest.get("checksum") or None
+        if cksum is not None and str(cksum.get("algo", "crc32c")) != "crc32c":
+            raise IndexFormatError(
+                f"index at {path!r} uses checksum algo "
+                f"{cksum.get('algo')!r}; this reader knows crc32c")
+        # per shard, stream name -> chunk CRCs; None when the manifest
+        # records none (then nothing is verified)
+        self._checksums: list[dict[str, list[int]]] | None = None
+        self.checksum_chunk_bytes = 0
+        self.verify_reads = False
+        checksums = []
         spec = self.streams_spec()
         self._streams: list[dict[str, np.ndarray]] = []
         # per shard, stream name -> file (the fault injector's corrupt
@@ -122,6 +145,10 @@ class TermRepIndex:
                 opened[name] = _open_stream(fp, dt, row_shape, n_tok)
             self._streams.append(opened)
             self._stream_paths.append(paths)
+            sh_ck = sh.get("checksums")
+            if sh_ck is not None:
+                checksums.append({str(k): [int(c) for c in v]
+                                  for k, v in sh_ck.items()})
             starts = np.cumsum(lengths) - lengths
             rows.append(np.stack([np.full(len(lengths), si), starts,
                                   lengths], axis=1).astype(np.int64))
@@ -132,10 +159,98 @@ class TermRepIndex:
             raise IndexFormatError(
                 f"index at {path!r}: manifest n_docs={manifest['n_docs']} "
                 f"but shards list {len(self._doc_table)} documents")
+        if cksum is not None and len(checksums) == len(shards):
+            self.checksum_chunk_bytes = int(cksum.get("chunk_bytes", 1 << 16))
+            self._checksums = checksums
 
     @classmethod
-    def open(cls, path: str) -> "TermRepIndex":
-        return cls(path, read_manifest(path))
+    def open(cls, path: str, *, verify: bool = True,
+             verify_reads: bool = False) -> "TermRepIndex":
+        """Open the index at ``path``.  ``verify`` (default on) runs the
+        full-file CRC-32C pass over every stream whose manifest records
+        chunk checksums and raises :class:`IndexIntegrityError` on a
+        mismatch; a manifest without checksums opens unverified.
+        ``verify_reads=True`` re-checks the chunks each :meth:`gather_raw`
+        (and so :meth:`stage`) touches; it raises ValueError on a
+        manifest without checksums."""
+        idx = cls(path, read_manifest(path))
+        if verify and idx._checksums is not None:
+            idx.verify_integrity()
+        if verify_reads:
+            if idx._checksums is None:
+                raise ValueError(
+                    f"verify_reads=True but the index at {path!r} records "
+                    f"no chunk checksums; build it with a checksumming "
+                    f"builder to add them")
+            idx.verify_reads = True
+        return idx
+
+    # -- integrity -----------------------------------------------------------
+    def verify_integrity(self) -> int:
+        """Recompute every stream chunk's CRC-32C against the manifest and
+        raise :class:`IndexIntegrityError` on the first mismatch, naming
+        the shard's stream file and the chunk.  Returns the number of
+        chunks checked (0 for a manifest without checksums)."""
+        if self._checksums is None:
+            return 0
+        cb = self.checksum_chunk_bytes
+        checked = 0
+        for si, per_stream in enumerate(self._checksums):
+            for name, want in per_stream.items():
+                arr = self._streams[si].get(name)
+                arr8 = (np.asarray(arr).reshape(-1).view(np.uint8)
+                        if arr is not None and arr.size
+                        else np.zeros((0,), np.uint8))
+                got = chunk_checksums(arr8, cb)
+                fp = self._stream_paths[si].get(name, f"shard{si}/{name}")
+                if len(got) != len(want):
+                    raise IndexIntegrityError(
+                        f"{fp}: stream has {len(got)} chunks but manifest "
+                        f"lists {len(want)}: file truncated or extended "
+                        f"after build")
+                for ci, (w, g) in enumerate(zip(want, got)):
+                    if int(w) != int(g):
+                        raise IndexIntegrityError(
+                            f"{fp}: chunk {ci} CRC-32C mismatch (manifest "
+                            f"{int(w):#010x}, stored bytes {int(g):#010x}): "
+                            f"stream bytes corrupted after build")
+                checked += len(got)
+        return checked
+
+    def _verify_gather(self, si: int, starts: np.ndarray, lens: np.ndarray,
+                       stream_names) -> None:
+        """Re-check the CRC of every chunk that a read of rows
+        ``[starts, starts + lens)`` from shard ``si`` touches."""
+        per_stream = self._checksums[si]
+        cb = self.checksum_chunk_bytes
+        spec = self.streams_spec()
+        for name in stream_names:
+            want = per_stream.get(name)
+            if want is None:
+                continue
+            dt, row_shape = spec[name]
+            rowbytes = dt.itemsize * int(np.prod(row_shape, dtype=np.int64))
+            lo = starts * rowbytes
+            hi = (starts + lens) * rowbytes
+            touched = np.unique(np.concatenate(
+                [np.arange(a // cb, (b - 1) // cb + 1)
+                 for a, b in zip(lo, hi) if b > a] or
+                [np.zeros((0,), np.int64)]))
+            arr8 = np.asarray(self._streams[si][name]).reshape(-1) \
+                .view(np.uint8)
+            fp = self._stream_paths[si].get(name, f"shard{si}/{name}")
+            for ci in touched:
+                ci = int(ci)
+                if ci >= len(want):
+                    raise IndexIntegrityError(
+                        f"{fp}: read touches chunk {ci} but manifest lists "
+                        f"only {len(want)} chunks")
+                got = crc32c(arr8[ci * cb:(ci + 1) * cb])
+                if got != int(want[ci]):
+                    raise IndexIntegrityError(
+                        f"{fp}: chunk {ci} CRC-32C mismatch on read "
+                        f"(manifest {int(want[ci]):#010x}, stored bytes "
+                        f"{got:#010x}): stream bytes corrupted after build")
 
     def __len__(self) -> int:
         return len(self._doc_table)
@@ -207,7 +322,8 @@ class TermRepIndex:
         valid ``[N, Ld]`` bool).  ``streams`` restricts the read to a
         subset of :meth:`streams_spec`.  ``out``: optional zeroed
         ``(parts, valid)`` numpy arrays to gather into (for example views
-        of pinned buffers)."""
+        of pinned buffers).  With ``verify_reads`` every chunk the read
+        touches is re-checked first."""
         ids = np.asarray(list(doc_ids), np.int64).reshape(-1)
         if ids.size and (ids.min() < 0 or ids.max() >= len(self)):
             raise IndexError(f"doc id out of range [0, {len(self)})")
@@ -229,6 +345,8 @@ class TermRepIndex:
             total = int(rl.sum())
             if total == 0:
                 continue
+            if self.verify_reads:
+                self._verify_gather(int(si), starts[rsel], rl, spec)
             rows = np.repeat(rsel, rl)
             cols = np.arange(total) - np.repeat(np.cumsum(rl) - rl, rl)
             src = np.repeat(starts[rsel], rl) + cols

@@ -11,7 +11,10 @@ kernel launch.
 
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` (or ``cudaErrorInvalidValue`` for an
-argument it does not take); :func:`check` raises when it is not 0.
+argument it does not take); :func:`check` raises when it is not 0.  The
+attention entries that route between a tensor-core and a CUDA-core
+kernel report the one they ran through a last ``int*`` argument
+(:func:`launch_routed`).
 """
 from __future__ import annotations
 
@@ -29,24 +32,29 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+IP = ctypes.POINTER(ctypes.c_int)
+#: what a routed entry's last argument reports
+TENSOR_CORE, CUDA_CORE = 1, 0
 _STRIDES = [LL] * 3
 #: C signatures of the library's entry points (all return int).
 SIGNATURES = {
     # q, k, v, out, lengths, k_valid, k_scales, v_scales, dtype, kv_dtype,
     # B, Hq, Hkv, Sq, Skv, D, q/k/v/out (batch, head, seq) strides,
-    # causal, window, seg_boundary, scale, stream
+    # causal, window, seg_boundary, scale, stream, kernel ran (out)
     "rt_split_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                           *_STRIDES * 4, I, I, I, F, P],
+                           *_STRIDES * 4, I, I, I, F, P, IP],
     # q, kq, vq, kd, vd, out, dlen, kq_valid, kd_valid, kd_scale, vd_scale,
     # dtype, kd_dtype, B, Hq, Hkv, Sq, Lq, Ld, D, q/kq/vq/kd/vd/out
-    # strides, scale, stream
+    # strides, scale, stream, kernel ran (out)
     "rt_join_attention": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                          I, I, I, *_STRIDES * 6, F, P],
+                          I, I, I, *_STRIDES * 6, F, P, IP],
     # q, kq, vq, k_pool, v_pool, out, dlen, kq_valid, page_table,
     # dval_pool, k_scale_pool, v_scale_pool, dtype, kd_dtype, B, Hq, Hkv,
-    # Sq, Lq, n_pages, page, D, q/kq/vq/out strides, scale, stream
+    # Sq, Lq, n_pages, page, D, q/kq/vq/out strides, scale, stream,
+    # kernel ran (out)
     "rt_join_attention_paged": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
-                                I, I, I, I, I, I, I, *_STRIDES * 4, F, P],
+                                I, I, I, I, I, I, I, *_STRIDES * 4, F, P,
+                                IP],
     "rt_join_attention_row": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                               I, *_STRIDES * 6, F, P],
     # q, k, v, out, lengths, k_valid, dtype, B, Hq, Hkv, S, D, q (batch,
@@ -147,6 +155,14 @@ def check(name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError {code}")
+
+
+def launch_routed(entry: str, *args) -> int:
+    """Call a routed attention entry and raise if it failed; returns the
+    kernel it ran (TENSOR_CORE or CUDA_CORE)."""
+    kernel = ctypes.c_int(-1)
+    check(entry, getattr(library(), entry)(*args, ctypes.byref(kernel)))
+    return kernel.value
 
 
 def stream_ptr(device) -> int:

@@ -8,7 +8,12 @@ CPU tensors take the plain versions (``ref.py``); CUDA tensors launch a
 kernel or raise.  Launch counters: ``join_flash_attention.launches`` (the
 tiled kernel, float K/V), ``.row_launches`` (the row kernel),
 ``.int8_launches`` (the tiled kernel, int8 K/V) and
-``join_flash_attention_paged.launches``."""
+``join_flash_attention_paged.launches``; and on both wrappers one per
+kernel the C entry routed a tiled call to: ``.tensor_core_launches``
+(``join_tc_kernel``: bf16 / fp16 q, head dim 64 or 128, Sq > 1, doc K/V
+of q's type, raw int8 or, paged, the other 16-bit type, 16-byte aligned
+operands) and ``.cuda_core_launches`` (``join_tiled_kernel``: everything
+else, float32 q among it)."""
 from __future__ import annotations
 
 import math
@@ -47,9 +52,11 @@ def join_flash_attention(q, kq, vq, kd, vd, kq_valid=None, kd_valid=None,
             res = join_attention_ref(q, kq, vq, kd, vd, kq_valid, kd_valid)
         return res if out is None else out.copy_(res)
     row = q.shape[2] == 1 and not quant
-    out = _launch("rt_join_attention_row" if row else "rt_join_attention",
-                  q, kq, vq, kd, vd, kq_valid, kd_valid, kd_scales,
-                  vd_scales, out)
+    out, kernel = _launch(
+        "rt_join_attention_row" if row else "rt_join_attention", q, kq, vq,
+        kd, vd, kq_valid, kd_valid, kd_scales, vd_scales, out)
+    if not row:
+        _count_route(join_flash_attention, kernel)
     if quant:
         join_flash_attention.int8_launches += 1
     elif row:
@@ -62,6 +69,15 @@ def join_flash_attention(q, kq, vq, kd, vd, kq_valid=None, kd_valid=None,
 join_flash_attention.launches = 0
 join_flash_attention.row_launches = 0
 join_flash_attention.int8_launches = 0
+join_flash_attention.tensor_core_launches = 0
+join_flash_attention.cuda_core_launches = 0
+
+
+def _count_route(fn, kernel):
+    if kernel == _build.TENSOR_CORE:
+        fn.tensor_core_launches += 1
+    else:
+        fn.cuda_core_launches += 1
 
 
 def join_flash_attention_paged(q, kq, vq, kd_pages, vd_pages, page_table,
@@ -116,9 +132,10 @@ def join_flash_attention_paged(q, kq, vq, kd_pages, vd_pages, page_table,
         .contiguous()
     kq_valid = _mask(kq_valid, b, lq, q.device)
     out = _build.output_like(q, out)
-    code = _build.library().rt_join_attention_paged(
-        q.data_ptr(), kq.data_ptr(), vq.data_ptr(), kd_pages.data_ptr(),
-        vd_pages.data_ptr(), out.data_ptr(), dlen.data_ptr(),
+    kernel = _build.launch_routed(
+        "rt_join_attention_paged", q.data_ptr(), kq.data_ptr(),
+        vq.data_ptr(), kd_pages.data_ptr(), vd_pages.data_ptr(),
+        out.data_ptr(), dlen.data_ptr(),
         kq_valid.data_ptr(), table.data_ptr(), dval.data_ptr(),
         *scale_ptrs, _build.dtype_code(q.dtype),
         _build.dtype_code(kd_pages.dtype, int8=True), b, hq, hkv, sq, lq,
@@ -126,12 +143,14 @@ def join_flash_attention_paged(q, kq, vq, kd_pages, vd_pages, page_table,
         *_build.bhs_strides(kq), *_build.bhs_strides(vq),
         *_build.bhs_strides(out), 1.0 / math.sqrt(d),
         _build.stream_ptr(q.device))
-    _build.check("rt_join_attention_paged", code)
+    _count_route(join_flash_attention_paged, kernel)
     join_flash_attention_paged.launches += 1
     return out
 
 
 join_flash_attention_paged.launches = 0
+join_flash_attention_paged.tensor_core_launches = 0
+join_flash_attention_paged.cuda_core_launches = 0
 
 
 def _check_scales(kd, k_scales, v_scales) -> bool:
@@ -213,18 +232,18 @@ def _launch(entry, q, kq, vq, kd, vd, kq_valid, kd_valid, kd_scales,
         scale_ptrs = [t.data_ptr() for t in scales]
     dlen = last_valid_lengths(kd_valid).contiguous()
     out = _build.output_like(q, out)
-    args = [q.data_ptr(), kq.data_ptr(), vq.data_ptr(), kd.data_ptr(),
+    ptrs = [q.data_ptr(), kq.data_ptr(), vq.data_ptr(), kd.data_ptr(),
             vd.data_ptr(), out.data_ptr(), dlen.data_ptr(),
             kq_valid.data_ptr(), kd_valid.data_ptr()]
-    if entry == "rt_join_attention":
-        args += [*(scale_ptrs or [0, 0]), _build.dtype_code(q.dtype),
-                 _build.dtype_code(kd.dtype, int8=True)]
-    else:
-        args += [_build.dtype_code(q.dtype)]
-    code = getattr(_build.library(), entry)(
-        *args, b, hq, hkv, sq, lq, ld, d, *_build.bhs_strides(q),
-        *_build.bhs_strides(kq), *_build.bhs_strides(vq),
-        *_build.bhs_strides(kd), *_build.bhs_strides(vd),
-        *_build.bhs_strides(out), 1.0 / math.sqrt(d), _build.stream_ptr(dev))
-    _build.check(entry, code)
-    return out
+    dims = [b, hq, hkv, sq, lq, ld, d, *_build.bhs_strides(q),
+            *_build.bhs_strides(kq), *_build.bhs_strides(vq),
+            *_build.bhs_strides(kd), *_build.bhs_strides(vd),
+            *_build.bhs_strides(out), 1.0 / math.sqrt(d),
+            _build.stream_ptr(dev)]
+    if entry == "rt_join_attention_row":
+        _build.check(entry, _build.library().rt_join_attention_row(
+            *ptrs, _build.dtype_code(q.dtype), *dims))
+        return out, _build.CUDA_CORE
+    return out, _build.launch_routed(
+        entry, *ptrs, *(scale_ptrs or [0, 0]), _build.dtype_code(q.dtype),
+        _build.dtype_code(kd.dtype, int8=True), *dims)

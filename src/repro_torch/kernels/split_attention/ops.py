@@ -5,7 +5,12 @@ kernel or raise.  Launch counters, one per form, each launch counted
 once: ``split_flash_attention.launches`` (bidirectional, float K/V: the
 PreTTR form), ``.causal_launches`` (causal, no window),
 ``.window_launches`` (a sliding window, causal or not) and
-``.int8_launches`` (raw int8 K/V with per-token scales, any mask)."""
+``.int8_launches`` (raw int8 K/V with per-token scales, any mask); and
+one per kernel the C entry routed the call to:
+``.tensor_core_launches`` (``split_attention_tc_kernel``: bf16 / fp16 q,
+head dim 64, 128 or 256, Sq > 1, 16-byte aligned operands) and
+``.cuda_core_launches`` (``split_attention_kernel``: everything else,
+float32 q among it)."""
 from __future__ import annotations
 
 import math
@@ -71,17 +76,20 @@ def split_flash_attention(q, k, v, lengths=None, k_valid=None, k_scales=None,
                              f"Skv={skv}]")
         scale_ptrs = [k_scales.data_ptr(), v_scales.data_ptr()]
     out = _build.output_like(q, out)
-    code = _build.library().rt_split_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(), k_valid.data_ptr(), *scale_ptrs,
+    kernel = _build.launch_routed(
+        "rt_split_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lengths.data_ptr(), k_valid.data_ptr(), *scale_ptrs,
         _build.dtype_code(q.dtype), _build.dtype_code(k.dtype, int8=quant),
         b, hq, k.shape[1], sq, skv, d,
         *_build.bhs_strides(q), *_build.bhs_strides(k),
         *_build.bhs_strides(v), *_build.bhs_strides(out),
         int(bool(causal)), int(window), int(seg_boundary),
         1.0 / math.sqrt(d), _build.stream_ptr(dev))
-    _build.check("split_attention", code)
     fn = split_flash_attention
+    if kernel == _build.TENSOR_CORE:
+        fn.tensor_core_launches += 1
+    else:
+        fn.cuda_core_launches += 1
     if quant:
         fn.int8_launches += 1
     elif window > 0:
@@ -97,6 +105,8 @@ split_flash_attention.launches = 0
 split_flash_attention.causal_launches = 0
 split_flash_attention.window_launches = 0
 split_flash_attention.int8_launches = 0
+split_flash_attention.tensor_core_launches = 0
+split_flash_attention.cuda_core_launches = 0
 
 
 def _check(q, k, v, quant: bool):

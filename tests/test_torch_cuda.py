@@ -347,6 +347,154 @@ def test_join_attention_paged_kernel(dev, page, n_slots, hq, hkv, d, dtype,
             vd_scale_pages=vs)[:1], dtype)
 
 
+def _routed(fn):
+    return fn.tensor_core_launches, fn.cuda_core_launches
+
+
+def _wide_scales(g, dev, b, n):
+    """Per-token scales spread over four decades (1e-4 .. 1)."""
+    return 10.0 ** (-4 * torch.rand((b, n), generator=g, device=dev))
+
+
+# the tensor-core split kernel's tile edges: (Hq, Hkv, Sq, Skv, causal,
+# window, seg_boundary, int8); Sq and Skv off the 64-row / 64-key tiles
+TC_SPLIT_CASES = {
+    "seg_boundary_mid_tile": (12, 12, 130, 130, False, -1, 37, False),
+    "seg_boundary_at_32": (12, 12, 96, 96, False, -1, 32, False),
+    "gqa_causal": (8, 4, 190, 190, True, -1, -1, False),
+    "window_64": (8, 4, 200, 200, True, 64, -1, False),
+    "window_65": (8, 4, 200, 200, True, 65, -1, False),
+    "window_bidirectional": (4, 4, 70, 150, False, 100, -1, False),
+    "int8_wide_scales": (8, 4, 77, 150, False, -1, -1, True),
+    "int8_causal_window": (12, 12, 129, 129, True, 50, 40, True),
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", list(TC_SPLIT_CASES))
+def test_split_attention_tensor_core_edges(dev, case, d, dtype):
+    """16-bit q at D = 64, 128, 256 takes the tensor-core kernel; ragged
+    tiles, a seg_boundary inside a tile, window edges, GQA 8/4 and 12/12
+    and int8 K/V with scales over four decades agree with the plain
+    version on every row that sees a key."""
+    hq, hkv, sq, skv, causal, window, boundary, int8 = TC_SPLIT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(16)
+    dt, b = DTYPES[dtype], 2
+    q = _rand(g, dev, dt, b, hq, sq, d)
+    if int8:
+        k, v = (torch.randint(-127, 128, (b, hkv, skv, d), generator=g,
+                              device=dev, dtype=torch.int32).to(torch.int8)
+                for _ in range(2))
+        ks, vs = (_wide_scales(g, dev, b, skv) for _ in range(2))
+    else:
+        k, v = (_rand(g, dev, dt, b, hkv, skv, d) for _ in range(2))
+        ks = vs = None
+    lengths = torch.tensor([skv, skv - 29], device=dev, dtype=torch.int32)
+    valid = torch.rand((b, skv), generator=g, device=dev) < 0.9
+    valid[:, 0] = True
+    kw = dict(causal=causal, window=window, seg_boundary=boundary)
+    before = _routed(split_flash_attention)
+    got = split_flash_attention(q, k, v, lengths, valid, ks, vs, **kw)
+    assert _routed(split_flash_attention) == (before[0] + 1, before[1])
+    want = split_attention_ref(q, k, v, lengths, valid, ks, vs, **kw)
+    rows = _visible_rows(sq, skv, lengths, valid, causal, window, boundary)
+    assert rows.float().mean() > 0.8
+    _close(got.transpose(1, 2)[rows], want.transpose(1, 2)[rows], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv,sq,lq,ld", [
+    (12, 12, 512, 32, 480),      # PreTTR's join layers: half a query tile
+    (8, 4, 100, 70, 130),        # GQA, two query tiles, ragged docs
+    (4, 4, 65, 1, 64)])          # one query key, Sq one past a tile
+@pytest.mark.parametrize("int8", [False, True])
+def test_join_attention_tensor_core_edges(dev, hq, hkv, sq, lq, ld, d,
+                                          dtype, int8):
+    g = torch.Generator(device=dev).manual_seed(17)
+    dt, b = DTYPES[dtype], 3
+    q = _rand(g, dev, dt, b, hq, sq, d)
+    kq, vq = (_rand(g, dev, dt, b, hkv, lq, d) for _ in range(2))
+    if int8:
+        kd, vd = (torch.randint(-127, 128, (b, hkv, ld, d), generator=g,
+                                device=dev, dtype=torch.int32)
+                  .to(torch.int8) for _ in range(2))
+        ks, vs = (_wide_scales(g, dev, b, ld) for _ in range(2))
+    else:
+        kd, vd = (_rand(g, dev, dt, b, hkv, ld, d) for _ in range(2))
+        ks = vs = None
+    kqv = torch.arange(lq, device=dev)[None] < torch.randint(
+        1, lq + 1, (b, 1), device=dev, generator=g)
+    kdv = torch.rand((b, ld), generator=g, device=dev) < 0.85
+    kdv[:, 0] = True
+    kdv[1, ld // 2:] = False                  # a short document
+    before = _routed(join_flash_attention)
+    got = join_flash_attention(q, kq, vq, kd, vd, kqv, kdv, ks, vs)
+    assert _routed(join_flash_attention) == (before[0] + 1, before[1])
+    if int8:
+        want = join_attention_ref_quant(q, kq, vq, kd, vd, ks, vs, kqv, kdv)
+    else:
+        want = join_attention_ref(q, kq, vq, kd, vd, kqv, kdv)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("pool", ["int8", "bfloat16", "float16"])
+@pytest.mark.parametrize("page,n_slots,hkv,d", [
+    (24, 7, 12, 64), (40, 3, 4, 128), (100, 5, 2, 64)])
+def test_join_attention_paged_tensor_core_edges(dev, page, n_slots, hkv, d,
+                                                pool):
+    """Pages that are no multiple of the 64-key tile, under a bf16 q
+    (fp16 pools are rounded to bf16 as staged)."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    b, hq, lq = 3, 12 if hkv == 12 else 8, 32
+    sq = 96
+    k, v, table, valid, (ks, vs) = _paged_world(g, dev, b, hkv, d, page,
+                                                n_slots, POOL_DTYPES[pool])
+    q = _rand(g, dev, torch.bfloat16, b, hq, sq, d)
+    kq, vq = (_rand(g, dev, torch.bfloat16, b, hkv, lq, d)
+              for _ in range(2))
+    kqv = torch.arange(lq, device=dev)[None] < torch.randint(
+        1, lq + 1, (b, 1), device=dev, generator=g)
+    before = _routed(join_flash_attention_paged)
+    got = join_flash_attention_paged(q, kq, vq, k, v, table, valid, kqv,
+                                     kd_scale_pages=ks, vd_scale_pages=vs)
+    assert _routed(join_flash_attention_paged) == (before[0] + 1, before[1])
+    want = join_attention_ref_paged(q, kq, vq, k, v, table, valid, kqv,
+                                    kd_scale_pages=ks, vd_scale_pages=vs)
+    _close(got, want, "bfloat16")
+
+
+def test_attention_routes_to_the_cuda_core_kernels(dev):
+    """float32 q, a head dim outside {64, 128, 256}, one query row and an
+    unaligned operand take the CUDA-core kernels, which the float32 paths
+    hold to 2e-5."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    f32 = _rand(g, dev, torch.float32, 2, 4, 40, 64)
+    bf16 = f32.to(torch.bfloat16)
+    narrow = _rand(g, dev, torch.bfloat16, 2, 4, 40, 32)
+    one_row = bf16[:, :, :1]
+    # a view 2 elements into its storage: 4-byte, not 16-byte, aligned
+    shifted = torch.empty(2 * 4 * 40 * 64 + 2, device=dev,
+                          dtype=torch.bfloat16)[2:].view(2, 4, 40, 64)
+    shifted.copy_(bf16)
+    for q, kv, name in ((f32, f32, "float32"), (narrow, narrow, "bfloat16"),
+                        (one_row, bf16, "bfloat16"),
+                        (shifted, bf16, "bfloat16")):
+        before = _routed(split_flash_attention)
+        got = split_flash_attention(q, kv, kv)
+        assert _routed(split_flash_attention) == (before[0], before[1] + 1)
+        _close(got, split_attention_ref(q, kv, kv, torch.full(
+            (2,), kv.shape[2], device=dev)), name)
+        before = _routed(join_flash_attention)
+        join_flash_attention(q, kv, kv, kv, kv)
+        assert _routed(join_flash_attention) == (
+            before[0], before[1] + int(q.shape[2] > 1))
+    before = _routed(split_flash_attention)
+    split_flash_attention(bf16, bf16, bf16)
+    assert _routed(split_flash_attention) == (before[0] + 1, before[1])
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_compress_kernel_f32_out(dev, dtype):
     g = torch.Generator(device=dev).manual_seed(8)
