@@ -18,8 +18,15 @@ at gemma3-4b's, then the recsys models at their published configs:
    pools, the CLS row), flash decode (the CLS-only layer's shape, and
    gemma3's decode shape with and without its window), compress and
    decompress (fp16 and float32 storage; their library call is the same
-   function in float32 with TF32 off).  bf16 split and join attention
-   run on the tensor-core kernels, float32 on the CUDA-core ones; each
+   function in float32 with TF32 off).  Flash decode and the CLS row run
+   one split-KV kernel; their rows also give the ``n_splits`` their
+   timed call launched with (as its wrapper recorded it), the merges it
+   launched, their device times with the L2 flushed before each call
+   (``cold_device_ms``, ``cold_library_ms``) and the bytes a second
+   achieved, warm and cold; gemma3's window form is also
+   checked at ``lengths`` = 1 (a cache's first step).  bf16 split and
+   join attention run on the tensor-core kernels, float32 on the
+   CUDA-core ones; each
    attention row names the kernel its timed call ran (``kernels_run``),
    and each bf16 one is held to twice the distance of its plain
    version's bf16 output from its float32 output on the same inputs;
@@ -85,7 +92,9 @@ before each index build, each timed serving run, the soundness check,
 each LM run and each recsys run, and read just after.  A path that
 misses a kernel it must run (``PATH_KERNELS``: the tensor-core split and
 join kernels on the bf16 paths, the CUDA-core ones on the float32
-paths), or a plain run that launches any, fails the script.
+paths; the split-KV merge where the path's Sq = 1 calls split their
+keys: gemma3's decode and the 4-pair soundness check), or a plain run
+that launches any, fails the script.
 The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
 the index builds, the bf16 kernel runs of each serving form, the LM's
 bf16 prefill and decode, and the recsys serve_bulk forwards, retrieval
@@ -160,9 +169,9 @@ REC_P99, REC_BULK, REC_CANDIDATES = 512, 262_144, 1_000_192
 # the port's kernels by symbol (csrc/*.cu), held against the launch
 # counters in each profile
 OUR_KERNELS = ("split_attention_kernel", "split_attention_tc_kernel",
-               "join_tiled_kernel", "join_tc_kernel",
-               "join_attention_row_kernel", "decode_attention_kernel",
-               "compress_kernel", "decompress_kernel", "embedding_bag_kernel")
+               "join_tiled_kernel", "join_tc_kernel", "sq1_attention_kernel",
+               "sq1_merge_kernel", "compress_kernel", "decompress_kernel",
+               "embedding_bag_kernel")
 # the counters of which attention kernel a call was routed to (the
 # tensor-core or the CUDA-core one); every launch also counts in its
 # form's counter, so a profile's launch total leaves these out
@@ -170,6 +179,10 @@ ROUTE_COUNTERS = ("split_attention_tensor_core", "split_attention_cuda_core",
                   "join_attention_tensor_core", "join_attention_cuda_core",
                   "join_attention_paged_tensor_core",
                   "join_attention_paged_cuda_core")
+# the split-KV kernel's merge launches, one counter per Sq = 1 form: a
+# call whose keys were split launches the merge kernel after it
+MERGE_COUNTERS = ("decode_attention_merge", "decode_attention_window_merge",
+                  "join_attention_row_merge")
 # recsys limits, scaled to the data (the tables are N(0, 0.01^2), so a
 # fixed 2e-2 would pass a kernel that returned zeros).  The kernel and its
 # plain version sum the same float32 terms in other orders and round once:
@@ -185,19 +198,25 @@ REC_REL = {"bits": 0.0, "bfloat16": 2.0 ** -7, "float32": 2.0 ** -16}
 # the spin kernel ahead of each call timed for ``device_ms``: ~2 ms at
 # the H100's 1.98 GHz, longer than any timed call's host work
 SPIN_CYCLES = 4_000_000
+# bytes written between calls timed cold: more than the H100's 50 MB L2
+FLUSH_BYTES = 128 << 20
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, n=20, warmup=3, spin=False):
+def time_ms(fn, n=20, warmup=3, spin=False, cold=False):
     """Median time of ``fn`` in ms: CUDA events around each call, which
     take in the host's enqueue time when that is the longer.  With
     ``spin`` each call is queued behind a spin kernel of SPIN_CYCLES, so
     the host enqueues it while the device is busy and the events bracket
-    the device's work alone."""
+    the device's work alone.  With ``cold`` FLUSH_BYTES are written before
+    each call (outside the events), so its operands come from HBM and not
+    from the L2, as a real decode step or micro-batch finds them."""
     import torch
+    flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+             if cold else None)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -205,6 +224,8 @@ def time_ms(fn, n=20, warmup=3, spin=False):
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if cold:
+            flush.fill_(n)
         if spin:
             torch.cuda._sleep(SPIN_CYCLES)
         start.record()
@@ -267,13 +288,21 @@ def compare(name, got, want, dtype_name, shape, want_f32=None):
 
 def record_kernel(rows, name, source, replaces, err, kernel_fn, plain_fn,
                   library_fn, flops, n_bytes, peak, peak_name, row=True,
-                  **extra):
+                  split_kv=None, **extra):
     """Time a kernel beside its plain version and library call; with
     ``row`` False (a second form of a kernel already in the line) only the
     kernel_time line is printed.  ``extra`` goes on that line.  An
     attention row names the kernel its call was routed to
-    (``kernels_run``)."""
+    (``kernels_run``).  An Sq = 1 row (``split_kv``: the wrapper and the
+    attribute where it records the split count it launched with) also
+    gives that ``n_splits``, its device times with the L2 flushed before
+    each call (``cold_device_ms``, ``cold_library_ms``), the merge kernels
+    its call launched and the bytes a second it achieved, warm and
+    cold."""
+    if split_kv is not None:
+        setattr(*split_kv, None)
     _, launched = counted(kernel_fn)
+    n_splits = None if split_kv is None else getattr(*split_kv)
     ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
     library_ms = time_ms(library_fn)
     bound_ms, bound_by = bound(flops, n_bytes, peak)
@@ -285,10 +314,27 @@ def record_kernel(rows, name, source, replaces, err, kernel_fn, plain_fn,
     routes = [k for k in ROUTE_COUNTERS if launched[k]]
     if routes:
         out["kernels_run"] = routes
+    if split_kv is not None:
+        if n_splits is None:
+            raise AssertionError(f"{name}: the call recorded no n_splits")
+        out.update(n_splits=n_splits,
+                   merges_run=sum(launched[k] for k in MERGE_COUNTERS),
+                   cold_device_ms=time_ms(kernel_fn, spin=True, cold=True),
+                   cold_library_ms=time_ms(library_fn, spin=True, cold=True))
+        out.update(gb_per_s=n_bytes / out["device_ms"] / 1e6,
+                   cold_gb_per_s=n_bytes / out["cold_device_ms"] / 1e6)
     emit({"phase": "kernel_time", **out, "peak": peak_name,
           "flops": flops, "bytes": n_bytes, **extra})
     if row:
         rows.append(out)
+
+
+def _decode_f32(q, k, v, lengths, **kw):
+    """Flash decode's plain version in float32 on 16-bit inputs: the
+    ``want_f32`` of a 16-bit decode check."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    return decode_attention_ref(q.float(), k.float(), v.float(), lengths,
+                                **kw)
 
 
 def _prefix_mask(torch, gen, b, n, lo):
@@ -458,7 +504,8 @@ def check_kernels(torch, cfg):
                       "bfloat16", [b, h, sq, dh], want_f32)
         mask = torch.cat([kqv, kdv], 1)[:, None, None, :].expand(b, 1, sq,
                                                                  lq + ld)
-        record(name, "src/repro_torch/csrc/join_attention.cu",
+        record(name, "src/repro_torch/csrc/join_attention.cu" if sq > 1
+               else "src/repro_torch/csrc/join_attention_row.cu",
                "src/repro/kernels/join_attention/kernel.py:130", err,
                lambda: fn(q, kq, vq, kd, vd, kqv, kdv),
                lambda: join_attention_ref(q, kq, vq, kd, vd, kqv, kdv),
@@ -466,7 +513,9 @@ def check_kernels(torch, cfg):
                                                       attn_mask=mask),
                4 * dh * h * sq * n_keys,
                2 * nbytes(q) + kv_needed + nbytes(kqv, kdv), PEAK_BF16_FLOPS,
-               "bf16 tensor cores")
+               "bf16 tensor cores",
+               split_kv=((join_flash_attention, "last_row_n_splits")
+                         if sq == 1 else None))
 
     # -- the join layer l over stored int8 K/V: dense (no doc cache) and
     #    paged out of the doc cache's pools (page 64: 480 -> 8 pages); the
@@ -589,14 +638,14 @@ def check_kernels(torch, cfg):
                            _prefix_mask(torch, gen, b, ld, ld // 4)], 1)
     lengths = last_valid_lengths(cls_valid)
     f32 = [t.float() for t in (q, k, v)]
+    want_f32 = decode_attention_ref(*f32, lengths, cls_valid)
     compare("decode_attention",
-            flash_decode_attention(*f32, lengths, cls_valid),
-            decode_attention_ref(*f32, lengths, cls_valid), "float32",
-            [b, h, 1, dh, s])
+            flash_decode_attention(*f32, lengths, cls_valid), want_f32,
+            "float32", [b, h, 1, dh, s])
     err = compare("decode_attention",
                   flash_decode_attention(q, k, v, lengths, cls_valid),
                   decode_attention_ref(q, k, v, lengths, cls_valid),
-                  "bfloat16", [b, h, 1, dh, s])
+                  "bfloat16", [b, h, 1, dh, s], want_f32)
     record("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
            "src/repro/kernels/decode_attention/kernel.py:75", err,
            lambda: flash_decode_attention(q, k, v, lengths, cls_valid),
@@ -608,7 +657,8 @@ def check_kernels(torch, cfg):
            # prefixes is masked, and the kernel skips those tiles
            2 * nbytes(q) + 2 * int(cls_valid.sum()) * h * dh * q.element_size()
            + nbytes(cls_valid, lengths), PEAK_BF16_FLOPS,
-           "bf16 tensor cores")
+           "bf16 tensor cores",
+           split_kv=(flash_decode_attention, "last_n_splits"))
     gb, ghq, ghkv, gd = LM_B, 8, 4, 256
     q = rand(gb, ghq, 1, gd)
     k, v = (rand(gb, ghkv, 4096, gd) for _ in range(2))
@@ -617,9 +667,18 @@ def check_kernels(torch, cfg):
     compare("decode_attention_window",
             flash_decode_attention(q, k, v, lengths, window=LM_WINDOW),
             decode_attention_ref(q, k, v, lengths, window=LM_WINDOW),
-            "bfloat16", [gb, ghq, 1, gd, 4096, LM_WINDOW])
+            "bfloat16", [gb, ghq, 1, gd, 4096, LM_WINDOW],
+            _decode_f32(q, k, v, lengths, window=LM_WINDOW))
     gs = LM_S + LM_STEPS
     k, v = (rand(gb, ghkv, gs, gd) for _ in range(2))
+    # the first decode step of a cache: one key, every window split empty
+    # but the first
+    first = torch.ones((gb,), device="cuda", dtype=torch.int32)
+    compare("decode_attention_window",
+            flash_decode_attention(q, k, v, first, window=LM_WINDOW),
+            decode_attention_ref(q, k, v, first, window=LM_WINDOW),
+            "bfloat16", [gb, ghq, 1, gd, gs, LM_WINDOW, "lengths=1"],
+            _decode_f32(q, k, v, first, window=LM_WINDOW))
     lengths = torch.full((gb,), LM_S + LM_STEPS // 2, device="cuda",
                          dtype=torch.int32)
     pos = torch.arange(gs, device="cuda")[None]
@@ -628,7 +687,8 @@ def check_kernels(torch, cfg):
         err = compare(name.replace("_lm_global", ""),
                       flash_decode_attention(q, k, v, lengths, window=window),
                       decode_attention_ref(q, k, v, lengths, window=window),
-                      "bfloat16", [gb, ghq, 1, gd, gs, window])
+                      "bfloat16", [gb, ghq, 1, gd, gs, window],
+                      _decode_f32(q, k, v, lengths, window=window))
         keys = pos < lengths[:, None]
         if window > 0:
             keys = keys & (pos >= lengths[:, None] - window)
@@ -644,7 +704,8 @@ def check_kernels(torch, cfg):
                4 * gd * ghq * n_keys,
                2 * nbytes(q) + 2 * n_keys * ghkv * gd * q.element_size()
                + nbytes(lengths), PEAK_BF16_FLOPS, "bf16 tensor cores",
-               row=window > 0)
+               row=window > 0,
+               split_kv=(flash_decode_attention, "last_n_splits"))
 
     # -- compress (index time) and decompress (every micro-batch); their
     #    weights stay float32, so the products are float32 operations and
@@ -784,8 +845,14 @@ def launch_counters():
             "decode_attention": (flash_decode_attention, "launches"),
             "decode_attention_window": (flash_decode_attention,
                                         "window_launches"),
+            "decode_attention_merge": (flash_decode_attention,
+                                       "merge_launches"),
+            "decode_attention_window_merge": (flash_decode_attention,
+                                              "window_merge_launches"),
             "join_attention": (join_flash_attention, "launches"),
             "join_attention_row": (join_flash_attention, "row_launches"),
+            "join_attention_row_merge": (join_flash_attention,
+                                         "row_merge_launches"),
             "join_attention_int8": (join_flash_attention, "int8_launches"),
             "join_attention_paged": (join_flash_attention_paged, "launches"),
             "compress": (fused_compress, "launches"),
@@ -836,7 +903,11 @@ _CACHED_SERVE = ("split_attention", "join_attention", "join_attention_paged",
 # flash-decode CLS-only layer
 _LEGACY_SERVE = ("split_attention", "decompress", "decode_attention")
 _LM_PREFILL = ("split_attention_causal", "split_attention_window")
-_LM_DECODE = ("decode_attention", "decode_attention_window")
+# gemma3's decode splits its 2064 (global) and 1024 (window) keys across
+# blocks and merges them; PreTTR's CLS rows at a micro-batch of 32 fill
+# the card with one split, at rank_forward's 4 pairs they split
+_LM_DECODE = ("decode_attention", "decode_attention_window",
+              "decode_attention_merge", "decode_attention_window_merge")
 PATH_KERNELS = {
     "index": ("split_attention", "compress", *_SPLIT_TC),
     "serve": _FP16_SERVE + _JOIN_TC, "serve_f32": _FP16_SERVE + _JOIN_CC,
@@ -845,7 +916,9 @@ PATH_KERNELS = {
     "serve_legacy_f32": _LEGACY_SERVE + _SPLIT_CC,
     # rank_forward ends in the decode layer, join_and_score in the row
     "soundness": ("split_attention", "join_attention", "join_attention_row",
-                  "decode_attention", "compress", "decompress", *_JOIN_CC),
+                  "join_attention_row_merge", "decode_attention",
+                  "decode_attention_merge", "compress", "decompress",
+                  *_JOIN_CC),
     "index_int8": ("split_attention", "compress_f32", "decompress_f32",
                    *_SPLIT_TC),
     "serve_int8_kv": _INT8_SERVE + _JOIN_TC,
@@ -1795,6 +1868,9 @@ def main():
         k = row["name"]
         row["launches"] = sum(launches[p][k] for p in MAIN_PATHS)
         row["launches_by_path"] = {p: n[k] for p, n in launches.items()}
+        if k + "_merge" in MERGE_COUNTERS:
+            row["merge_launches"] = sum(launches[p][k + "_merge"]
+                                        for p in MAIN_PATHS)
     emit({"kernels": rows})
     missing = [f"{p}: {k}" for p, kernels in PATH_KERNELS.items()
                for k in kernels if launches[p][k] == 0]

@@ -12,13 +12,16 @@ kernel launch.
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` (or ``cudaErrorInvalidValue`` for an
 argument it does not take); :func:`check` raises when it is not 0.  The
-attention entries that route between a tensor-core and a CUDA-core
-kernel report the one they ran through a last ``int*`` argument
-(:func:`launch_routed`).
+attention entries report through a last ``int*`` argument
+(:func:`launch_reporting`): those that route between a tensor-core and a
+CUDA-core kernel the one they ran, the Sq = 1 entries how many kernels
+they launched (the split-KV kernel, and its merge when the keys were
+split).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,6 +38,8 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 IP = ctypes.POINTER(ctypes.c_int)
 #: what a routed entry's last argument reports
 TENSOR_CORE, CUDA_CORE = 1, 0
+#: what an Sq = 1 entry's last argument reports when it merged splits
+WITH_MERGE = 2
 _STRIDES = [LL] * 3
 #: C signatures of the library's entry points (all return int).
 SIGNATURES = {
@@ -55,13 +60,20 @@ SIGNATURES = {
     "rt_join_attention_paged": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
                                 I, I, I, I, I, I, I, *_STRIDES * 4, F, P,
                                 IP],
+    # q, kq, vq, kd, vd, out, kq_valid, kd_valid, partial, dtype, B, Hq,
+    # Hkv, Lq, Ld, D, q (batch, head) strides, kq/vq/kd/vd strides, out
+    # (batch, head) strides, n_splits, the planner's align / max splits /
+    # block rows, scale, stream, launches (out)
     "rt_join_attention_row": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                              I, *_STRIDES * 6, F, P],
-    # q, k, v, out, lengths, k_valid, dtype, B, Hq, Hkv, S, D, q (batch,
-    # head) strides, k/v strides, out (batch, head) strides, window,
-    # scale, stream
-    "rt_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, LL, LL,
-                            *_STRIDES * 2, LL, LL, I, F, P],
+                              LL, LL, *_STRIDES * 4, LL, LL, I, I, I, I, F,
+                              P, IP],
+    # q, k, v, out, lengths, k_valid, partial, dtype, B, Hq, Hkv, S, D, q
+    # (batch, head) strides, k/v strides, out (batch, head) strides,
+    # window, n_splits, the planner's align / max splits / block rows,
+    # scale, stream, launches (out)
+    "rt_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL,
+                            *_STRIDES * 2, LL, LL, I, I, I, I, I, F, P,
+                            IP],
     # x, w, b, out, in_dtype, out_dtype, T, d, e, stream
     "rt_compress": [P, P, P, P, I, I, I, I, I, P],
     # r, w, b, gamma, beta, out, in_dtype, out_dtype, T, e, d, eps, stream
@@ -140,6 +152,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:       # set once, after the entries are typed
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -157,17 +171,37 @@ def check(name: str, code: int) -> None:
             f"CUDA kernel {name} failed to launch: cudaError {code}")
 
 
-def launch_routed(entry: str, *args) -> int:
-    """Call a routed attention entry and raise if it failed; returns the
-    kernel it ran (TENSOR_CORE or CUDA_CORE)."""
-    kernel = ctypes.c_int(-1)
-    check(entry, getattr(library(), entry)(*args, ctypes.byref(kernel)))
-    return kernel.value
+def launch_reporting(entry: str, *args) -> int:
+    """Call an attention entry and raise if it failed; returns what it
+    reported: the kernel it ran (TENSOR_CORE or CUDA_CORE) for a routed
+    entry, the kernels it launched (1, or WITH_MERGE) for an Sq = 1 one."""
+    report = ctypes.c_int(-1)
+    check(entry, getattr(library(), entry)(*args, ctypes.byref(report)))
+    return report.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (a property, read once)."""
+    import torch
+    index = device.index
+    return _sm_count(torch.cuda.current_device() if index is None
+                     else index)
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object at every launch."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def dtype_code(dtype, int8: bool = False) -> int:
@@ -195,11 +229,17 @@ def output_like(q, out):
     return out
 
 
+def ptr(t):
+    """``t.data_ptr()``, or None (a null pointer) for an absent operand."""
+    return None if t is None else t.data_ptr()
+
+
 def bhs_strides(t) -> list[int]:
     """(batch, head, seq) element strides of a [B, H, S, D] tensor whose
     last dim is contiguous."""
-    if t.stride(3) != 1:
+    s = t.stride()
+    if s[3] != 1:
         raise ValueError(
             f"kernel operand must be contiguous in its last dim, got "
-            f"strides {t.stride()}")
-    return [t.stride(0), t.stride(1), t.stride(2)]
+            f"strides {s}")
+    return [s[0], s[1], s[2]]

@@ -1,13 +1,17 @@
 """Public wrappers of the split-KV join-attention kernels
-(``csrc/join_attention.cu``, ``csrc/join_attention_paged.cu``): the tiled
-kernel over dense float or raw-int8 doc K/V, the key-parallel row kernel
+(``csrc/join_attention.cu``, ``csrc/join_attention_row.cu``,
+``csrc/join_attention_paged.cu``): the tiled kernel over dense float or
+raw-int8 doc K/V, the split-KV kernel of ``csrc/decode_attention.cuh``
 for the CLS-only final layer (Sq = 1, float K/V), and the tiled kernel
 over the doc cache's page pools.
 
 CPU tensors take the plain versions (``ref.py``); CUDA tensors launch a
 kernel or raise.  Launch counters: ``join_flash_attention.launches`` (the
-tiled kernel, float K/V), ``.row_launches`` (the row kernel),
-``.int8_launches`` (the tiled kernel, int8 K/V) and
+tiled kernel, float K/V), ``.row_launches`` (the CLS row),
+``.row_merge_launches`` (CLS-row calls whose keys were split across
+blocks, which also launch the merge kernel; ``.last_row_n_splits`` is
+the split count of the last), ``.int8_launches`` (the
+tiled kernel, int8 K/V) and
 ``join_flash_attention_paged.launches``; and on both wrappers one per
 kernel the C entry routed a tiled call to: ``.tensor_core_launches``
 (``join_tc_kernel``: bf16 / fp16 q, head dim 64 or 128, Sq > 1, doc K/V
@@ -21,6 +25,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import plan
 from repro_torch.kernels.join_attention.ref import (join_attention_ref,
                                                     join_attention_ref_paged,
                                                     join_attention_ref_quant,
@@ -41,8 +46,8 @@ def join_flash_attention(q, kq, vq, kd, vd, kq_valid=None, kd_valid=None,
     ``kd_scales`` / ``vd_scales`` (both or neither): [B, Ld] float32
     per-token scales of raw int8 ``kd`` / ``vd``, widened inside the
     kernel.  ``out``: optional [B, Hq, Sq, D] destination.  Sq = 1 with
-    float K/V goes to the row kernel, parallel over keys within each
-    (batch row, head) block.  Returns [B, Hq, Sq, D] in q's dtype."""
+    float K/V goes to the split-KV kernel, which reads the masks itself
+    and never reads a masked key.  Returns [B, Hq, Sq, D] in q's dtype."""
     quant = _check_scales(kd, kd_scales, vd_scales)
     if q.device.type == "cpu":
         if quant:
@@ -51,16 +56,15 @@ def join_flash_attention(q, kq, vq, kd, vd, kq_valid=None, kd_valid=None,
         else:
             res = join_attention_ref(q, kq, vq, kd, vd, kq_valid, kd_valid)
         return res if out is None else out.copy_(res)
-    row = q.shape[2] == 1 and not quant
-    out, kernel = _launch(
-        "rt_join_attention_row" if row else "rt_join_attention", q, kq, vq,
-        kd, vd, kq_valid, kd_valid, kd_scales, vd_scales, out)
-    if not row:
-        _count_route(join_flash_attention, kernel)
+    if q.shape[2] == 1 and not quant:
+        out = _launch_row(q, kq, vq, kd, vd, kq_valid, kd_valid, out)
+        join_flash_attention.row_launches += 1
+        return out
+    out, kernel = _launch(q, kq, vq, kd, vd, kq_valid, kd_valid, kd_scales,
+                          vd_scales, out)
+    _count_route(join_flash_attention, kernel)
     if quant:
         join_flash_attention.int8_launches += 1
-    elif row:
-        join_flash_attention.row_launches += 1
     else:
         join_flash_attention.launches += 1
     return out
@@ -68,6 +72,8 @@ def join_flash_attention(q, kq, vq, kd, vd, kq_valid=None, kd_valid=None,
 
 join_flash_attention.launches = 0
 join_flash_attention.row_launches = 0
+join_flash_attention.row_merge_launches = 0
+join_flash_attention.last_row_n_splits = None
 join_flash_attention.int8_launches = 0
 join_flash_attention.tensor_core_launches = 0
 join_flash_attention.cuda_core_launches = 0
@@ -132,7 +138,7 @@ def join_flash_attention_paged(q, kq, vq, kd_pages, vd_pages, page_table,
         .contiguous()
     kq_valid = _mask(kq_valid, b, lq, q.device)
     out = _build.output_like(q, out)
-    kernel = _build.launch_routed(
+    kernel = _build.launch_reporting(
         "rt_join_attention_paged", q.data_ptr(), kq.data_ptr(),
         vq.data_ptr(), kd_pages.data_ptr(), vd_pages.data_ptr(),
         out.data_ptr(), dlen.data_ptr(),
@@ -203,12 +209,9 @@ def _scale_pool(s, n_pool, page, dev):
     return s.contiguous()
 
 
-def _launch(entry, q, kq, vq, kd, vd, kq_valid, kd_valid, kd_scales,
-            vd_scales, out):
-    b, hq, sq, d = q.shape
-    hkv, lq, ld = kq.shape[1], kq.shape[2], kd.shape[2]
-    _check_common(q, kq, vq, (kd, vd))
-    quant = kd_scales is not None
+def _check_doc(q, kq, kd, vd, quant):
+    b, _, _, d = q.shape
+    hkv = kq.shape[1]
     if kd.dtype != (torch.int8 if quant else q.dtype) \
             or vd.dtype != kd.dtype:
         raise TypeError(f"doc K/V dtypes {kd.dtype}, {vd.dtype} do not go "
@@ -218,6 +221,42 @@ def _launch(entry, q, kq, vq, kd, vd, kq_valid, kd_valid, kd_scales,
         raise ValueError(
             f"join shapes do not match: q {tuple(q.shape)}, kq "
             f"{tuple(kq.shape)}, kd {tuple(kd.shape)}, vd {tuple(vd.shape)}")
+
+
+def _launch_row(q, kq, vq, kd, vd, kq_valid, kd_valid, out):
+    """The CLS row through the split-KV kernel: no valid-length pass on the
+    host side, absent masks passed as null pointers."""
+    b, hq, _, d = q.shape
+    hkv, lq, ld = kq.shape[1], kq.shape[2], kd.shape[2]
+    _check_common(q, kq, vq, (kd, vd))
+    _check_doc(q, kq, kd, vd, quant=False)
+    dev = q.device
+    masks = [None if m is None else _mask(m, b, n, dev)
+             for m, n in ((kq_valid, lq), (kd_valid, ld))]
+    n_splits, part = plan.split_plan(b, hq, hkv, d, lq + ld, dev)
+    out = _build.output_like(q, out)
+    qs, os_ = _build.bhs_strides(q), _build.bhs_strides(out)
+    launched = _build.launch_reporting(
+        "rt_join_attention_row", q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+        kd.data_ptr(), vd.data_ptr(), out.data_ptr(),
+        *(_build.ptr(m) for m in masks), _build.ptr(part),
+        _build.dtype_code(q.dtype), b, hq, hkv, lq, ld, d, qs[0], qs[1],
+        *_build.bhs_strides(kq), *_build.bhs_strides(vq),
+        *_build.bhs_strides(kd), *_build.bhs_strides(vd), os_[0], os_[1],
+        n_splits, *plan.LAYOUT, 1.0 / math.sqrt(d), _build.stream_ptr(dev))
+    join_flash_attention.row_merge_launches += int(
+        launched == _build.WITH_MERGE)
+    join_flash_attention.last_row_n_splits = n_splits
+    return out
+
+
+def _launch(q, kq, vq, kd, vd, kq_valid, kd_valid, kd_scales, vd_scales,
+            out):
+    b, hq, sq, d = q.shape
+    hkv, lq, ld = kq.shape[1], kq.shape[2], kd.shape[2]
+    _check_common(q, kq, vq, (kd, vd))
+    quant = kd_scales is not None
+    _check_doc(q, kq, kd, vd, quant)
     dev = q.device
     kq_valid = _mask(kq_valid, b, lq, dev)
     kd_valid = _mask(kd_valid, b, ld, dev)
@@ -232,18 +271,12 @@ def _launch(entry, q, kq, vq, kd, vd, kq_valid, kd_valid, kd_scales,
         scale_ptrs = [t.data_ptr() for t in scales]
     dlen = last_valid_lengths(kd_valid).contiguous()
     out = _build.output_like(q, out)
-    ptrs = [q.data_ptr(), kq.data_ptr(), vq.data_ptr(), kd.data_ptr(),
-            vd.data_ptr(), out.data_ptr(), dlen.data_ptr(),
-            kq_valid.data_ptr(), kd_valid.data_ptr()]
-    dims = [b, hq, hkv, sq, lq, ld, d, *_build.bhs_strides(q),
-            *_build.bhs_strides(kq), *_build.bhs_strides(vq),
-            *_build.bhs_strides(kd), *_build.bhs_strides(vd),
-            *_build.bhs_strides(out), 1.0 / math.sqrt(d),
-            _build.stream_ptr(dev)]
-    if entry == "rt_join_attention_row":
-        _build.check(entry, _build.library().rt_join_attention_row(
-            *ptrs, _build.dtype_code(q.dtype), *dims))
-        return out, _build.CUDA_CORE
-    return out, _build.launch_routed(
-        entry, *ptrs, *(scale_ptrs or [0, 0]), _build.dtype_code(q.dtype),
-        _build.dtype_code(kd.dtype, int8=True), *dims)
+    return out, _build.launch_reporting(
+        "rt_join_attention", q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+        kd.data_ptr(), vd.data_ptr(), out.data_ptr(), dlen.data_ptr(),
+        kq_valid.data_ptr(), kd_valid.data_ptr(), *(scale_ptrs or [0, 0]),
+        _build.dtype_code(q.dtype), _build.dtype_code(kd.dtype, int8=True),
+        b, hq, hkv, sq, lq, ld, d, *_build.bhs_strides(q),
+        *_build.bhs_strides(kq), *_build.bhs_strides(vq),
+        *_build.bhs_strides(kd), *_build.bhs_strides(vd),
+        *_build.bhs_strides(out), 1.0 / math.sqrt(d), _build.stream_ptr(dev))

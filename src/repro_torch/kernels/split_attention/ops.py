@@ -76,7 +76,7 @@ def split_flash_attention(q, k, v, lengths=None, k_valid=None, k_scales=None,
                              f"Skv={skv}]")
         scale_ptrs = [k_scales.data_ptr(), v_scales.data_ptr()]
     out = _build.output_like(q, out)
-    kernel = _build.launch_routed(
+    kernel = _build.launch_reporting(
         "rt_split_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lengths.data_ptr(), k_valid.data_ptr(), *scale_ptrs,
         _build.dtype_code(q.dtype), _build.dtype_code(k.dtype, int8=quant),

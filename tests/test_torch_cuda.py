@@ -197,10 +197,16 @@ JOIN_SHAPES = [
     (2, 8, 8, 1, 8, 100, 128),   # CLS row, D=128
     (2, 4, 4, 70, 40, 66, 128),  # D=128, two query-segment tiles
 ]
+# the split-KV kernel's CLS rows only (the int8 forms take D <= 128)
+JOIN_ROW_SHAPES = [
+    (2, 8, 1, 1, 5, 70, 16),     # GQA 8/1, D=16
+    (3, 4, 2, 1, 32, 200, 256),  # GQA 2, D=256
+    (2, 12, 1, 1, 8, 40, 64),    # 12 heads a KV head: two row groups
+]
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("b,hq,hkv,sq,lq,ld,d", JOIN_SHAPES)
+@pytest.mark.parametrize("b,hq,hkv,sq,lq,ld,d", JOIN_SHAPES + JOIN_ROW_SHAPES)
 def test_join_attention_kernel(dev, b, hq, hkv, sq, lq, ld, d, dtype):
     g = torch.Generator(device=dev).manual_seed(2)
     dt = DTYPES[dtype]
@@ -635,7 +641,7 @@ def _decode_world(g, dev, dt, b, hq, hkv, s, d):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("window", [-1, 32, 1024])
-@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_decode_attention_kernel(dev, d, group, window, dtype):
     """Every head dim, GQA group and window form against the plain
@@ -679,6 +685,149 @@ def test_decode_attention_gemma3_window(dev):
                            dtype=torch.int32)
     _close(flash_decode_attention(q, k, v, lengths, window=1024),
            decode_attention_ref(q, k, v, lengths, window=1024), "bfloat16")
+
+
+def _split_kv(monkeypatch, n_splits):
+    """Force the split-KV planner of both Sq = 1 wrappers to ``n_splits``
+    ("one": 1, "many": 7) instead of its choice for the card."""
+    from repro_torch.kernels.decode_attention import plan
+    n = {"one": 1, "many": 7}[n_splits]
+    monkeypatch.setattr(plan, "plan_splits", lambda *a, **k: n)
+    return n
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n_splits", ["one", "many"])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_decode_attention_split_kv_edges(dev, monkeypatch, d, group,
+                                         n_splits, dtype):
+    """The split-KV kernel's edges: lengths 0, 1 and a key tile (4096 / D
+    keys) +- 1, global and with a 40-key window, into a model-layout
+    (strided) output; one split, or seven with the merge (counted in
+    ``merge_launches`` / ``window_merge_launches``).  A row without keys
+    writes 0."""
+    n = _split_kv(monkeypatch, n_splits)
+    g = torch.Generator(device=dev).manual_seed(18)
+    dt, hkv, tile = DTYPES[dtype], 2, 4096 // d
+    b, hq, s = 4, 2 * group, tile + 40
+    q = _rand(g, dev, dt, b, hq, 1, d)
+    k, v = (_rand(g, dev, dt, b, hkv, s, d) for _ in range(2))
+    lengths = torch.tensor([0, 1, tile - 1, tile + 1], device=dev,
+                           dtype=torch.int32)
+    for window in (-1, 40):
+        out = torch.full((b, 1, hq, d), float("nan"), device=dev, dtype=dt)
+        counter = "window_merge_launches" if window > 0 \
+            else "merge_launches"
+        before = getattr(flash_decode_attention, counter)
+        flash_decode_attention(q, k, v, lengths, window=window,
+                               out=out.transpose(1, 2))
+        assert getattr(flash_decode_attention, counter) - before \
+            == int(n > 1)
+        got = out.transpose(1, 2)
+        _close(got[1:], decode_attention_ref(q, k, v, lengths,
+                                             window=window)[1:], dtype)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("n_splits", ["one", "many"])
+def test_sq1_kernels_repeat_bit_for_bit(dev, monkeypatch, n_splits):
+    """Two calls on the same inputs give the same bits: the splits merge in
+    a fixed order, with no atomics (the serving checks rely on it)."""
+    _split_kv(monkeypatch, n_splits)
+    g = torch.Generator(device=dev).manual_seed(19)
+    q = _rand(g, dev, torch.bfloat16, 4, 8, 1, 256)
+    k, v = (_rand(g, dev, torch.bfloat16, 4, 4, 2080, 256) for _ in range(2))
+    lengths = torch.tensor([2064, 1, 700, 2080], device=dev,
+                           dtype=torch.int32)
+    for window in (-1, 1024):
+        runs = [flash_decode_attention(q, k, v, lengths, window=window)
+                for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+    q = _rand(g, dev, torch.bfloat16, 32, 12, 1, 64)
+    kq, vq = (_rand(g, dev, torch.bfloat16, 32, 12, 32, 64) for _ in range(2))
+    kd, vd = (_rand(g, dev, torch.bfloat16, 32, 12, 480, 64)
+              for _ in range(2))
+    kdv = torch.rand((32, 480), generator=g, device=dev) < 0.7
+    runs = [join_flash_attention(q, kq, vq, kd, vd, None, kdv)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("n_splits", ["one", "many"])
+def test_sq1_kernels_take_rows_not_16_byte_aligned(dev, monkeypatch,
+                                                   n_splits):
+    """K/V views that start one element into their rows (2-byte aligned):
+    the split-KV kernel copies them with plain loads instead of cp.async,
+    for flash decode and the CLS row alike."""
+    _split_kv(monkeypatch, n_splits)
+    g = torch.Generator(device=dev).manual_seed(21)
+    dt = torch.bfloat16
+    q = _rand(g, dev, dt, 3, 4, 1, 64)
+    k, v = (_rand(g, dev, dt, 3, 2, 300, 65)[..., 1:] for _ in range(2))
+    lengths = torch.tensor([300, 77, 1], device=dev, dtype=torch.int32)
+    for window in (-1, 50):
+        _close(flash_decode_attention(q, k, v, lengths, window=window),
+               decode_attention_ref(q, k, v, lengths, window=window),
+               "bfloat16")
+    kq, vq = (_rand(g, dev, dt, 3, 2, 20, 65)[..., 1:] for _ in range(2))
+    kdv = torch.rand((3, 300), generator=g, device=dev) < 0.8
+    _close(join_flash_attention(q, kq, vq, k, v, None, kdv),
+           join_attention_ref(q, kq, vq, k, v, None, kdv), "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n_splits", ["one", "many"])
+@pytest.mark.parametrize("d", [16, 64, 256])
+def test_join_cls_row_split_kv_edges(dev, monkeypatch, d, n_splits, dtype):
+    """The join's CLS row through the split-KV kernel: one or seven splits
+    (``row_merge_launches`` counts the merges), a doc segment that is all
+    masked in one row and masked past its first tile in another, absent
+    query-segment masks, a strided output."""
+    n = _split_kv(monkeypatch, n_splits)
+    g = torch.Generator(device=dev).manual_seed(20)
+    dt = DTYPES[dtype]
+    b, hq, hkv, lq, ld = 3, 8, 2, 20, 300
+    q = _rand(g, dev, dt, b, hq, 1, d)
+    kq, vq = (_rand(g, dev, dt, b, hkv, lq, d) for _ in range(2))
+    kd, vd = (_rand(g, dev, dt, b, hkv, ld, d) for _ in range(2))
+    kdv = torch.rand((b, ld), generator=g, device=dev) < 0.8
+    kdv[0] = False
+    kdv[1, 4096 // d + 1:] = False
+    out = torch.full((b, 1, hq, d), float("nan"), device=dev, dtype=dt)
+    before = (join_flash_attention.row_launches,
+              join_flash_attention.row_merge_launches)
+    join_flash_attention(q, kq, vq, kd, vd, None, kdv,
+                         out=out.transpose(1, 2))
+    assert (join_flash_attention.row_launches - before[0],
+            join_flash_attention.row_merge_launches - before[1]) \
+        == (1, int(n > 1))
+    _close(out.transpose(1, 2),
+           join_attention_ref(q, kq, vq, kd, vd, None, kdv), dtype)
+
+
+@pytest.mark.parametrize("drift", [0, 1, 2])
+def test_sq1_kernels_refuse_a_planner_that_drifted(dev, monkeypatch, drift):
+    """The planner's copies of the kernel's split alignment, split limit and
+    block rows (``plan.LAYOUT``) go to the C entries with every call; one
+    that differs from the kernel's constant makes both entries refuse to
+    launch, and both wrappers still record each split count they launch
+    with (``last_n_splits``, ``last_row_n_splits``)."""
+    from repro_torch.kernels.decode_attention import plan
+    q = torch.zeros((2, 4, 1, 64), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros((2, 2, 300, 64), device=dev, dtype=torch.bfloat16)
+    n = _split_kv(monkeypatch, "many")
+    flash_decode_attention(q, k, k)
+    join_flash_attention(q, k, k, k, k)
+    assert (flash_decode_attention.last_n_splits,
+            join_flash_attention.last_row_n_splits) == (n, n)
+    layout = list(plan.LAYOUT)
+    layout[drift] *= 2
+    monkeypatch.setattr(plan, "LAYOUT", tuple(layout))
+    with pytest.raises(RuntimeError, match="rt_decode_attention"):
+        flash_decode_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="rt_join_attention_row"):
+        join_flash_attention(q, k, k, k, k)
 
 
 def test_decode_attention_rejects_what_it_does_not_take(dev):
