@@ -18,7 +18,9 @@ at gemma3-4b's, then the recsys models at their published configs:
    pools, the CLS row), flash decode (the CLS-only layer's shape, and
    gemma3's decode shape with and without its window), compress and
    decompress (fp16 and float32 storage; their library call is the same
-   function in float32 with TF32 off).  Flash decode and the CLS row run
+   function in float32 with TF32 off; every form must run the
+   tensor-core kernel, split TF32, and its bound counts its passes at
+   TF32's rate).  Flash decode and the CLS row run
    one split-KV kernel; their rows also give the ``n_splits`` their
    timed call launched with (as its wrapper recorded it), the merges it
    launched, their device times with the L2 flushed before each call
@@ -92,9 +94,10 @@ before each index build, each timed serving run, the soundness check,
 each LM run and each recsys run, and read just after.  A path that
 misses a kernel it must run (``PATH_KERNELS``: the tensor-core split and
 join kernels on the bf16 paths, the CUDA-core ones on the float32
-paths; the split-KV merge where the path's Sq = 1 calls split their
-keys: gemma3's decode and the 4-pair soundness check), or a plain run
-that launches any, fails the script.
+paths; the tensor-core compress and decompress kernels on every path
+that runs them; the split-KV merge where the path's Sq = 1 calls split
+their keys: gemma3's decode and the 4-pair soundness check), or a plain
+run that launches any, fails the script.
 The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
 the index builds, the bf16 kernel runs of each serving form, the LM's
 bf16 prefill and decode, and the recsys serve_bulk forwards, retrieval
@@ -133,6 +136,7 @@ CLS, SEP = 1, 2
 # published H100 SXM peaks (NVIDIA data sheet, dense), at 700 W
 PEAK_BF16_FLOPS = 989e12          # tensor cores, dense
 PEAK_F32_FLOPS = 67e12            # CUDA cores
+PEAK_TF32_FLOPS = 495e12          # tensor cores, dense
 PEAK_BYTES = 3.35e12              # HBM3
 TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # rank_forward against the split path, float32 over fp16 storage: both
@@ -171,14 +175,17 @@ REC_P99, REC_BULK, REC_CANDIDATES = 512, 262_144, 1_000_192
 OUR_KERNELS = ("split_attention_kernel", "split_attention_tc_kernel",
                "join_tiled_kernel", "join_tc_kernel", "sq1_attention_kernel",
                "sq1_merge_kernel", "compress_kernel", "decompress_kernel",
+               "compress_tc_kernel", "decompress_tc_kernel",
                "embedding_bag_kernel")
-# the counters of which attention kernel a call was routed to (the
-# tensor-core or the CUDA-core one); every launch also counts in its
-# form's counter, so a profile's launch total leaves these out
+# the counters of which attention or compressor kernel a call was routed
+# to (the tensor-core or the CUDA-core one); every launch also counts in
+# its form's counter, so a profile's launch total leaves these out
 ROUTE_COUNTERS = ("split_attention_tensor_core", "split_attention_cuda_core",
                   "join_attention_tensor_core", "join_attention_cuda_core",
                   "join_attention_paged_tensor_core",
-                  "join_attention_paged_cuda_core")
+                  "join_attention_paged_cuda_core",
+                  "compress_tensor_core", "compress_cuda_core",
+                  "decompress_tensor_core", "decompress_cuda_core")
 # the split-KV kernel's merge launches, one counter per Sq = 1 form: a
 # call whose keys were split launches the merge kernel after it
 MERGE_COUNTERS = ("decode_attention_merge", "decode_attention_window_merge",
@@ -708,8 +715,26 @@ def check_kernels(torch, cfg):
                split_kv=(flash_decode_attention, "last_n_splits"))
 
     # -- compress (index time) and decompress (every micro-batch); their
-    #    weights stay float32, so the products are float32 operations and
-    #    the same-function library call is a float32 addmm (TF32 off)
+    #    weights stay float32, so the same-function library call is a
+    #    float32 addmm (TF32 off).  The kernels run split TF32 on the tensor
+    #    cores: the bound counts 2 passes of 2 T d e (3 for a float32 input)
+    #    over TF32's peak; each line also gives the float32 CUDA-core bound
+    #    of earlier PRs, and each form must have run the tensor-core kernel
+    def gemm_bound(t, k, n, passes, n_bytes, ln=0):
+        """record's operation count, peak and its name, and the float32
+        CUDA-core bound, for a [t, k] x [k, n] product (+ ln operations
+        a row of the LayerNorm epilogue)."""
+        f32 = bound(2 * t * k * n + ln * t * n, n_bytes, PEAK_F32_FLOPS)[0]
+        return (passes * 2 * t * k * n + ln * t * n, n_bytes,
+                PEAK_TF32_FLOPS, f"tf32 tensor cores, {passes} passes"), \
+            {"f32_cuda_core_bound_ms": f32}
+
+    def on_tensor_cores(kind):
+        if rows[-1].get("kernels_run") != [f"{kind}_tensor_core"]:
+            raise AssertionError(f"{rows[-1]['name']} ran "
+                                 f"{rows[-1].get('kernels_run')}, not the "
+                                 f"tensor-core {kind} kernel")
+
     w_c = rand(d, e, dtype=torch.float32, scale=d ** -0.5)
     b_c = rand(e, dtype=torch.float32, scale=0.1)
     t_c = INDEX_BATCH * ld
@@ -719,14 +744,15 @@ def check_kernels(torch, cfg):
     out = fused_compress(x, w_c, b_c)
     err = compare("compress", out, compress_ref(x, w_c, b_c), "float16",
                   [t_c, d, e])
+    work, f32_bound = gemm_bound(t_c, d, e, 2, nbytes(x, w_c, b_c, out))
     record("compress", "src/repro_torch/csrc/fused_compress.cu",
            "src/repro/kernels/fused_compress/kernel.py:45", err,
            lambda: fused_compress(x, w_c, b_c),
            lambda: compress_ref(x, w_c, b_c),
            lambda: F.gelu(torch.addmm(b_c, x.float(), w_c),
                           approximate="tanh").to(torch.float16),
-           2 * t_c * d * e, nbytes(x, w_c, b_c, out), PEAK_F32_FLOPS,
-           "f32 CUDA cores")
+           *work, **f32_bound)
+    on_tensor_cores("compress")
 
     dargs = (rand(e, d, dtype=torch.float32, scale=e ** -0.5),
              rand(d, dtype=torch.float32, scale=0.1),
@@ -741,6 +767,7 @@ def check_kernels(torch, cfg):
     err = compare("decompress", out,
                   decompress_ref(r, *dargs, out_dtype=torch.bfloat16),
                   "bfloat16", [t_d, e, d])
+    work, f32_bound = gemm_bound(t_d, e, d, 2, nbytes(r, *dargs, out), ln=8)
     record("decompress", "src/repro_torch/csrc/fused_compress.cu",
            "src/repro/kernels/fused_compress/kernel.py:64", err,
            lambda: fused_decompress(r, *dargs),
@@ -748,8 +775,8 @@ def check_kernels(torch, cfg):
            lambda: F.layer_norm(torch.addmm(dargs[1], r.float(), dargs[0]),
                                 (d,), dargs[2], dargs[3], eps=1e-6)
            .to(torch.bfloat16),
-           2 * t_d * e * d + 8 * t_d * d, nbytes(r, *dargs, out),
-           PEAK_F32_FLOPS, "f32 CUDA cores")
+           *work, **f32_bound)
+    on_tensor_cores("decompress")
 
     # -- their float32 forms: an int8 index compresses to float32 before
     #    the codec quantises it, and its decoded reps are float32
@@ -757,14 +784,15 @@ def check_kernels(torch, cfg):
     err = compare("compress_f32", out,
                   compress_ref(x, w_c, b_c, out_dtype=torch.float32),
                   "float32", [t_c, d, e])
+    work, f32_bound = gemm_bound(t_c, d, e, 2, nbytes(x, w_c, b_c, out))
     record("compress_f32", "src/repro_torch/csrc/fused_compress.cu",
            "src/repro/kernels/fused_compress/kernel.py:45", err,
            lambda: fused_compress(x, w_c, b_c, out_dtype=torch.float32),
            lambda: compress_ref(x, w_c, b_c, out_dtype=torch.float32),
            lambda: F.gelu(torch.addmm(b_c, x.float(), w_c),
                           approximate="tanh"),
-           2 * t_c * d * e, nbytes(x, w_c, b_c, out), PEAK_F32_FLOPS,
-           "f32 CUDA cores")
+           *work, **f32_bound)
+    on_tensor_cores("compress")
     r32 = r.float()
     compare("decompress_f32", fused_decompress(r32, *dargs,
                                                out_dtype=torch.float32),
@@ -774,6 +802,8 @@ def check_kernels(torch, cfg):
     err = compare("decompress_f32", out,
                   decompress_ref(r32, *dargs, out_dtype=torch.bfloat16),
                   "bfloat16", [t_d, e, d])
+    work, f32_bound = gemm_bound(t_d, e, d, 3, nbytes(r32, *dargs, out),
+                                 ln=8)
     record("decompress_f32", "src/repro_torch/csrc/fused_compress.cu",
            "src/repro/kernels/fused_compress/kernel.py:64", err,
            lambda: fused_decompress(r32, *dargs),
@@ -781,8 +811,8 @@ def check_kernels(torch, cfg):
            lambda: F.layer_norm(torch.addmm(dargs[1], r32, dargs[0]), (d,),
                                 dargs[2], dargs[3], eps=1e-6)
            .to(torch.bfloat16),
-           2 * t_d * e * d + 8 * t_d * d, nbytes(r32, *dargs, out),
-           PEAK_F32_FLOPS, "f32 CUDA cores")
+           *work, **f32_bound)
+    on_tensor_cores("decompress")
     return rows
 
 
@@ -873,7 +903,13 @@ def launch_counters():
             "join_attention_paged_tensor_core": (join_flash_attention_paged,
                                                  "tensor_core_launches"),
             "join_attention_paged_cuda_core": (join_flash_attention_paged,
-                                               "cuda_core_launches")}
+                                               "cuda_core_launches"),
+            "compress_tensor_core": (fused_compress, "tensor_core_launches"),
+            "compress_cuda_core": (fused_compress, "cuda_core_launches"),
+            "decompress_tensor_core": (fused_decompress,
+                                       "tensor_core_launches"),
+            "decompress_cuda_core": (fused_decompress,
+                                     "cuda_core_launches")}
 
 
 def counted(fn):
@@ -888,20 +924,25 @@ def counted(fn):
 
 # the kernels each path must launch; a plain-impl run must launch none.
 # The bf16 paths route every split and join call to the tensor-core
-# kernels, the float32 ones to the CUDA-core kernels
+# kernels, the float32 ones to the CUDA-core kernels; every compress and
+# decompress call, in every type, to the tensor-core ones (a CUDA-core
+# launch on any path fails the script)
 _SPLIT_TC, _SPLIT_CC = ("split_attention_tensor_core",), \
     ("split_attention_cuda_core",)
 _JOIN_TC = ("split_attention_tensor_core", "join_attention_tensor_core")
 _JOIN_CC = ("split_attention_cuda_core", "join_attention_cuda_core")
+_COMPRESS_TC, _DECOMPRESS_TC = ("compress_tensor_core",), \
+    ("decompress_tensor_core",)
 _FP16_SERVE = ("split_attention", "join_attention", "join_attention_row",
-               "decompress")
+               "decompress", *_DECOMPRESS_TC)
 _INT8_SERVE = ("split_attention", "join_attention", "join_attention_int8",
-               "join_attention_row", "decompress_f32")
+               "join_attention_row", "decompress_f32", *_DECOMPRESS_TC)
 _CACHED_SERVE = ("split_attention", "join_attention", "join_attention_paged",
-                 "join_attention_row", "decompress_f32")
+                 "join_attention_row", "decompress_f32", *_DECOMPRESS_TC)
 # the concat join: split attention over [B, 512], no join kernel, and the
 # flash-decode CLS-only layer
-_LEGACY_SERVE = ("split_attention", "decompress", "decode_attention")
+_LEGACY_SERVE = ("split_attention", "decompress", "decode_attention",
+                 *_DECOMPRESS_TC)
 _LM_PREFILL = ("split_attention_causal", "split_attention_window")
 # gemma3's decode splits its 2064 (global) and 1024 (window) keys across
 # blocks and merges them; PreTTR's CLS rows at a micro-batch of 32 fill
@@ -909,7 +950,7 @@ _LM_PREFILL = ("split_attention_causal", "split_attention_window")
 _LM_DECODE = ("decode_attention", "decode_attention_window",
               "decode_attention_merge", "decode_attention_window_merge")
 PATH_KERNELS = {
-    "index": ("split_attention", "compress", *_SPLIT_TC),
+    "index": ("split_attention", "compress", *_SPLIT_TC, *_COMPRESS_TC),
     "serve": _FP16_SERVE + _JOIN_TC, "serve_f32": _FP16_SERVE + _JOIN_CC,
     "serve_sync": _FP16_SERVE + _JOIN_TC,
     "serve_legacy": _LEGACY_SERVE + _SPLIT_TC,
@@ -918,9 +959,9 @@ PATH_KERNELS = {
     "soundness": ("split_attention", "join_attention", "join_attention_row",
                   "join_attention_row_merge", "decode_attention",
                   "decode_attention_merge", "compress", "decompress",
-                  *_JOIN_CC),
+                  *_JOIN_CC, *_COMPRESS_TC, *_DECOMPRESS_TC),
     "index_int8": ("split_attention", "compress_f32", "decompress_f32",
-                   *_SPLIT_TC),
+                   *_SPLIT_TC, *_COMPRESS_TC, *_DECOMPRESS_TC),
     "serve_int8_kv": _INT8_SERVE + _JOIN_TC,
     "serve_int8_kv_f32": _INT8_SERVE + _JOIN_CC,
     "serve_int8_kv_zipf_f32": _INT8_SERVE + _JOIN_CC,

@@ -12,7 +12,7 @@ kernel launch.
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` (or ``cudaErrorInvalidValue`` for an
 argument it does not take); :func:`check` raises when it is not 0.  The
-attention entries report through a last ``int*`` argument
+attention and compressor entries report through a last ``int*`` argument
 (:func:`launch_reporting`): those that route between a tensor-core and a
 CUDA-core kernel the one they ran, the Sq = 1 entries how many kernels
 they launched (the split-KV kernel, and its merge when the keys were
@@ -74,10 +74,11 @@ SIGNATURES = {
     "rt_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL,
                             *_STRIDES * 2, LL, LL, I, I, I, I, I, F, P,
                             IP],
-    # x, w, b, out, in_dtype, out_dtype, T, d, e, stream
-    "rt_compress": [P, P, P, P, I, I, I, I, I, P],
-    # r, w, b, gamma, beta, out, in_dtype, out_dtype, T, e, d, eps, stream
-    "rt_decompress": [P, P, P, P, P, P, I, I, I, I, I, F, P],
+    # x, w, b, out, in_dtype, out_dtype, T, d, e, stream, kernel ran (out)
+    "rt_compress": [P, P, P, P, I, I, I, I, I, P, IP],
+    # r, w, b, gamma, beta, out, in_dtype, out_dtype, T, e, d, eps, stream,
+    # kernel ran (out)
+    "rt_decompress": [P, P, P, P, P, P, I, I, I, I, I, F, P, IP],
     # table, ids, weights (or None), out, table_dtype, out_dtype, ids_64,
     # rows, dim, n_bags, nnz, mean, stream
     "rt_embedding_bag": [P, P, P, P, I, I, I, LL, I, LL, I, I, P],
@@ -172,7 +173,7 @@ def check(name: str, code: int) -> None:
 
 
 def launch_reporting(entry: str, *args) -> int:
-    """Call an attention entry and raise if it failed; returns what it
+    """Call a reporting entry and raise if it failed; returns what it
     reported: the kernel it ran (TENSOR_CORE or CUDA_CORE) for a routed
     entry, the kernels it launched (1, or WITH_MERGE) for an Sq = 1 one."""
     report = ctypes.c_int(-1)

@@ -1,10 +1,14 @@
 """Public wrappers of the compressor kernels (``csrc/fused_compress.cu``).
 
-CPU tensors take the plain versions (``ref.py``); CUDA tensors launch the
+CPU tensors take the plain versions (``ref.py``); CUDA tensors launch a
 kernel or raise.  Launch counters: ``fused_compress.launches`` (float16
 output) and ``.f32_launches`` (float32 output, for a quantising index
 codec); ``fused_decompress.launches`` (float16 input) and
-``.f32_launches`` (float32 input, the decoded int8 payload)."""
+``.f32_launches`` (float32 input, the decoded int8 payload).  Each call
+also counts in one of two route counters, by the kernel the C entry ran:
+``.tensor_core_launches`` (``compress_tc_kernel`` /
+``decompress_tc_kernel``, split TF32 on the tensor cores) or
+``.cuda_core_launches`` (``compress_kernel`` / ``decompress_kernel``)."""
 from __future__ import annotations
 
 import torch
@@ -32,11 +36,12 @@ def fused_compress(x, w, b, *, out_dtype=torch.float16):
     xf = _rows(x, d)
     w, b = _f32(w, x.device), _f32(b, x.device)
     out = torch.empty((xf.shape[0], e), dtype=out_dtype, device=x.device)
-    code = _build.library().rt_compress(
-        xf.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        _build.dtype_code(xf.dtype), _build.dtype_code(out_dtype),
-        xf.shape[0], d, e, _build.stream_ptr(x.device))
-    _build.check("compress", code)
+    kernel = _build.launch_reporting(
+        "rt_compress", xf.data_ptr(), w.data_ptr(), b.data_ptr(),
+        out.data_ptr(), _build.dtype_code(xf.dtype),
+        _build.dtype_code(out_dtype), xf.shape[0], d, e,
+        _build.stream_ptr(x.device))
+    _count_route(fused_compress, kernel)
     if out_dtype == torch.float32:
         fused_compress.f32_launches += 1
     else:
@@ -65,12 +70,12 @@ def fused_decompress(r, w, b, gamma, beta, *, out_dtype=torch.bfloat16,
     w, b = _f32(w, r.device), _f32(b, r.device)
     gamma, beta = _f32(gamma, r.device), _f32(beta, r.device)
     out = torch.empty((rf.shape[0], d), dtype=out_dtype, device=r.device)
-    code = _build.library().rt_decompress(
-        rf.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), out.data_ptr(), _build.dtype_code(rf.dtype),
-        _build.dtype_code(out_dtype), rf.shape[0], e, d, float(eps),
-        _build.stream_ptr(r.device))
-    _build.check("decompress", code)
+    kernel = _build.launch_reporting(
+        "rt_decompress", rf.data_ptr(), w.data_ptr(), b.data_ptr(),
+        gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+        _build.dtype_code(rf.dtype), _build.dtype_code(out_dtype),
+        rf.shape[0], e, d, float(eps), _build.stream_ptr(r.device))
+    _count_route(fused_decompress, kernel)
     if rf.dtype == torch.float32:
         fused_decompress.f32_launches += 1
     else:
@@ -78,10 +83,18 @@ def fused_decompress(r, w, b, gamma, beta, *, out_dtype=torch.bfloat16,
     return out.reshape(*r.shape[:-1], d)
 
 
-fused_compress.launches = 0
-fused_compress.f32_launches = 0
-fused_decompress.launches = 0
-fused_decompress.f32_launches = 0
+for _fn in (fused_compress, fused_decompress):
+    _fn.launches = 0
+    _fn.f32_launches = 0
+    _fn.tensor_core_launches = 0
+    _fn.cuda_core_launches = 0
+
+
+def _count_route(fn, kernel):
+    if kernel == _build.TENSOR_CORE:
+        fn.tensor_core_launches += 1
+    else:
+        fn.cuda_core_launches += 1
 
 
 def _check_gemm(k_dim, n_cols):
@@ -104,6 +117,8 @@ def _rows(x, width):
 
 
 def _f32(t, device):
+    """``t`` as a contiguous float32 tensor: one that is already so is
+    returned as it is (``to`` and ``contiguous`` copy nothing then)."""
     if t.device != device:
         raise ValueError(f"weight on {t.device}, input on {device}")
     return t.to(torch.float32).contiguous()

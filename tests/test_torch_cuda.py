@@ -229,30 +229,64 @@ def test_join_attention_kernel(dev, b, hq, hkv, sq, lq, ld, d, dtype):
             join_flash_attention.row_launches - before[1]) == (1 - row, row)
 
 
+# The compressor kernels' tensor-core tiles: compress 128 rows a block,
+# decompress 32.  Row counts at the tile edges (1, tile - 1, tile + 1) and
+# the main path's (64 docs x 480 tokens at index time, 32 pairs x 480 a
+# micro-batch) at prettr_bert.full_config's d = 768, e = 256.
+COMPRESS_EDGES = [(1, 768, 256), (127, 768, 256), (129, 768, 256),
+                  (64 * 480, 768, 256)]
+DECOMPRESS_EDGES = [(1, 256, 768), (31, 256, 768), (33, 256, 768),
+                    (32 * 480, 256, 768)]
+
+
+def _route(fn, before, tensor_core):
+    """The call since ``before`` (``_routed``) went to the tensor-core
+    kernel (or, with ``tensor_core`` False, the CUDA-core one)."""
+    tc, cc = _routed(fn)
+    assert (tc - before[0], cc - before[1]) == ((1, 0) if tensor_core
+                                                else (0, 1))
+
+
+def _compress_on_tc(d, e):
+    """rt_compress's rule for these aligned operands: d % 32, e % 8."""
+    return d % 32 == 0 and e % 8 == 0
+
+
+def _decompress_on_tc(e, d):
+    """rt_decompress's rule: e % 32, d % 8, d <= 768."""
+    return e % 32 == 0 and d % 8 == 0 and d <= 768
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("rows,d,e", [(37, 64, 16), (2 * 480, 768, 256),
-                                      (33, 1024, 8), (5, 8, 1000)])
+                                      (33, 1024, 8), (5, 8, 1000),
+                                      *COMPRESS_EDGES])
 def test_compress_kernel(dev, rows, d, e, dtype):
     g = torch.Generator(device=dev).manual_seed(3)
     x = _rand(g, dev, DTYPES[dtype], rows, d)
     w = _rand(g, dev, torch.float32, d, e) / d ** 0.5
     b = _rand(g, dev, torch.float32, e)
+    before = _routed(fused_compress)
     got = fused_compress(x, w, b)
     assert got.dtype == torch.float16 and got.shape == (rows, e)
+    _route(fused_compress, before, _compress_on_tc(d, e))
     _close(got, compress_ref(x, w, b), "float16")
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("rows,e,d", [(37, 16, 64), (2 * 480, 256, 768),
-                                      (33, 8, 1024), (5, 1000, 8)])
+                                      (33, 8, 1024), (5, 1000, 8),
+                                      *DECOMPRESS_EDGES])
 def test_decompress_kernel(dev, rows, e, d, dtype):
     g = torch.Generator(device=dev).manual_seed(4)
     r = _rand(g, dev, torch.float16, rows, e)
     w = _rand(g, dev, torch.float32, e, d) / e ** 0.5
     b, gamma, beta = (_rand(g, dev, torch.float32, d) for _ in range(3))
     dt = DTYPES[dtype]
+    before = _routed(fused_decompress)
     got = fused_decompress(r, w, b, gamma, beta, out_dtype=dt)
     assert got.dtype == dt and got.shape == (rows, d)
+    _route(fused_decompress, before, _decompress_on_tc(e, d))
     _close(got, decompress_ref(r, w, b, gamma, beta, out_dtype=dt), dtype)
 
 
@@ -502,30 +536,53 @@ def test_attention_routes_to_the_cuda_core_kernels(dev):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_compress_kernel_f32_out(dev, dtype):
+@pytest.mark.parametrize("rows", [2 * 480, *(r for r, _, _ in COMPRESS_EDGES)])
+def test_compress_kernel_f32_out(dev, rows, dtype):
     g = torch.Generator(device=dev).manual_seed(8)
-    x = _rand(g, dev, DTYPES[dtype], 2 * 480, 768)
+    x = _rand(g, dev, DTYPES[dtype], rows, 768)
     w = _rand(g, dev, torch.float32, 768, 256) / 768 ** 0.5
     b = _rand(g, dev, torch.float32, 256)
-    before = fused_compress.f32_launches
+    before, routed = fused_compress.f32_launches, _routed(fused_compress)
     got = fused_compress(x, w, b, out_dtype=torch.float32)
     assert got.dtype == torch.float32 and fused_compress.f32_launches \
         == before + 1
+    _route(fused_compress, routed, True)
     _close(got, compress_ref(x, w, b, out_dtype=torch.float32), "float32")
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("rows,e,d", [(37, 16, 64), (2 * 480, 256, 768)])
+@pytest.mark.parametrize("rows,e,d", [(37, 16, 64), (2 * 480, 256, 768),
+                                      *DECOMPRESS_EDGES])
 def test_decompress_kernel_f32_in(dev, rows, e, d, dtype):
     g = torch.Generator(device=dev).manual_seed(9)
     r = _rand(g, dev, torch.float32, rows, e)
     w = _rand(g, dev, torch.float32, e, d) / e ** 0.5
     b, gamma, beta = (_rand(g, dev, torch.float32, d) for _ in range(3))
     dt = DTYPES[dtype]
-    before = fused_decompress.f32_launches
+    before, routed = fused_decompress.f32_launches, _routed(fused_decompress)
     got = fused_decompress(r, w, b, gamma, beta, out_dtype=dt)
     assert fused_decompress.f32_launches == before + 1
+    _route(fused_decompress, routed, _decompress_on_tc(e, d))
     _close(got, decompress_ref(r, w, b, gamma, beta, out_dtype=dt), dtype)
+
+
+@pytest.mark.parametrize("in_dtype", ["bfloat16", "float16", "float32"])
+def test_compressor_kernels_repeat_bit_for_bit(dev, in_dtype):
+    """Two calls on the same inputs give identical bits: each output is
+    summed by one thread in a fixed order, no atomics."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = _rand(g, dev, DTYPES[in_dtype], 64 * 480, 768)
+    wc = _rand(g, dev, torch.float32, 768, 256) / 768 ** 0.5
+    bc = _rand(g, dev, torch.float32, 256)
+    for out_dtype in (torch.float16, torch.float32):
+        assert torch.equal(fused_compress(x, wc, bc, out_dtype=out_dtype),
+                           fused_compress(x, wc, bc, out_dtype=out_dtype))
+    if in_dtype == "bfloat16":        # decompress reads fp16 or float32
+        return
+    r = _rand(g, dev, DTYPES[in_dtype], 32 * 480, 256)
+    dargs = (_rand(g, dev, torch.float32, 256, 768) / 16,
+             *(_rand(g, dev, torch.float32, 768) for _ in range(3)))
+    assert torch.equal(fused_decompress(r, *dargs), fused_decompress(r, *dargs))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

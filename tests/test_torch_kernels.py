@@ -151,6 +151,16 @@ def test_decompress_plain_vs_pallas(lead, e, d, dtype):
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
 
 
+def test_compressor_wrappers_pass_float32_weights_as_they_are():
+    """A contiguous float32 weight, bias, gamma or beta reaches the kernel
+    without a copy a call; any other is converted."""
+    from repro_torch.kernels.fused_compress.ops import _f32
+    w = torch.randn(8, 4)
+    assert _f32(w, w.device) is w
+    assert _f32(w.t(), w.device).is_contiguous()
+    assert _f32(w.half(), w.device).dtype == torch.float32
+
+
 def test_last_valid_lengths_matches_jax():
     rng = np.random.default_rng(4)
     valid = rng.random((6, 11)) < 0.4
