@@ -87,7 +87,11 @@ at gemma3-4b's, then the recsys models at their published configs:
    items and ``retrieval_scores`` for one user; xDeepFM at serve_p99 only
    (its line says why not serve_bulk); a profile of each serve_bulk
    forward; then the kernel's sum, mean and cast forms at their
-   main-path shapes beside the plain version and ``F.embedding_bag``.
+   main-path shapes beside the plain version and ``F.embedding_bag``,
+   each on a routed kernel (wide or narrow, not the generic one), with
+   ``l2_bound_ms`` (the bytes that must pass the L2 over its peak rate,
+   which ``tools/gather_rate.cu`` measured on an H100: ``L2_PEAK_RATE``)
+   beside the HBM ``bound_ms``.
 
 Kernel launches are counted per path: every counter is set to 0 just
 before each index build, each timed serving run, the soundness check,
@@ -96,8 +100,11 @@ misses a kernel it must run (``PATH_KERNELS``: the tensor-core split and
 join kernels on the bf16 paths, the CUDA-core ones on the float32
 paths; the tensor-core compress and decompress kernels on every path
 that runs them; the split-KV merge where the path's Sq = 1 calls split
-their keys: gemma3's decode and the 4-pair soundness check), or a plain
-run that launches any, fails the script.
+their keys: gemma3's decode and the 4-pair soundness check; the wide
+embedding-bag kernel on DLRM's paths, the narrow one on DeepFM's and
+xDeepFM's), a path that launches one it must not (the generic
+embedding-bag kernel on a recsys path among them), or a plain run that
+launches any, fails the script.
 The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
 the index builds, the bf16 kernel runs of each serving form, the LM's
 bf16 prefill and decode, and the recsys serve_bulk forwards, retrieval
@@ -176,16 +183,20 @@ OUR_KERNELS = ("split_attention_kernel", "split_attention_tc_kernel",
                "join_tiled_kernel", "join_tc_kernel", "sq1_attention_kernel",
                "sq1_merge_kernel", "compress_kernel", "decompress_kernel",
                "compress_tc_kernel", "decompress_tc_kernel",
-               "embedding_bag_kernel")
+               "embedding_bag_kernel", "embedding_bag_wide_kernel",
+               "embedding_bag_narrow_kernel")
 # the counters of which attention or compressor kernel a call was routed
-# to (the tensor-core or the CUDA-core one); every launch also counts in
-# its form's counter, so a profile's launch total leaves these out
+# to (the tensor-core or the CUDA-core one), and which embedding-bag
+# kernel (wide, narrow or generic); every launch also counts in its form's
+# counter, so a profile's launch total leaves these out
 ROUTE_COUNTERS = ("split_attention_tensor_core", "split_attention_cuda_core",
                   "join_attention_tensor_core", "join_attention_cuda_core",
                   "join_attention_paged_tensor_core",
                   "join_attention_paged_cuda_core",
                   "compress_tensor_core", "compress_cuda_core",
-                  "decompress_tensor_core", "decompress_cuda_core")
+                  "decompress_tensor_core", "decompress_cuda_core",
+                  "embedding_bag_wide", "embedding_bag_narrow",
+                  "embedding_bag_generic")
 # the split-KV kernel's merge launches, one counter per Sq = 1 form: a
 # call whose keys were split launches the merge kernel after it
 MERGE_COUNTERS = ("decode_attention_merge", "decode_attention_window_merge",
@@ -207,6 +218,13 @@ REC_REL = {"bits": 0.0, "bfloat16": 2.0 ** -7, "float32": 2.0 ** -16}
 SPIN_CYCLES = 4_000_000
 # bytes written between calls timed cold: more than the H100's 50 MB L2
 FLUSH_BYTES = 128 << 20
+# the L2's peak rate, bytes a second: the highest of
+# src/repro_torch/tools/gather_rate.cu's cases (stream_read, 7854.9 and
+# 7848.9 GB/s in two runs; random 64- and 256-byte gathers 4014-4023,
+# stream_write 4078-4092) on an NVIDIA H100 80GB HBM3 at a 700.00 W power
+# limit, 2026-10-17.  The embedding bag's l2_bound_ms divides the bytes
+# that must pass the L2 by it
+L2_PEAK_RATE = 7854.9e9
 
 
 def emit(obj):
@@ -296,9 +314,10 @@ def compare(name, got, want, dtype_name, shape, want_f32=None):
 def record_kernel(rows, name, source, replaces, err, kernel_fn, plain_fn,
                   library_fn, flops, n_bytes, peak, peak_name, row=True,
                   split_kv=None, **extra):
-    """Time a kernel beside its plain version and library call; with
-    ``row`` False (a second form of a kernel already in the line) only the
-    kernel_time line is printed.  ``extra`` goes on that line.  An
+    """Time a kernel beside its plain version and library call and return
+    its kernels-line row; with ``row`` False (a second form of a kernel
+    already in the line) only the kernel_time line is printed.  ``extra``
+    goes on that line.  An
     attention row names the kernel its call was routed to
     (``kernels_run``).  An Sq = 1 row (``split_kv``: the wrapper and the
     attribute where it records the split count it launched with) also
@@ -334,6 +353,7 @@ def record_kernel(rows, name, source, replaces, err, kernel_fn, plain_fn,
           "flops": flops, "bytes": n_bytes, **extra})
     if row:
         rows.append(out)
+    return out
 
 
 def _decode_f32(q, k, v, lengths, **kw):
@@ -892,6 +912,9 @@ def launch_counters():
             "embedding_bag": (embedding_bag_op, "launches"),
             "embedding_bag_mean": (embedding_bag_op, "mean_launches"),
             "embedding_bag_cast": (embedding_bag_op, "cast_launches"),
+            "embedding_bag_wide": (embedding_bag_op, "wide_launches"),
+            "embedding_bag_narrow": (embedding_bag_op, "narrow_launches"),
+            "embedding_bag_generic": (embedding_bag_op, "generic_launches"),
             "split_attention_tensor_core": (split_flash_attention,
                                             "tensor_core_launches"),
             "split_attention_cuda_core": (split_flash_attention,
@@ -980,17 +1003,23 @@ PATH_KERNELS = {
     "lm_soundness": _LM_PREFILL + _SPLIT_CC,
     "lm_plain_bf16": (), "lm_plain_f32": (),
     # recsys: DLRM's single-hot gather is the sum form over a bf16 table,
-    # its towers mean bags; DeepFM's gather rounds float32 rows to bf16
-    # (the cast form) and its first-order term, item vectors and retrieval
-    # are sum bags
-    "dlrm_serve_p99": ("embedding_bag",), "dlrm_serve_bulk": ("embedding_bag",),
-    "dlrm_retrieval": ("embedding_bag_mean",),
-    "dlrm_item_tower": ("embedding_bag_mean",),
-    "deepfm_serve_p99": ("embedding_bag", "embedding_bag_cast"),
-    "deepfm_serve_bulk": ("embedding_bag", "embedding_bag_cast"),
-    "deepfm_item_vectors": ("embedding_bag",),
-    "deepfm_retrieval": ("embedding_bag",),
-    "xdeepfm_serve_p99": ("embedding_bag", "embedding_bag_cast"),
+    # its towers mean bags, all on the wide kernel (256-byte rows); DeepFM's
+    # gather rounds float32 rows to bf16 (the cast form) and its
+    # first-order term, item vectors and retrieval are sum bags, all on the
+    # narrow kernel (40- and 4-byte rows).  The generic kernel on any of
+    # them fails the run
+    "dlrm_serve_p99": ("embedding_bag", "embedding_bag_wide"),
+    "dlrm_serve_bulk": ("embedding_bag", "embedding_bag_wide"),
+    "dlrm_retrieval": ("embedding_bag_mean", "embedding_bag_wide"),
+    "dlrm_item_tower": ("embedding_bag_mean", "embedding_bag_wide"),
+    "deepfm_serve_p99": ("embedding_bag", "embedding_bag_cast",
+                         "embedding_bag_narrow"),
+    "deepfm_serve_bulk": ("embedding_bag", "embedding_bag_cast",
+                          "embedding_bag_narrow"),
+    "deepfm_item_vectors": ("embedding_bag", "embedding_bag_narrow"),
+    "deepfm_retrieval": ("embedding_bag", "embedding_bag_narrow"),
+    "xdeepfm_serve_p99": ("embedding_bag", "embedding_bag_cast",
+                          "embedding_bag_narrow"),
     **{f"plain_{p}": () for p in (
         "dlrm_serve_p99", "dlrm_serve_bulk", "dlrm_retrieval",
         "dlrm_item_tower", "deepfm_serve_p99", "deepfm_serve_bulk",
@@ -1466,7 +1495,13 @@ def bag_row(torch, rows, name, table, ids, *, mode="sum", out_dtype=None,
     """The embedding-bag kernel at a main-path shape against its plain
     version, timed beside them and ``F.embedding_bag``.  Bound: bytes,
     each distinct table row read once (what these ids need), the ids and
-    the output once; 2 FLOPs an element of a slot."""
+    the output once; 2 FLOPs an element of a slot.  Beside it
+    ``l2_bound_ms``, the L2's floor: the same bytes, each distinct row as
+    the 32-byte sectors it touches, all of which pass the L2, over its peak
+    rate (``L2_PEAK_RATE``).  ``slot_sectors`` counts the sectors of every
+    slot's row, what a kernel taking the bags in order asks of the L1 and
+    L2.  The call must run a routed kernel (wide or narrow), not the
+    generic one."""
     import torch.nn.functional as F
     from repro_torch.kernels.embedding_bag import (embedding_bag_op,
                                                    embedding_bag_ref)
@@ -1486,18 +1521,38 @@ def bag_row(torch, rows, name, table, ids, *, mode="sum", out_dtype=None,
                              f"plain version ({kind}, atol {atol})")
     del want
     row_bytes = table.shape[1] * table.element_size()
-    distinct = torch.unique(ids).numel()
+    distinct_ids = torch.unique(ids)
+    distinct = distinct_ids.numel()
     n_bytes = distinct * row_bytes + nbytes(ids, got)
+
+    def sector_spans(i):
+        start = table.data_ptr() + i * row_bytes
+        return start // 32, (start + row_bytes - 1) // 32
+
+    first, last = sector_spans(ids)
+    slot_sectors = int((last - first + 1).sum())
+    first, last = sector_spans(distinct_ids)
+    span = torch.arange(int((last - first).max()) + 1, device=ids.device)
+    touched = first[:, None] + span
+    distinct_sectors = torch.unique(touched[touched <= last[:, None]]).numel()
+    l2_bytes = distinct_sectors * 32 + nbytes(ids, got)
     if library is None:
         library = lambda: F.embedding_bag(ids, table, mode=mode)
-    record_kernel(
+    line = record_kernel(
         rows, name, "src/repro_torch/csrc/embedding_bag.cu",
         "src/repro/kernels/embedding_bag/kernel.py:45", err,
         lambda: embedding_bag_op(table, ids, mode=mode, out_dtype=out_dtype),
         lambda: embedding_bag_ref(table, ids, mode=mode, out_dtype=out_dtype),
         library, 2 * ids.numel() * table.shape[1], n_bytes, PEAK_F32_FLOPS,
         "f32 CUDA cores", row=row, distinct_rows=distinct,
-        slot_row_bytes=ids.numel() * row_bytes, **extra)
+        slot_row_bytes=ids.numel() * row_bytes, slot_sectors=slot_sectors,
+        distinct_sectors=distinct_sectors, l2_bytes=l2_bytes,
+        l2_bound_ms=l2_bytes / L2_PEAK_RATE * 1e3, l2_peak_rate=L2_PEAK_RATE,
+        **extra)
+    routed = line.get("kernels_run")
+    if routed not in (["embedding_bag_wide"], ["embedding_bag_narrow"]):
+        raise AssertionError(f"{name} {shape}: ran {routed}, not a routed "
+                             f"embedding-bag kernel")
 
 
 def click_ids(torch, rng, batch, vocab_sizes, n_dense=0):

@@ -12,11 +12,12 @@ kernel launch.
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` (or ``cudaErrorInvalidValue`` for an
 argument it does not take); :func:`check` raises when it is not 0.  The
-attention and compressor entries report through a last ``int*`` argument
-(:func:`launch_reporting`): those that route between a tensor-core and a
-CUDA-core kernel the one they ran, the Sq = 1 entries how many kernels
-they launched (the split-KV kernel, and its merge when the keys were
-split).
+attention, compressor and embedding-bag entries report through a last
+``int*`` argument (:func:`launch_reporting`): those that route between
+kernels the one they ran (a tensor-core or a CUDA-core kernel; the
+embedding bag's wide, narrow or generic kernel), the Sq = 1 entries how
+many kernels they launched (the split-KV kernel, and its merge when the
+keys were split).
 """
 from __future__ import annotations
 
@@ -80,8 +81,8 @@ SIGNATURES = {
     # kernel ran (out)
     "rt_decompress": [P, P, P, P, P, P, I, I, I, I, I, F, P, IP],
     # table, ids, weights (or None), out, table_dtype, out_dtype, ids_64,
-    # rows, dim, n_bags, nnz, mean, stream
-    "rt_embedding_bag": [P, P, P, P, I, I, I, LL, I, LL, I, I, P],
+    # rows, dim, n_bags, nnz, mean, stream, kernel ran (out)
+    "rt_embedding_bag": [P, P, P, P, I, I, I, LL, I, LL, I, I, P, IP],
 }
 
 _lock = threading.Lock()
@@ -174,8 +175,10 @@ def check(name: str, code: int) -> None:
 
 def launch_reporting(entry: str, *args) -> int:
     """Call a reporting entry and raise if it failed; returns what it
-    reported: the kernel it ran (TENSOR_CORE or CUDA_CORE) for a routed
-    entry, the kernels it launched (1, or WITH_MERGE) for an Sq = 1 one."""
+    reported: the kernel it ran for a routed entry (TENSOR_CORE or
+    CUDA_CORE; the embedding bag's codes are in
+    ``kernels/embedding_bag/ops.py``), the kernels it launched (1, or
+    WITH_MERGE) for an Sq = 1 one."""
     report = ctypes.c_int(-1)
     check(entry, getattr(library(), entry)(*args, ctypes.byref(report)))
     return report.value

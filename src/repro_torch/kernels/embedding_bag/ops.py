@@ -5,7 +5,13 @@ kernel or raise.  Launch counters, one per form, each launch counted
 once: ``embedding_bag_op.launches`` (sum, output in the table's type),
 ``.mean_launches`` (mean, output in the table's type) and
 ``.cast_launches`` (bf16 output from a float32 table, either mode: the
-models' ``table.astype(bf16)`` fused into the gather)."""
+models' ``table.astype(bf16)`` fused into the gather).  Each launch also
+counts in one of three route counters, by the kernel the C entry reports
+it ran: ``.wide_launches`` (``embedding_bag_wide_kernel``: rows of a
+multiple of 16 bytes from a 16-byte aligned table), ``.narrow_launches``
+(``embedding_bag_narrow_kernel``: rows of at most 64 bytes, a warp's
+bags as one span of 8- or 4-byte words) and ``.generic_launches``
+(``embedding_bag_kernel``: everything else)."""
 from __future__ import annotations
 
 import torch
@@ -15,6 +21,8 @@ from repro_torch.kernels.embedding_bag.ref import MODES, embedding_bag_ref
 
 TABLE_DTYPES = (torch.float32, torch.bfloat16)
 MAX_DIM = 256
+#: what ``rt_embedding_bag`` reports it ran (``kRan*`` in the source)
+GENERIC, WIDE, NARROW = 0, 1, 2
 
 
 def embedding_bag_op(table, ids, weights=None, *, mode: str = "sum",
@@ -39,14 +47,15 @@ def embedding_bag_op(table, ids, weights=None, *, mode: str = "sum",
     ids = ids.contiguous()
     if weights is not None:
         weights = weights.to(torch.float32).contiguous()
-    code = _build.library().rt_embedding_bag(
-        table.data_ptr(), ids.data_ptr(),
+    kernel = _build.launch_reporting(
+        "rt_embedding_bag", table.data_ptr(), ids.data_ptr(),
         None if weights is None else weights.data_ptr(), out.data_ptr(),
         _build.dtype_code(table.dtype), _build.dtype_code(out_dtype),
         int(ids.dtype == torch.int64), rows, dim, n_bags, nnz,
         int(mode == "mean"), _build.stream_ptr(table.device))
-    _build.check("embedding_bag", code)
     fn = embedding_bag_op
+    setattr(fn, _ROUTE_COUNTERS[kernel],
+            getattr(fn, _ROUTE_COUNTERS[kernel]) + 1)
     if out_dtype != table.dtype:
         fn.cast_launches += 1
     elif mode == "mean":
@@ -56,9 +65,14 @@ def embedding_bag_op(table, ids, weights=None, *, mode: str = "sum",
     return out
 
 
+_ROUTE_COUNTERS = {WIDE: "wide_launches", NARROW: "narrow_launches",
+                   GENERIC: "generic_launches"}
 embedding_bag_op.launches = 0
 embedding_bag_op.mean_launches = 0
 embedding_bag_op.cast_launches = 0
+embedding_bag_op.wide_launches = 0
+embedding_bag_op.narrow_launches = 0
+embedding_bag_op.generic_launches = 0
 
 
 def _check(table, ids, weights, mode, out_dtype):

@@ -15,6 +15,8 @@ machine that has only PyTorch::
 Tolerances: rtol = atol = 2e-5 in float32 and 2e-2 in bfloat16/float16
 (tests/test_kernels.py), the kernel and its plain version summing in
 different orders."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,8 @@ from repro_torch.kernels.join_attention import (join_attention_ref,
 from repro_torch.kernels.masking import last_valid_lengths
 from repro_torch.kernels.split_attention import (split_attention_ref,
                                                  split_flash_attention)
+
+import _embedding_bag_map as bag_map
 
 pytestmark = pytest.mark.cuda
 
@@ -1080,26 +1084,114 @@ def _bag_case(dev, rows, dim, n_bags, nnz, table_dtype, seed):
     return table, ids, w
 
 
+@contextlib.contextmanager
+def _bag_route(route):
+    """Assert that the launch inside ran ``route``'s kernel ("wide",
+    "narrow" or "generic"): the C entry's report, as the wrapper counted
+    it."""
+    names = ("wide", "narrow", "generic")
+    before = [getattr(embedding_bag_op, f"{n}_launches") for n in names]
+    yield
+    ran = [n for n, b in zip(names, before)
+           if getattr(embedding_bag_op, f"{n}_launches") != b]
+    assert ran == [route]
+
+
+def _bag_count(dev, n_bags, p):
+    """The test's n_bags: 77, one bag, one less than a warp's tile (the
+    generic kernel's block of 8 bags), or enough tiles that every warp of
+    the largest grid the card can hold resident (8 blocks of 8 warps an
+    SM) takes more than one (77 for the generic kernel, which has no
+    loop)."""
+    tb = p.tb or 8
+    if n_bags == "one":
+        return 1
+    if n_bags == "tile-1":
+        return max(1, tb - 1)
+    if n_bags == "wrap" and p.tb:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return sms * 8 * 8 * tb + tb // 2 + 1
+    return 77
+
+
+@pytest.mark.parametrize("n_bags", [77, "one", "tile-1", "wrap"])
 @pytest.mark.parametrize("form", list(BAG_FORMS))
 @pytest.mark.parametrize("mode", ["sum", "mean"])
 @pytest.mark.parametrize("nnz", [1, 13, 39])
-@pytest.mark.parametrize("dim", [1, 10, 16, 128])
-def test_embedding_bag_kernel(dev, dim, nnz, mode, form):
+@pytest.mark.parametrize("dim", [1, 10, 16, 64, 96, 128, 200, 256])
+def test_embedding_bag_kernel(dev, dim, nnz, mode, form, n_bags):
     """Weighted sum / mean bags with weight-0 pads, int64 ids, against the
     plain version: float32 and bf16 tables in their own type and bf16 rows
-    from a float32 table."""
+    from a float32 table; 77 bags, one, one less than a warp's tile, and
+    enough for the persistent loop to wrap.  Each call runs the kernel
+    ``_embedding_bag_map.ROUTES`` writes out for an aligned table."""
     table_dtype, out_dtype, counter = BAG_FORMS[form]
-    table, ids, w = _bag_case(dev, 1000, dim, 77, nnz, table_dtype,
+    type_name = str(table_dtype).removeprefix("torch.")
+    b = _bag_count(dev, n_bags, bag_map.plan(dim, nnz,
+                                             table_dtype.itemsize))
+    table, ids, w = _bag_case(dev, 1000, dim, b, nnz, table_dtype,
                               dim * 100 + nnz)
+    route = bag_map.route(type_name, table.data_ptr(), dim)
     if mode == "mean" and counter == "launches":
         counter = "mean_launches"
     before = getattr(embedding_bag_op, counter)
-    got = embedding_bag_op(table, ids, w, mode=mode, out_dtype=out_dtype)
+    with _bag_route(route):
+        got = embedding_bag_op(table, ids, w, mode=mode, out_dtype=out_dtype)
     assert getattr(embedding_bag_op, counter) == before + 1
-    assert got.dtype == out_dtype and got.shape == (77, dim)
+    assert got.dtype == out_dtype and got.shape == (b, dim)
     _close(got, embedding_bag_ref(table, ids, w, mode=mode,
                                   out_dtype=out_dtype),
            "float32" if out_dtype == torch.float32 else "bfloat16")
+
+
+@pytest.mark.parametrize("form", list(BAG_FORMS))
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("nnz", [1, 13])
+@pytest.mark.parametrize("dim", [10, 128])
+def test_embedding_bag_misaligned_table_takes_the_generic_kernel(
+        dev, dim, nnz, mode, form):
+    """A contiguous table view one element into its storage (the rows of
+    ``flat[1:]``: 4 or 2 bytes past an aligned address) is not aligned as
+    the routed kernels' loads need at these widths (16 bytes, or 8 for a
+    40-byte row, 4 for a 20-byte one): the entry runs the generic kernel,
+    still right."""
+    table_dtype, out_dtype, _ = BAG_FORMS[form]
+    g = torch.Generator(device=dev).manual_seed(dim + nnz)
+    flat = _rand(g, dev, table_dtype, 500 * dim + 1)
+    table = flat[1:].view(500, dim)
+    assert table.is_contiguous() and table.data_ptr() % 8
+    ids = torch.randint(0, 500, (300, nnz), generator=g, device=dev)
+    w = torch.rand((300, nnz), generator=g, device=dev)
+    with _bag_route("generic"):
+        got = embedding_bag_op(table, ids, w, mode=mode, out_dtype=out_dtype)
+    _close(got, embedding_bag_ref(table, ids, w, mode=mode,
+                                  out_dtype=out_dtype),
+           "float32" if out_dtype == torch.float32 else "bfloat16")
+
+
+@pytest.mark.parametrize("case", ["dlrm_sum", "dlrm_mean", "deepfm_sum",
+                                  "deepfm_w1", "deepfm_cast"])
+def test_embedding_bag_kernels_repeat_bit_for_bit(dev, case):
+    """Two calls on the same inputs give identical bits, at the main
+    paths' widths and bag sizes: each output column is one lane's fmaf
+    chain over its bag's slots in slot order, no atomics, whatever the
+    grid."""
+    table_dtype, dim, nnz, mode, out_dtype, route = {
+        "dlrm_sum": (torch.bfloat16, 128, 1, "sum", None, "wide"),
+        "dlrm_mean": (torch.bfloat16, 128, 13, "mean", None, "wide"),
+        "deepfm_sum": (torch.float32, 10, 19, "sum", None, "narrow"),
+        "deepfm_w1": (torch.float32, 1, 39, "sum", None, "narrow"),
+        "deepfm_cast": (torch.float32, 10, 1, "sum", torch.bfloat16,
+                        "narrow")}[case]
+    table, ids, w = _bag_case(dev, 100_000, dim, 50_000, nnz, table_dtype,
+                              nnz)
+    for weights in (None, w):
+        first = embedding_bag_op(table, ids, weights, mode=mode,
+                                 out_dtype=out_dtype)
+        with _bag_route(route):
+            again = embedding_bag_op(table, ids, weights, mode=mode,
+                                     out_dtype=out_dtype)
+        assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])
