@@ -34,8 +34,8 @@ at gemma3-4b's, then the recsys models at their published configs:
    version's bf16 output from its float32 output on the same inputs;
 3. index   -- ``IndexBuilder`` writes a 512-document fp16 index, reopened
    with ``TermRepIndex`` (verified on open, the default; the line gives
-   ``open_s`` and the chunks checked, 0 for the port's builder, which
-   writes no checksums yet);
+   ``open_s`` and the chunks checked, which must be above 0: every build
+   carries CRC-32C chunk checksums);
 4. serve   -- ``RankingService`` (prefetch thread on, its default)
    answers 8 requests x 64 candidates in micro-batches of 32, through the
    kernels and through the plain impl, in bf16 and in float32; the same
@@ -56,6 +56,27 @@ at gemma3-4b's, then the recsys models at their published configs:
    cache at 64-token pages, kernels and plain, bf16 and float32; warm
    scores must equal cold ones bit for bit, and float32 scores must agree
    with the uncached service on the same stream within 1e-4;
+4c. pq and pruning -- ``index_pq``: the same documents as PQ codes
+   (``codec="pq"``: 64 uint8 codes a token, 0.25 byte a dim; the line
+   gives the host k-means ``fit_s`` and ``bytes_per_token``);
+   ``serve_pq``: the 8 requests, kernels and plain, bf16 and float32 (the
+   codebook gather on the card feeds the float32-input decompress
+   kernel), then ``pq_h2d``: the fp16, int8 + K/V and PQ drains'
+   ``h2d_bytes``; ``serve_pq_cached``: the zipf stream twice through a
+   doc cache of about 200 documents' pages (warm = cold bit for bit,
+   float32 within 1e-4 of the uncached PQ service); ``index_pruned``:
+   fp16 reps pruned to half their tokens by layer-l salience
+   (``keep_frac=0.5``; ``pruned_tokens`` gives the kept tokens against
+   the unpruned build's and the pruned ``max_doc_len``, 240) and
+   ``serve_pruned`` at that shape;
+4d. cascade -- ``run_cascade`` over a seeded ``SyntheticIRWorld`` at the
+   config's vocabulary (2048 docs of 479 tokens, 64 queries, 64
+   candidates, metrics at depth 10) for fp16, int8, PQ and pruned
+   indexes: each index's first-stage and re-rank metrics and storage
+   bytes; over the PQ index also through the kernels in float32 and the
+   plain backend in bf16 and float32 (``cascade_agreement``: float32
+   within 1e-3, bf16 within twice the plain backend's own bf16
+   rounding);
 5. soundness -- ``rank_forward == join_and_score(encode_query,
    precompute_docs)`` on 4 pairs, float32 over fp16 storage
    (``rank_forward`` ends in the flash-decode CLS layer, the split path in
@@ -112,8 +133,9 @@ runs and towers),
 ``launches_by_path`` gives each path's own.
 
 Every phase that fails raises and the script exits non-zero.  It prints
-one JSON object per line; the second to last is the ``kernels`` line, the
-last ``{"ok": true, "device": ...}``.  Run from the repository root::
+one JSON object per line; each but the last two carries ``card``, the
+card's name and power limit as ``nvidia-smi`` gives them; the second to
+last is the ``kernels`` line, the last ``{"ok": true, "device": ...}``.  Run from the repository root::
 
     python3 chip_smoke.py
 """
@@ -138,6 +160,23 @@ N_CACHED_REQUESTS, ZIPF_S, CACHE_MB, PAGE_TOKENS = 16, 1.1, 160, 64
 # stored int8 K/V in both runs, so the cached scores differ from the
 # uncached ones by summation order only
 CACHED_TOL = 1e-4
+# the PQ index's doc cache holds about as many documents as the int8 one
+# (its pages are 28x smaller), so the zipf stream still evicts
+PQ_CACHED_DOCS = 200
+# index-time pruning of the pruned index and the cascade's pruned one
+KEEP_FRAC = 0.5
+# the quality cascade: SyntheticIRWorld at the config's vocabulary, 2048
+# docs of 479 tokens (480 with [SEP], the config's max_doc_len), 64
+# queries, 64 candidates a query, metrics at depth 10; one index each of
+# fp16, int8, pq and fp16 pruned to half its tokens
+CASCADE_DOCS, CASCADE_QUERIES, CASCADE_K, CASCADE_K_METRIC = 2048, 64, 64, 10
+CASCADE_INDEXES = {"fp16": {"codec": "fp16"}, "int8": {"codec": "int8"},
+                   "pq": {"codec": "pq"},
+                   "pruned": {"codec": "fp16", "keep_frac": KEEP_FRAC}}
+# the cascade over the PQ index through the kernels against the plain
+# backend: float32 within the served-score limit, bf16 within twice the
+# plain backend's own bf16 rounding (plain bf16 against plain float32)
+CASCADE_F32_TOL = 1e-3
 N_SOUNDNESS = 4
 CLS, SEP = 1, 2
 # published H100 SXM peaks (NVIDIA data sheet, dense), at 700 W
@@ -227,7 +266,15 @@ FLUSH_BYTES = 128 << 20
 L2_PEAK_RATE = 7854.9e9
 
 
+# the card's name and power limit as nvidia-smi gives them; every line but
+# the kernels line and the last carries it
+CARD = None
+
+
 def emit(obj):
+    if CARD is not None and "kernels" not in obj \
+            and set(obj) != {"ok", "device"}:
+        obj = {**obj, "card": CARD}
     print(json.dumps(obj), flush=True)
 
 
@@ -972,8 +1019,36 @@ _LM_PREFILL = ("split_attention_causal", "split_attention_window")
 # the card with one split, at rank_forward's 4 pairs they split
 _LM_DECODE = ("decode_attention", "decode_attention_window",
               "decode_attention_merge", "decode_attention_window_merge")
+# PQ reps decode by a codebook gather (plain torch) to float32, which the
+# float32-input decompress kernel widens; a PQ index stores no layer-l
+# K/V, so its cached drain assembles dense reps from the pools and joins
+# them with the dense join kernel (the paged one walks stored K/V only)
+_PQ_SERVE = ("split_attention", "join_attention", "join_attention_row",
+             "decompress_f32", *_DECOMPRESS_TC)
+# the cascade's first stage decodes every doc (fp16 and pruned indexes
+# through the fp16-input decompress, int8 and pq through the float32
+# one), its re-rank serves as the drains do
+_CASCADE = ("split_attention", "join_attention", "join_attention_row",
+            "decompress", "decompress_f32", *_DECOMPRESS_TC)
+_INDEX_F16 = ("split_attention", "compress", *_SPLIT_TC, *_COMPRESS_TC)
+_INDEX_F32 = ("split_attention", "compress_f32", *_SPLIT_TC, *_COMPRESS_TC)
+# a pruned build scores salience on the decompressed fp16 store
+_INDEX_PRUNED = _INDEX_F16 + ("decompress", *_DECOMPRESS_TC)
 PATH_KERNELS = {
-    "index": ("split_attention", "compress", *_SPLIT_TC, *_COMPRESS_TC),
+    "index": _INDEX_F16, "index_pq": _INDEX_F32, "index_pruned": _INDEX_PRUNED,
+    "serve_pq": _PQ_SERVE + _JOIN_TC, "serve_pq_f32": _PQ_SERVE + _JOIN_CC,
+    "serve_pq_zipf_f32": _PQ_SERVE + _JOIN_CC,
+    "serve_pq_cached": _PQ_SERVE + _JOIN_TC,
+    "serve_pq_cached_f32": _PQ_SERVE + _JOIN_CC,
+    "serve_pruned": _FP16_SERVE + _JOIN_TC,
+    "serve_pruned_f32": _FP16_SERVE + _JOIN_CC,
+    "cascade_index_fp16": _INDEX_F16, "cascade_index_int8": _INDEX_F32,
+    "cascade_index_pq": _INDEX_F32, "cascade_index_pruned": _INDEX_PRUNED,
+    "cascade": _CASCADE + _JOIN_TC,
+    "cascade_pq_f32": _PQ_SERVE + _JOIN_CC,
+    **{f"plain_{p}": () for p in (
+        "pq_bf16", "pq_f32", "pq_cached_bf16", "pq_cached_f32",
+        "pruned_bf16", "pruned_f32", "cascade_pq_bf16", "cascade_pq_f32")},
     "serve": _FP16_SERVE + _JOIN_TC, "serve_f32": _FP16_SERVE + _JOIN_CC,
     "serve_sync": _FP16_SERVE + _JOIN_TC,
     "serve_legacy": _LEGACY_SERVE + _SPLIT_TC,
@@ -1026,10 +1101,14 @@ PATH_KERNELS = {
         "deepfm_item_vectors", "deepfm_retrieval", "xdeepfm_serve_p99")},
 }
 # the paths whose launches make the kernels line's `launches`: the index
-# builds, the bf16 drains of each serving form, the LM's bf16 prefill and
-# decode, and the recsys serve_bulk forwards, retrieval and towers
+# builds, the bf16 drains of each serving form, the cascade's bf16 run,
+# the LM's bf16 prefill and decode, and the recsys serve_bulk forwards,
+# retrieval and towers
 MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
-              "serve_int8_kv", "serve_cached", "lm_prefill", "lm_decode",
+              "serve_int8_kv", "serve_cached", "index_pq", "serve_pq",
+              "serve_pq_cached", "index_pruned", "serve_pruned",
+              "cascade_index_fp16", "cascade_index_int8", "cascade_index_pq",
+              "cascade_index_pruned", "cascade", "lm_prefill", "lm_decode",
               "dlrm_serve_bulk", "dlrm_retrieval", "dlrm_item_tower",
               "deepfm_serve_bulk", "deepfm_item_vectors", "deepfm_retrieval",
               "xdeepfm_serve_p99")
@@ -1180,6 +1259,104 @@ def serve_faults(torch, params, cfg, index, requests, name, clean):
             and svc.stats.n_degraded == len(degraded) and not wrong
             and shed_error and shed.stats.n_shed == 1 and n_served == 2):
         raise AssertionError(f"serve_faults: {line}")
+
+
+def _stage_diff(a, b, stage):
+    """Two cascades' ``stage`` outputs: the largest score difference
+    (first stage: rank by rank, since both hold the top-k of two nearby
+    score vectors; re-rank: over the (query, doc) pairs both hold) and
+    the share of candidates both hold."""
+    (ids_a, sc_a), (ids_b, sc_b) = a.stages[stage], b.stages[stage]
+    common = sum(len(set(x) & set(y)) for x, y in zip(ids_a, ids_b))
+    if stage == "first_stage":
+        diff = float(abs(sc_a - sc_b).max())
+    else:
+        diff = 0.0
+        for xa, sa, xb, sb in zip(ids_a, sc_a, ids_b, sc_b):
+            other = dict(zip(xb.tolist(), sb.tolist()))
+            diff = max([diff] + [abs(s - other[d])
+                                 for d, s in zip(xa.tolist(), sa.tolist())
+                                 if d in other])
+    return diff, common / ids_a.size
+
+
+def cascade_phases(torch, name, params, cfg, cfg32, plain, launches, build):
+    """The quality cascade (``run_cascade``) at full width over a
+    SyntheticIRWorld of CASCADE_DOCS docs: one index each of
+    CASCADE_INDEXES, each searched by the first stage and re-ranked
+    through the kernels in bf16 (the ``cascade`` path), with its metrics
+    and storage; then over the PQ index through the kernels in float32
+    and through the plain backend in bf16 and float32, held to
+    CASCADE_F32_TOL (float32) and twice the plain backend's own bf16
+    rounding (bf16)."""
+    from repro_torch.data.synthetic_ir import SyntheticIRWorld
+    from repro_torch.eval import run_cascade
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    world = SyntheticIRWorld(vocab_size=cfg.backbone.vocab_size,
+                             n_docs=CASCADE_DOCS, n_queries=CASCADE_QUERIES,
+                             doc_len=cfg.max_doc_len - 1, seed=SEED)
+    emit({"phase": "cascade_world", "device": name, "n_docs": world.n_docs,
+          "doc_len": world.doc_len, "n_queries": world.n_queries,
+          "vocab_size": world.vocab_size,
+          "relevant_per_query": float(world.n_relevant().mean()),
+          "world_s": time.perf_counter() - t0})
+    cascade = lambda c, index: run_cascade(
+        params, c, world, k=CASCADE_K, k_metric=CASCADE_K_METRIC,
+        micro_batch=MICRO_BATCH, index=index)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as root:
+        indexes = {kind: build(os.path.join(root, kind),
+                               f"cascade_index_{kind}",
+                               corpus=list(world.docs), **kw)[0]
+                   for kind, kw in CASCADE_INDEXES.items()}
+        walls = {}
+
+        def run_all():
+            out = {}
+            for kind, index in indexes.items():
+                t1 = time.perf_counter()
+                out[kind] = cascade(cfg, index)
+                walls[kind] = time.perf_counter() - t1
+            return out
+
+        results, launches["cascade"] = counted(run_all)
+        for kind, res in results.items():
+            index = indexes[kind]
+            emit({"phase": "cascade", "index": kind, "device": name,
+                  "first_stage": res.first_stage, "rerank": res.rerank,
+                  "storage_bytes": index.storage_bytes(),
+                  "bytes_per_token": index.bytes_per_token(),
+                  "n_tokens": int(index.doc_lengths.sum()),
+                  "max_doc_len": index.max_doc_len, "wall_s": walls[kind],
+                  "meta": res.meta})
+        runs = {"cascade": results["pq"]}
+        for path, c in (("cascade_pq_f32", cfg32),
+                        ("plain_cascade_pq_bf16", plain(cfg)),
+                        ("plain_cascade_pq_f32", plain(cfg32))):
+            runs[path], launches[path] = counted(
+                lambda c=c: cascade(c, indexes["pq"]))
+        del indexes
+    line = {"phase": "cascade_agreement", "index": "pq", "device": name}
+    ok = True
+    for stage in ("first_stage", "rerank"):
+        f32, f32_common = _stage_diff(runs["cascade_pq_f32"],
+                                      runs["plain_cascade_pq_f32"], stage)
+        bf16, bf16_common = _stage_diff(runs["cascade"],
+                                        runs["plain_cascade_pq_bf16"], stage)
+        noise, _ = _stage_diff(runs["plain_cascade_pq_bf16"],
+                               runs["plain_cascade_pq_f32"], stage)
+        line[stage] = {"f32_max_abs_diff": f32, "f32_tol": CASCADE_F32_TOL,
+                       "f32_common": f32_common,
+                       "bf16_max_abs_diff": bf16, "bf16_tol": 2 * noise,
+                       "bf16_rounding_of_plain": noise,
+                       "bf16_common": bf16_common}
+        ok = ok and f32 <= CASCADE_F32_TOL and bf16 <= 2 * noise
+    line["metrics"] = {p: r.flat() for p, r in runs.items()}
+    emit({**line, "ok": ok})
+    if not ok:
+        raise AssertionError("the cascade through the kernels disagrees "
+                             "with the plain backend's")
 
 
 # ---------------------------------------------------------------------------
@@ -1752,6 +1929,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     name = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
     _build.library()
@@ -1776,36 +1955,52 @@ def main():
     plain = lambda c: dataclasses.replace(c, backbone=dataclasses.replace(
         c.backbone, attn_impl="plain", compress_impl="plain"))
 
-    def build(tmp, label, **kw):
+    def build(tmp, label, corpus=None, **kw):
+        """Build ``corpus`` (the seeded docs by default) into ``tmp``,
+        reopen it verified and print its line; every build carries chunk
+        checksums, and a build the reopening verified none of fails."""
+        corpus = docs if corpus is None else corpus
         report, launches[label] = counted(
             lambda: IndexBuilder(tmp, cfg, params, batch_size=INDEX_BATCH,
-                                 **kw).build(docs))
+                                 **kw).build(corpus))
         t0 = time.perf_counter()
-        index = TermRepIndex.open(tmp)        # verify=True, the default
+        # the pass open(verify=True), the default, runs, with its count
+        index = TermRepIndex.open(tmp, verify=False)
+        verified = index.verify_integrity()
         open_s = time.perf_counter() - t0
-        emit({"phase": label, "device": name, "n_docs": len(index),
-              "open_s": open_s, "open_verify": True,
-              "verified_chunks": index.verify_integrity(),
-              "n_tokens": report.n_tokens, "codec": report.codec,
-              "streams": sorted(index.streams_spec()),
-              "bytes_per_token": index.bytes_per_token(),
-              "storage_bytes": report.storage_bytes,
-              "encode_s": report.encode_s, "write_s": report.write_s,
-              "wall_s": report.wall_s,
-              "docs_per_s": report.n_docs / report.wall_s,
-              "launches": launches[label]})
-        if len(index) != N_DOCS or int(index.doc_lengths.sum()) \
+        line = {"phase": label, "device": name, "n_docs": len(index),
+                "open_s": open_s, "open_verify": True,
+                "verified_chunks": verified,
+                "n_tokens": report.n_tokens, "codec": report.codec,
+                "max_doc_len": index.max_doc_len,
+                "prune": index.prune_policy,
+                "streams": sorted(index.streams_spec()),
+                "bytes_per_token": index.bytes_per_token(),
+                "storage_bytes": report.storage_bytes,
+                "fit_s": report.fit_s, "encode_s": report.encode_s,
+                "write_s": report.write_s, "wall_s": report.wall_s,
+                "docs_per_s": report.n_docs / report.wall_s,
+                "launches": launches[label]}
+        emit(line)
+        if len(index) != len(corpus) or int(index.doc_lengths.sum()) \
                 != report.n_tokens:
             raise AssertionError(f"{label}: reopened index does not hold "
                                  f"the build")
-        return index
+        if line["verified_chunks"] <= 0:
+            raise AssertionError(f"{label}: the build carries no chunk "
+                                 f"checksums")
+        return index, line
 
     def serve_both(index, reqs, paths, labels, passes=1, **kw):
-        """The kernels and the plain impl, bf16 and float32; checks their
-        agreement and returns each run's per-pass scores by path."""
+        """The kernels and the plain impl, bf16 and float32, at the index's
+        (pruned) max_doc_len; checks their agreement and returns each
+        run's per-pass scores by path."""
         runs = {}
-        for path, label, c in zip(paths, labels, (cfg, plain(cfg), cfg32,
-                                                  plain(cfg32))):
+        shape = lambda c: dataclasses.replace(c, max_doc_len=min(
+            c.max_doc_len, index.max_doc_len or c.max_doc_len))
+        for path, label, c in zip(paths, labels,
+                                  map(shape, (cfg, plain(cfg), cfg32,
+                                              plain(cfg32)))):
             runs[path], launches[path], lines[path] = serve(
                 torch, params, c, index, reqs, label, name, passes=passes,
                 **kw)
@@ -1831,7 +2026,7 @@ def main():
 
     # 3. index, fp16 streams
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
-        index = build(tmp, "index", codec="fp16")
+        index, fp16_line = build(tmp, "index", codec="fp16")
         # 4. serve: kernels against the plain impl, bf16 and float32,
         #    through the fused join and the legacy concat join
         fused_runs = serve_both(
@@ -1885,8 +2080,8 @@ def main():
     #     over a hot-document stream, cold then warm
     zipf = make_zipf_requests(rng, cfg)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
-        index = build(tmp, "index_int8", codec="int8", store_layer_kv=True,
-                      kv_codec="int8")
+        index, _ = build(tmp, "index_int8", codec="int8",
+                         store_layer_kv=True, kv_codec="int8")
         serve_both(index, requests,
                    ("serve_int8_kv", "plain_int8_kv_bf16",
                     "serve_int8_kv_f32", "plain_int8_kv_f32"),
@@ -1916,6 +2111,75 @@ def main():
     if cached["f32_vs_uncached_max_abs_diff"] > CACHED_TOL:
         raise AssertionError("cached scores disagree with the uncached "
                              "service")
+
+    # 4c. PQ reps (64 uint8 codes a token): the index (its k-means fit
+    #     on the host), the service, then the paged doc cache over the
+    #     hot-document stream; then fp16 reps pruned to half their tokens
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
+        index, pq_line = build(tmp, "index_pq", codec="pq")
+        serve_both(index, requests, ("serve_pq", "plain_pq_bf16",
+                                     "serve_pq_f32", "plain_pq_f32"),
+                   ("cuda_pq_bf16", "plain_pq_bf16", "cuda_pq_f32",
+                    "plain_pq_f32"))
+        emit({"phase": "pq_h2d", "device": name,
+              "h2d_bytes": {p: lines[p]["h2d_bytes"] for p in
+                            ("serve", "serve_int8_kv", "serve_pq")},
+              "bytes_per_token": {"fp16": fp16_line["bytes_per_token"],
+                                  "pq": pq_line["bytes_per_token"]},
+              "fit_s": pq_line["fit_s"]})
+        uncached, launches["serve_pq_zipf_f32"], _ = serve(
+            torch, params, cfg32, index, zipf, "cuda_pq_zipf_f32", name)
+        pages = -(-cfg.max_doc_len // PAGE_TOKENS)
+        pq_cache_mb = PQ_CACHED_DOCS * pages * PAGE_TOKENS \
+            * (index.bytes_per_token() + 1) / 2**20
+        paths = ("serve_pq_cached", "plain_pq_cached_bf16",
+                 "serve_pq_cached_f32", "plain_pq_cached_f32")
+        runs = serve_both(index, zipf, paths,
+                          ("cuda_pq_cached_bf16", "plain_pq_cached_bf16",
+                           "cuda_pq_cached_f32", "plain_pq_cached_f32"),
+                          passes=2, doc_cache_mb=pq_cache_mb,
+                          page_tokens=PAGE_TOKENS)
+        del index
+    cold_warm = {p: max_diff(runs[p][0], runs[p][1]) for p in paths}
+    cached = {"phase": "serve_pq_cached_checks", "device": name,
+              "cache_mb": pq_cache_mb,
+              "warm_vs_cold_max_abs_diff": cold_warm,
+              "f32_vs_uncached_max_abs_diff":
+                  max_diff(runs["serve_pq_cached_f32"][0], uncached[0]),
+              "tol": CACHED_TOL}
+    emit(cached)
+    if any(cold_warm.values()) or \
+            cached["f32_vs_uncached_max_abs_diff"] > CACHED_TOL:
+        raise AssertionError(f"serve_pq_cached: {cached}")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
+        index, pruned_line = build(tmp, "index_pruned", codec="fp16",
+                                   keep_frac=KEEP_FRAC)
+        serve_both(index, requests, ("serve_pruned", "plain_pruned_bf16",
+                                     "serve_pruned_f32", "plain_pruned_f32"),
+                   ("cuda_pruned_bf16", "plain_pruned_bf16",
+                    "cuda_pruned_f32", "plain_pruned_f32"))
+        pruned = {"phase": "pruned_tokens", "device": name,
+                  "keep_frac": KEEP_FRAC,
+                  "n_tokens": pruned_line["n_tokens"],
+                  "n_tokens_unpruned": fp16_line["n_tokens"],
+                  "orig_tokens": int(index.orig_doc_lengths.sum()),
+                  "max_doc_len": index.max_doc_len,
+                  "max_doc_len_unpruned": cfg.max_doc_len,
+                  "storage_bytes": pruned_line["storage_bytes"],
+                  "storage_bytes_unpruned": fp16_line["storage_bytes"]}
+        emit(pruned)
+        want = int(np.maximum(1, np.ceil(
+            KEEP_FRAC * index.orig_doc_lengths)).sum())
+        if pruned["orig_tokens"] != fp16_line["n_tokens"] \
+                or pruned["n_tokens"] != want \
+                or index.max_doc_len != math.ceil(KEEP_FRAC
+                                                  * cfg.max_doc_len):
+            raise AssertionError(f"index_pruned: {pruned}")
+        del index
+
+    # 4d. the quality cascade: first stage over the index's own reps, then
+    #     the re-rank, for the fp16, int8, pq and pruned indexes
+    cascade_phases(torch, name, params, cfg, cfg32, plain, launches, build)
 
     # 5. soundness: rank_forward == join_and_score(encode_query,
     #    precompute_docs), float32 compute over fp16 storage

@@ -23,7 +23,11 @@ the port of ``repro.core.prettr``.
   raw int8 with per-token scales) or as a :class:`PagedDocKV` view of the
   device doc cache's page pools.
 
-Not ported yet: ``doc_salience`` and ``rank_pairs_loss``.
+* **Index-time pruning** -- :func:`doc_salience` scores each stored doc
+  token by the attention mass it receives at layer ``l``; the builder
+  keeps each doc's most salient tokens.
+
+Not ported yet: ``rank_pairs_loss`` (training).
 """
 from __future__ import annotations
 
@@ -224,6 +228,41 @@ def encode_query(params, cfg: PreTTRConfig, q_tokens, q_valid):
                 _positions(0, lq, b, q_tokens.device), segs)
     return T.run_layer_range(params["backbone"], bcfg, x, 0, cfg.l,
                              segs=segs, valid=q_valid)
+
+
+def doc_salience(params, cfg: PreTTRConfig, doc_store, doc_valid):
+    """Index-time token salience for pruning: the attention mass each
+    stored doc token receives at join layer ``l`` from the valid tokens of
+    its own document.
+
+    ``doc_store`` [N, Ld, e|d] as :func:`precompute_docs` returned it;
+    decoded as the join decodes it, then layer ``l``'s ``ln1`` and Q/K
+    projections at positions ``max_query_len + arange(Ld)``.  Each valid
+    query row is softmaxed over the valid keys in float32 (a finite mask,
+    so an all-pad row cannot give NaN); the weight landing on each key is
+    summed over rows and averaged over heads.  Returns [N, Ld] float32, 0
+    at invalid positions.  Plain PyTorch: it needs the attention weights,
+    which no kernel returns."""
+    bcfg = cfg.backbone
+    x_d = _decode_doc_store(params, cfg, doc_store)
+    n, ld, _ = x_d.shape
+    pos_d = _positions(cfg.max_query_len, ld, n, x_d.device)
+    lp = params["backbone"]["layers"][cfg.l]
+    h_d = L.apply_norm(lp["ln1"], x_d, bcfg.norm)
+    rope_base = bcfg.layer_rope_bases()[cfg.l]
+    q = T.project_q(lp["attn"], h_d, bcfg, positions=pos_d,
+                    rope_base=rope_base)                   # [N, Ld, H, Dh]
+    k, _ = T.project_kv(lp["attn"], h_d, bcfg, positions=pos_d,
+                        rope_base=rope_base)               # [N, Ld, Hkv, Dh]
+    k = L.repeat_kv(k, bcfg.n_heads // bcfg.n_kv_heads)
+    logits = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) \
+        / math.sqrt(bcfg.dh)
+    v = doc_valid.bool()
+    logits = torch.where(v[:, None, None, :], logits,
+                         torch.full((), -1e30, device=logits.device))
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(v[:, None, :, None], w, torch.zeros((), device=w.device))
+    return (w.sum(dim=2).mean(dim=1) * v).float()
 
 
 @dataclasses.dataclass

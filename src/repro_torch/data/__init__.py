@@ -1,1 +1,2 @@
-"""Synthetic data generators of the port (numpy; ``repro.data``)."""
+"""Synthetic data generators of the port (numpy; copies of ``repro.data``'s
+recsys, tokenizer and synthetic IR modules)."""

@@ -1,21 +1,33 @@
-"""Term-representation index reader, the port's copy of the v2 reader of
-``repro.index.store`` (``manifest.msgpack`` + ``shard-NNNNN/`` stream
-files, one flat file per stream, memmapped so serving touches only the
-candidates' bytes).
+"""Term-representation index reader, the port of ``repro.index.store``.
 
-Streams: the codec's (``reps``, plus ``scales`` for int8) and, for an
-index built with stored layer-``l`` K/V, the manifest's ``layer_kv``
-group: raw ``layer_k`` / ``layer_v`` rows of ``d_kv`` values in the
-recorded dtype, or, with ``layer_kv["codec"]``, that codec's payload and
-scale streams (``layer_k_scales`` / ``layer_v_scales`` for int8).
+Two on-disk formats, one reader:
+
+* **v2** -- ``manifest.msgpack`` + ``shard-NNNNN/`` stream files, one flat
+  file per stream, memmapped so serving touches only the candidates'
+  bytes.  Streams: the codec's (``reps``, plus ``scales`` for int8; uint8
+  codes for pq) and, for an index built with stored layer-``l`` K/V, the
+  manifest's ``layer_kv`` group: raw ``layer_k`` / ``layer_v`` rows of
+  ``d_kv`` values in the recorded dtype, or, with ``layer_kv["codec"]``,
+  that codec's payload and scale streams.
+* **v1** (legacy) -- ``meta.msgpack`` + one ``reps.bin`` of contiguous raw
+  float16 / float32 blocks, one a doc; it opens as a one-shard index with
+  the matching float codec.
+
+A trained codec's state (``codec_state``: the pq codebooks) is loaded
+into the codec before the stream spec is read.  A pruned index records
+its policy (``prune``, :attr:`TermRepIndex.prune_policy`) and each
+shard's token counts before pruning (``orig_lengths``,
+:attr:`TermRepIndex.orig_doc_lengths`); its ``max_doc_len`` is the
+pruned cap.
 
 The manifest's optional ``checksum`` block (``{"algo": "crc32c",
 "chunk_bytes"}`` plus per-shard ``checksums``: one CRC-32C per chunk of
 each stream file) is verified as the JAX reader does it: :meth:`open`
 runs the full-file pass by default and ``verify_reads=True`` re-checks
 the chunks each read touches (``repro_torch.index.integrity``).  A
-manifest without the block opens unverified; the port's builder writes
-none yet.  Indexes written by either package open in both.
+manifest without the block (v1, or a build with
+``checksum_chunk_bytes=0``) opens unverified.  Indexes written by either
+package open in both.
 """
 from __future__ import annotations
 
@@ -27,7 +39,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.index import _msgpack
-from repro_torch.index.codecs import get_codec
+from repro_torch.index.codecs import codec_for_v1_dtype, get_codec
 from repro_torch.index.integrity import chunk_checksums, crc32c
 
 FORMAT_VERSION = 2
@@ -45,25 +57,55 @@ class IndexIntegrityError(IndexFormatError):
     ``verify_reads=True``, by the read that touched the bad chunk."""
 
 
+def _read_msgpack(path: str, kind: str) -> dict:
+    try:
+        with open(path, "rb") as f:
+            obj = _msgpack.unpackb(f.read())
+    except (ValueError, UnicodeDecodeError) as e:
+        raise IndexFormatError(f"corrupt {kind} at {path!r}: {e}") from e
+    if not isinstance(obj, dict):
+        raise IndexFormatError(f"corrupt {kind} at {path!r}: expected a map")
+    return obj
+
+
 def read_manifest(path: str) -> dict:
+    """The v2 manifest of the index at ``path``."""
     manifest_p = os.path.join(path, "manifest.msgpack")
     if not os.path.exists(manifest_p):
         raise IndexFormatError(f"no manifest.msgpack at {path!r}: not a "
                                f"format-v{FORMAT_VERSION} term-rep index")
-    try:
-        with open(manifest_p, "rb") as f:
-            mani = _msgpack.unpackb(f.read())
-    except (ValueError, UnicodeDecodeError) as e:
-        raise IndexFormatError(f"corrupt manifest at {manifest_p!r}: "
-                               f"{e}") from e
-    if not isinstance(mani, dict):
-        raise IndexFormatError(f"corrupt manifest at {manifest_p!r}: "
-                               f"expected a map")
+    mani = _read_msgpack(manifest_p, "manifest")
     if mani.get("version") != FORMAT_VERSION:
         raise IndexFormatError(
             f"index at {path!r} has format version {mani.get('version')!r}; "
             f"this reader expects {FORMAT_VERSION}")
     return mani
+
+
+def _v1_manifest(path: str) -> dict:
+    """A legacy v1 index's ``meta.msgpack`` as a one-shard v2 manifest
+    whose shard directory is the index directory itself."""
+    meta_p = os.path.join(path, "meta.msgpack")
+    if not os.path.exists(meta_p):
+        raise IndexFormatError(
+            f"no manifest.msgpack or meta.msgpack at {path!r}: not a "
+            f"term-rep index (format v{FORMAT_VERSION} or legacy v1)")
+    meta = _read_msgpack(meta_p, "v1 meta.msgpack")
+    try:
+        offsets = [(int(off), int(n)) for off, n in meta["offsets"]]
+        if any(off != sum(n for _, n in offsets[:i])
+               for i, (off, _) in enumerate(offsets)):
+            raise ValueError("v1 offsets are not contiguous")
+        return {"version": 1,
+                "codec": codec_for_v1_dtype(meta["dtype"]).name,
+                "rep_dim": int(meta["rep_dim"]), "l": int(meta["l"]),
+                "compressed": bool(meta["compressed"]),
+                "max_doc_len": int(meta["max_doc_len"]),
+                "n_docs": len(offsets),
+                "shards": [{"dir": ".", "lengths": [n for _, n in offsets]}]}
+    except (KeyError, TypeError, ValueError) as e:
+        raise IndexFormatError(f"malformed v1 meta.msgpack at {meta_p!r}: "
+                               f"{e!r}") from e
 
 
 def _open_stream(path: str, dtype: np.dtype, row_shape: tuple, n_rows: int):
@@ -88,14 +130,22 @@ class TermRepIndex:
 
     def __init__(self, path: str, manifest: dict):
         try:
-            if manifest.get("codec_state"):
-                raise IndexFormatError(
-                    f"index at {path!r} uses a trained codec; not ported")
+            self.version = int(manifest["version"])
             self.codec = get_codec(manifest["codec"])
+            if manifest.get("codec_state"):
+                self.codec.load_state_dict(manifest["codec_state"])
             self.rep_dim = int(manifest["rep_dim"])
             self.l = int(manifest["l"])
             self.compressed = bool(manifest["compressed"])
             self.max_doc_len = int(manifest["max_doc_len"])
+            self.encode_batch = int(manifest.get("encode_batch", 0))
+            prune = manifest.get("prune") or None
+            if prune is not None:
+                prune = {"keep_frac": float(prune["keep_frac"]),
+                         "max_kept_tokens": int(prune["max_kept_tokens"]),
+                         "layer": int(prune["layer"])}
+            # the token-pruning policy (None when every token is stored)
+            self.prune_policy = prune
             layer_kv = manifest.get("layer_kv") or None
             if layer_kv is not None:
                 norm = {"dtype": np.dtype(layer_kv["dtype"]).str,
@@ -125,14 +175,21 @@ class TermRepIndex:
         # per shard, stream name -> file (the fault injector's corrupt
         # kind flips bytes there)
         self._stream_paths: list[dict[str, str]] = []
-        rows = []
+        rows, orig_rows = [], []
         for si, sh in enumerate(shards):
             try:
                 lengths = np.asarray(sh["lengths"], np.int64).reshape(-1)
+                orig = np.asarray(sh.get("orig_lengths", sh["lengths"]),
+                                  np.int64).reshape(-1)
+                if len(orig) != len(lengths):
+                    raise ValueError(
+                        f"orig_lengths lists {len(orig)} docs but lengths "
+                        f"lists {len(lengths)}")
                 sdir = os.path.join(path, sh["dir"])
             except (KeyError, TypeError, ValueError) as e:
                 raise IndexFormatError(f"malformed manifest at {path!r}: "
                                        f"shard {si}: {e!r}") from e
+            orig_rows.append(orig)
             n_tok = int(lengths.sum())
             opened, paths = {}, {}
             for name, (dt, row_shape) in spec.items():
@@ -154,6 +211,8 @@ class TermRepIndex:
                                   lengths], axis=1).astype(np.int64))
         self._doc_table = (np.concatenate(rows) if rows
                            else np.zeros((0, 3), np.int64))
+        self._orig_lengths = (np.concatenate(orig_rows) if orig_rows
+                              else np.zeros((0,), np.int64))
         if len(self._doc_table) != manifest.get("n_docs",
                                                 len(self._doc_table)):
             raise IndexFormatError(
@@ -166,14 +225,15 @@ class TermRepIndex:
     @classmethod
     def open(cls, path: str, *, verify: bool = True,
              verify_reads: bool = False) -> "TermRepIndex":
-        """Open the index at ``path``.  ``verify`` (default on) runs the
-        full-file CRC-32C pass over every stream whose manifest records
-        chunk checksums and raises :class:`IndexIntegrityError` on a
+        """Open the v2 or v1 index at ``path``.  ``verify`` (default on)
+        runs the full-file CRC-32C pass over every stream whose manifest
+        records chunk checksums and raises :class:`IndexIntegrityError` on a
         mismatch; a manifest without checksums opens unverified.
         ``verify_reads=True`` re-checks the chunks each :meth:`gather_raw`
         (and so :meth:`stage`) touches; it raises ValueError on a
         manifest without checksums."""
-        idx = cls(path, read_manifest(path))
+        v2 = os.path.exists(os.path.join(path, "manifest.msgpack"))
+        idx = cls(path, read_manifest(path) if v2 else _v1_manifest(path))
         if verify and idx._checksums is not None:
             idx.verify_integrity()
         if verify_reads:
@@ -259,6 +319,16 @@ class TermRepIndex:
     def doc_lengths(self) -> np.ndarray:
         """Per-doc stored token counts ([N] int64)."""
         return self._doc_table[:, 2]
+
+    @property
+    def orig_doc_lengths(self) -> np.ndarray:
+        """Per-doc token counts before index-time pruning ([N] int64);
+        :attr:`doc_lengths` for an unpruned or v1 index."""
+        return self._orig_lengths
+
+    def storage_bytes(self) -> int:
+        """Stored bytes over every stream (paper section 6.2)."""
+        return int(self.doc_lengths.sum()) * self.bytes_per_token()
 
     @property
     def n_shards(self) -> int:

@@ -41,6 +41,10 @@ window and a gemma3 ``forward`` mixes local and global layers in one
 call.  That computes what the JAX ``plain``/``blocked`` impls compute
 (the JAX ``pallas`` impl takes uniform layer ranges only); it adds no
 feature.
+
+A backend family (:func:`impls_for`, :func:`apply_backend`) sets both
+knobs of a config at once, as the entry points' ``backend=`` argument
+does: ``"cuda"`` or ``"plain"``.
 """
 from __future__ import annotations
 
@@ -80,6 +84,34 @@ def get_impl(kind: str, name: str) -> Callable:
         raise ValueError(f"unknown {kind} implementation {name!r}; "
                          f"available: {available(kind)}")
     return fn
+
+
+#: the port's backend families: the kernels or the plain versions
+BACKENDS = ("cuda", "plain")
+
+
+def impls_for(backend: str) -> tuple[str, str]:
+    """A backend family name -> ``(attn_impl, compress_impl)``.  The JAX
+    package's ``"blocked"`` and ``"pallas"`` families have no counterpart
+    here: they raise, naming the port's two."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; the port's backends "
+                         f"are {list(BACKENDS)}")
+    return backend, backend
+
+
+def apply_backend(cfg, backend: str):
+    """Copy of ``cfg`` (a TransformerConfig, or a PreTTRConfig carrying
+    one as its ``backbone``) rerouted through the ``backend`` family."""
+    import dataclasses
+
+    attn_impl, compress_impl = impls_for(backend)
+    bb = getattr(cfg, "backbone", None)
+    if dataclasses.is_dataclass(bb) and hasattr(bb, "attn_impl"):
+        return dataclasses.replace(cfg, backbone=dataclasses.replace(
+            bb, attn_impl=attn_impl, compress_impl=compress_impl))
+    return dataclasses.replace(cfg, attn_impl=attn_impl,
+                               compress_impl=compress_impl)
 
 
 def validate_config(attn_impl: str, compress_impl: str) -> None:

@@ -7,9 +7,12 @@
   each batch's stored streams are staged and one ``join_and_score`` call
   scores it.
 * :class:`RankingService` -- admission and responses over one engine:
-  :meth:`~RankingService.submit` sheds past ``max_queue`` and encodes each
-  query through layers ``0..l`` once, through a small LRU of query reps;
-  responses list doc ids by descending score.
+  :meth:`~RankingService.submit` sheds past ``max_queue``, refuses a
+  request whose ids the index cannot gather (:func:`validate_doc_routing`)
+  and encodes each query through layers ``0..l`` once, through a small
+  LRU of query reps; responses list doc ids by descending score.
+  ``encode_fn`` / ``join_fn`` replace the model's entry points (the
+  ``Reranker`` client binds them late).
 
 **Prefetch.**  With ``prefetch_depth`` > 0 (default 2) a thread stages
 the next planned micro-batches while the card scores the current one:
@@ -220,6 +223,24 @@ class _Plan:
 _STOP = object()
 
 
+def validate_doc_routing(index, doc_ids) -> None:
+    """Raise ValueError when any of ``doc_ids`` cannot be gathered from
+    ``index``: out of its id range, or refused by the index's
+    ``describe_misroute`` hook where it has one (a serving shard's view
+    names the shard that stores a misrouted id).  Called at admission, so
+    a bad id fails its own request, not the drain that packs it."""
+    ids = np.asarray(list(doc_ids), np.int64).reshape(-1)
+    if ids.size == 0:
+        return
+    if ids.min() < 0 or ids.max() >= len(index):
+        raise ValueError(f"doc id out of range [0, {len(index)})")
+    describe = getattr(index, "describe_misroute", None)
+    if describe is not None:
+        msg = describe(ids)
+        if msg:
+            raise ValueError(msg)
+
+
 def validate_index_compat(cfg: P.PreTTRConfig, index) -> None:
     """Raise ValueError when ``index`` cannot be served under ``cfg``
     (wrong compression, rep width, split layer or K/V width, or longer
@@ -266,12 +287,17 @@ class BatchEngine:
     keeps the raw streams resident in a paged device cache of that size
     (``page_tokens``, ``page_bucket`` as
     :class:`~repro_torch.serving.doc_cache.DeviceDocCache`).
-    ``fault_tag`` names this engine at the fault-injection sites."""
+    ``join_fn(params, q_reps, q_valid, doc_store, doc_valid)`` replaces
+    the model's ``join_and_score``: the engine then decodes a quantising
+    codec's reps in a call of its own (counted in ``n_decode_dispatch``)
+    and hands it the decoded reps; it takes no stored K/V and no doc
+    cache.  ``fault_tag`` names this engine at the fault-injection
+    sites."""
 
     def __init__(self, params, cfg: P.PreTTRConfig, index, *,
                  micro_batch: int = 32, policy: SchedulerPolicy | None = None,
                  prefetch_depth: int = 2, fused: bool = True,
-                 use_layer_kv: bool | None = None,
+                 use_layer_kv: bool | None = None, join_fn=None,
                  doc_cache_mb: float = 0.0, page_tokens: int | None = None,
                  page_bucket: bool = False, device=None, fault_tag=None):
         self.device = resolve_device(device)
@@ -284,9 +310,16 @@ class BatchEngine:
         self.fused = bool(fused)
         self.fault_tag = fault_tag
         self.stats = ServiceStats()
+        self._join_fn = join_fn
         has_kv = index.has_layer_kv
         if use_layer_kv is None:
-            use_layer_kv = has_kv and self.fused
+            # an injected join_fn takes the five-argument call only
+            use_layer_kv = has_kv and self.fused and join_fn is None
+        if join_fn is not None and (use_layer_kv or doc_cache_mb > 0):
+            raise ValueError(
+                "an injected join_fn scores dense decoded reps only; it "
+                "takes no stored layer-l K/V (use_layer_kv) and no doc "
+                "cache (doc_cache_mb)")
         if use_layer_kv and not has_kv:
             raise ValueError(
                 "use_layer_kv=True but the index has no layer_k/layer_v "
@@ -483,6 +516,13 @@ class BatchEngine:
         faults.hit("engine.score", tag=self.fault_tag)
         self.stats.h2d_bytes += payload["h2d_bytes"]
         self.stats.n_join_dispatch += 1
+        if self._join_fn is not None:
+            self.stats.doc_hbm_bytes += payload["h2d_bytes"]
+            parts = payload["parts"]
+            if not self.codec.decode_is_identity:
+                self.stats.n_decode_dispatch += 1
+            return self._join_fn(self.params, qr, qv,
+                                 self._decode_reps(parts), payload["valid"])
         if self._cache is None:
             self.stats.doc_hbm_bytes += payload["h2d_bytes"]
             parts = payload["parts"]
@@ -651,38 +691,60 @@ class RankingService:
             ...
 
     ``device`` (``None`` means the card) holds the params and runs the
-    model; params are moved there once.  ``deadline_s`` is the default
-    per-request deadline, ``max_queue`` the admission bound (``submit``
-    raises :class:`ServiceOverloadError` past it; None is unbounded).
+    model; params are moved there once.  ``backend`` (``"cuda"`` /
+    ``"plain"``) reroutes every call of the config
+    (:func:`~repro_torch.models.backend.apply_backend`).
+    ``deadline_s`` is the default per-request deadline, ``max_queue`` the
+    admission bound (``submit`` raises :class:`ServiceOverloadError` past
+    it; None is unbounded).  ``encode_fn(params, q_tokens, q_valid)`` and
+    ``join_fn`` (see :class:`BatchEngine`) replace the model's entry
+    points, as the :class:`~repro_torch.serving.reranker.Reranker` client
+    does; ``validate_index=False`` skips the index-against-config check.
     ``policy``, ``prefetch_depth``, ``fused``, ``use_layer_kv``,
     ``doc_cache_mb``, ``page_tokens`` and ``page_bucket`` configure the
     :class:`BatchEngine`."""
 
     def __init__(self, params, cfg: P.PreTTRConfig, index, *,
                  micro_batch: int = 32, policy: SchedulerPolicy | None = None,
-                 cache_size: int = 64, prefetch_depth: int = 2,
-                 deadline_s: float | None = None, fused: bool = True,
-                 use_layer_kv: bool | None = None, doc_cache_mb: float = 0.0,
-                 page_tokens: int | None = None, page_bucket: bool = False,
-                 device=None, max_queue: int | None = None):
-        validate_index_compat(cfg, index)
+                 cache_size: int = 64, backend: str | None = None,
+                 prefetch_depth: int = 2, deadline_s: float | None = None,
+                 encode_fn=None, join_fn=None, validate_index: bool = True,
+                 fused: bool = True, use_layer_kv: bool | None = None,
+                 doc_cache_mb: float = 0.0, page_tokens: int | None = None,
+                 page_bucket: bool = False, device=None,
+                 max_queue: int | None = None):
+        if backend is not None:
+            from repro_torch.models.backend import apply_backend
+            cfg = apply_backend(cfg, backend)
+        if validate_index:
+            validate_index_compat(cfg, index)
         self.device = resolve_device(device)
-        self.params = to_device(params, self.device)
         self.cfg = cfg
         self.index = index
         self.default_deadline_s = deadline_s
         self.max_queue = max_queue
         self.engine = BatchEngine(
-            self.params, cfg, index, micro_batch=micro_batch, policy=policy,
+            to_device(params, self.device), cfg, index,
+            micro_batch=micro_batch, policy=policy,
             prefetch_depth=prefetch_depth, fused=fused,
-            use_layer_kv=use_layer_kv, doc_cache_mb=doc_cache_mb,
-            page_tokens=page_tokens, page_bucket=page_bucket,
-            device=self.device)
+            use_layer_kv=use_layer_kv, join_fn=join_fn,
+            doc_cache_mb=doc_cache_mb, page_tokens=page_tokens,
+            page_bucket=page_bucket, device=self.device)
+        self._encode = encode_fn or (
+            lambda p, t, v: P.encode_query(p, cfg, t, v))
         self._qcache: OrderedDict = OrderedDict()
         self._cache_size = cache_size
         self._seq = 0
         self._queued = 0
         self._done_early: list[RankResponse] = []
+
+    @property
+    def params(self):
+        return self.engine.params
+
+    @params.setter
+    def params(self, value):
+        self.engine.params = value
 
     @property
     def stats(self) -> ServiceStats:
@@ -692,9 +754,17 @@ class RankingService:
     def stats(self, value: ServiceStats):
         self.engine.stats = value
 
+    def reset_stats(self) -> None:
+        """Zero the aggregate counters (after a warm-up request, say)."""
+        self.engine.stats = ServiceStats()
+
     @property
     def micro_batch(self) -> int:
         return self.engine.micro_batch
+
+    @micro_batch.setter
+    def micro_batch(self, value: int):
+        self.engine.micro_batch = int(value)
 
     @property
     def doc_cache(self) -> DeviceDocCache | None:
@@ -713,10 +783,12 @@ class RankingService:
             raise ServiceOverloadError(
                 f"request {rid} shed: {self._queued} requests already "
                 f"queued (max_queue={self.max_queue}); drain() or back off")
-        ids = np.asarray(list(req.doc_ids), np.int64)
-        if ids.size and (ids.min() < 0 or ids.max() >= len(self.index)):
-            raise ValueError(f"request {rid}: doc id out of range "
-                             f"[0, {len(self.index)})")
+        try:
+            # a bad id found later, in the prefetcher, would fail every
+            # co-packed request's rows
+            validate_doc_routing(self.index, req.doc_ids)
+        except ValueError as e:
+            raise ValueError(f"request {rid}: {e}") from None
         state = _ReqState(req, rid, self._seq,
                           req.deadline_s if req.deadline_s is not None
                           else self.default_deadline_s)
@@ -761,8 +833,8 @@ class RankingService:
             self._qcache.move_to_end(key)
             return self._qcache[key]
         with torch.inference_mode():
-            reps = P.encode_query(
-                self.params, self.cfg,
+            reps = self._encode(
+                self.params,
                 torch.from_numpy(q_tokens.astype(np.int64))[None]
                 .to(self.device),
                 torch.from_numpy(q_valid)[None].to(self.device))

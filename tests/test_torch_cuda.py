@@ -1307,3 +1307,118 @@ def test_recsys_smoke_models_kernels_match_plain(dev, family, dtype):
     assert none == (0, 0, 0)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, **_tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# PQ, pruned and checksummed indexes; the first stage and the cascade
+# ---------------------------------------------------------------------------
+
+
+def test_pq_decode_on_the_card_equals_numpy(dev):
+    """The card's codebook gather gives the host decode's floats, and the
+    codebook is copied to the card once."""
+    from repro_torch.index.codecs import PQCodec
+
+    rng = np.random.default_rng(0)
+    codec = PQCodec()
+    codec.fit(rng.standard_normal((900, 256)).astype(np.float32), seed=1)
+    codes = codec.encode(rng.standard_normal((3, 40, 256))
+                         .astype(np.float32))["reps"]
+    want = codec.decode({"reps": codes})
+    got = codec.decode({"reps": torch.from_numpy(codes).to(dev)})
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    flat = codec._flat_on(got.device)
+    codec.decode({"reps": torch.from_numpy(codes).to(dev)})
+    assert codec._flat_on(got.device) is flat
+
+
+def _service(params, cfg, index, cache_mb):
+    from repro_torch.serving import RankingService
+    return RankingService(params, cfg, index, micro_batch=4,
+                          doc_cache_mb=cache_mb, page_tokens=8)
+
+
+@pytest.mark.parametrize("build", [dict(codec="pq"), dict(keep_frac=0.5),
+                                   dict(codec="pq", keep_frac=0.5)])
+@pytest.mark.parametrize("cache_mb", [0, 8])
+def test_smoke_pq_and_pruned_services_kernels_match_plain(dev, tmp_path,
+                                                          build, cache_mb):
+    """PQ and pruned indexes built on the card (checksummed, verified by
+    ``verify_index``) served through the kernels and the plain impl, with
+    and without the doc cache; the PQ reps reach the float32-input
+    decompress kernel."""
+    import dataclasses
+
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.index import TermRepIndex, verify_index
+
+    params, reqs = _smoke_world(tmp_path, **build)
+    index = TermRepIndex.open(str(tmp_path))
+    assert index.verify_integrity() > 0
+    rng = np.random.default_rng(14)
+    docs = [rng.integers(4, 512, rng.integers(3, 40)) for _ in range(24)]
+    assert verify_index(index, smoke_config(), params, docs, sample=24) \
+        == 24
+    runs = {}
+    for impl in ("plain", "cuda"):
+        cfg = smoke_config(attn_impl=impl, compress_impl=impl)
+        cfg = dataclasses.replace(cfg, max_doc_len=index.max_doc_len)
+        before = fused_decompress.f32_launches
+        got = _serve_all(_service(params, cfg, index, cache_mb), reqs)
+        launched = fused_decompress.f32_launches - before
+        assert (launched > 0) == (impl == "cuda" and build.get("codec")
+                                  == "pq")
+        runs[impl] = {(rid, d): s for rid, r in got.items()
+                      for d, s in zip(r.doc_ids, r.scores)}
+    for key, s in runs["plain"].items():
+        assert abs(runs["cuda"][key] - s) < 1e-4, key
+
+
+def test_doc_salience_on_the_card_matches_the_cpu(dev):
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.core import prettr as P
+
+    cfg = smoke_config()
+    gen = torch.Generator().manual_seed(3)
+    params = P.init_prettr(cfg, gen, device="cpu")
+    tokens = torch.randint(4, 512, (5, cfg.max_doc_len), generator=gen)
+    valid = torch.arange(cfg.max_doc_len)[None] < torch.tensor(
+        [[40], [17], [1], [0], [33]])
+    store = P.precompute_docs(params, cfg, tokens, valid)
+    want = P.doc_salience(params, cfg, store, valid)
+    from repro_torch.device import to_device
+    got = P.doc_salience(to_device(params, dev), cfg, store.to(dev),
+                         valid.to(dev))
+    _close(got, want, "float32")
+
+
+def test_smoke_cascade_kernels_match_plain(dev):
+    """``run_cascade`` over a PQ build through the kernels and through the
+    plain backend on the card: the same first-stage candidates, the same
+    metrics, scores within 1e-4 (float32 through every layer, as the
+    served scores above)."""
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.core.prettr import init_prettr
+    from repro_torch.data.synthetic_ir import SyntheticIRWorld
+    from repro_torch.eval import run_cascade
+
+    cfg = smoke_config()
+    world = SyntheticIRWorld(n_docs=96, n_queries=8, vocab_size=512,
+                             doc_len=cfg.max_doc_len - 1, seed=0)
+    params = init_prettr(cfg, torch.Generator().manual_seed(0),
+                         device="cuda")
+    got = {b: run_cascade(params, cfg, world, codec="pq", k=16, k_metric=5,
+                          micro_batch=8, backend=b)
+           for b in ("cuda", "plain")}
+    (ids, s), (pids, ps) = (got[b].stages["first_stage"]
+                            for b in ("cuda", "plain"))
+    np.testing.assert_array_equal(ids, pids)
+    np.testing.assert_allclose(s, ps, atol=1e-4)
+    (rid, rs), (prid, prs) = (got[b].stages["rerank"]
+                              for b in ("cuda", "plain"))
+    np.testing.assert_allclose(np.sort(rs, -1), np.sort(prs, -1),
+                               atol=1e-4)
+    assert got["cuda"].meta == got["plain"].meta
+    for key, v in got["plain"].first_stage.items():
+        assert got["cuda"].first_stage[key] == pytest.approx(v, abs=1e-6)

@@ -143,12 +143,14 @@ def test_a_clean_verified_index_scores_as_before(jax_index):
 
 
 def test_an_index_without_checksums_opens_unverified(tmp_path):
-    """The port's builder writes no checksums yet: its index opens
-    unverified in both packages and both refuse ``verify_reads``."""
+    """An index built without checksums (``checksum_chunk_bytes=0``; the
+    port's builder writes them by default) opens unverified in both
+    packages and both refuse ``verify_reads``."""
     _, tcfg = _configs()
     path = str(tmp_path / "port")
     IndexBuilder(path, tcfg, _port_params(tcfg), codec="fp16",
-                 batch_size=8, device="cpu").build(_world()[1][:6])
+                 batch_size=8, checksum_chunk_bytes=0,
+                 device="cpu").build(_world()[1][:6])
     idx = TermRepIndex.open(path)
     assert idx.verify_integrity() == 0 and not idx.verify_reads
     with pytest.raises(ValueError, match="no chunk checksums"):

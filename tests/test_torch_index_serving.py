@@ -199,11 +199,16 @@ def test_entry_points_raise_without_a_card(jax_index_dir, tmp_path,
 def test_index_reader_rejects_what_it_cannot_serve(jax_index_dir, tmp_path):
     with pytest.raises(IndexFormatError, match="no manifest"):
         TermRepIndex.open(str(tmp_path))
-    (tmp_path / "manifest.msgpack").write_bytes(
-        _msgpack.packb({"version": 2, "codec": "pq", "rep_dim": 16, "l": 2,
-                        "compressed": True, "max_doc_len": 24,
-                        "shards": []}))
-    with pytest.raises(IndexFormatError, match="not ported"):
+    # a codec neither package has, and a pq manifest whose codec state is
+    # not pq's (the port reads pq since it gained the codec)
+    bad = {"version": 2, "codec": "zstd", "rep_dim": 16, "l": 2,
+           "compressed": True, "max_doc_len": 24, "shards": []}
+    (tmp_path / "manifest.msgpack").write_bytes(_msgpack.packb(bad))
+    with pytest.raises(IndexFormatError, match="unknown storage codec"):
+        TermRepIndex.open(str(tmp_path))
+    (tmp_path / "manifest.msgpack").write_bytes(_msgpack.packb(
+        {**bad, "codec": "pq", "codec_state": {"kind": "int8"}}))
+    with pytest.raises(IndexFormatError, match="codec_state kind 'pq'"):
         TermRepIndex.open(str(tmp_path))
     (tmp_path / "manifest.msgpack").write_bytes(_msgpack.packb({"version": 3}))
     with pytest.raises(IndexFormatError, match="format version 3"):

@@ -69,8 +69,15 @@ def test_int8_codec_bytes_match_the_package(group):
 
 
 def test_pq_is_not_ported():
-    with pytest.raises(ValueError, match="PQ"):
-        get_codec("pq")
+    """pq is ported for the reps stream group only: as in the JAX package,
+    its codes cannot hold the layer-l K/V streams (``kv_codec="pq"``), and
+    a name neither package has is refused."""
+    codec = get_codec("pq")
+    assert codec.name == "pq" and codec.needs_fit
+    with pytest.raises(ValueError, match="only the 'reps' stream group"):
+        codec.stream_group("layer_k", 32)
+    with pytest.raises(ValueError, match="unknown storage codec"):
+        get_codec("PQ")
 
 
 # ---------------------------------------------------------------------------
