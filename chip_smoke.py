@@ -77,6 +77,33 @@ at gemma3-4b's, then the recsys models at their published configs:
    plain backend in bf16 and float32 (``cascade_agreement``: float32
    within 1e-3, bf16 within twice the plain backend's own bf16
    rounding);
+4e. training -- at the same width on the cascade world: ``train``,
+   TRAIN_STEPS of ``launch.train.prettr_train_step`` (16 pairs x 512
+   tokens a step, constant TRAIN_LR; the steps run the plain backend and
+   must launch no kernel, and every kernel wrapper must refuse an input
+   that requires grad): the loss of the first and last 16 steps (the
+   last 16 must average below the first 16, every loss finite), the
+   gradient norm, ms a step (CUDA events, median after TRAIN_WARMUP),
+   tokens/s, ``mfu`` (6 x non-embedding params x tokens/s over the bf16
+   peak) and the peak allocated memory, then a profile of one more step
+   (``profile`` line ``train_step``); ``train_validate``, the trained
+   weights' P@20 validation (``rank_forward`` over 8 queries x 32
+   candidates) through the kernels, within twice the plain backend's own
+   bf16 rounding; ``checkpoint``, the state after CKPT_STEP through
+   ``AsyncCheckpointer``, restored bit for bit, a newer torn step skipped,
+   and RESUME_STEPS steps from the restored state bit-equal to as many
+   from the state in memory (both under
+   ``torch.use_deterministic_algorithms``); ``distill``,
+   ``launch.build_index.distill_compressor`` (Eq. 2, 60 steps of 8
+   car_pairs; the held-out attention MSE must fall), then the fp16 index
+   with the distilled compressor; ``cascade_trained``, ``run_cascade``
+   with the trained, distilled weights over the fp16, int8, PQ and pruned
+   indexes beside the untrained run's metrics; ``train_smoke``, the
+   drivers in their own processes at their smoke configs
+   (``launch.train`` for prettr-bert and gemma3-4b,
+   ``launch.eval_quality --steps 40``, whose trained re-rank must beat
+   its pools in a random order on P@20 or hit@10, and
+   ``launch.build_index --distill-steps 4``);
 5. soundness -- ``rank_forward == join_and_score(encode_query,
    precompute_docs)`` on 4 pairs, float32 over fp16 storage
    (``rank_forward`` ends in the flash-decode CLS layer, the split path in
@@ -115,8 +142,9 @@ at gemma3-4b's, then the recsys models at their published configs:
    beside the HBM ``bound_ms``.
 
 Kernel launches are counted per path: every counter is set to 0 just
-before each index build, each timed serving run, the soundness check,
-each LM run and each recsys run, and read just after.  A path that
+before each index build, each timed serving run, the training steps, the
+validation and distillation runs, the soundness check, each LM run and
+each recsys run, and read just after.  A path that
 misses a kernel it must run (``PATH_KERNELS``: the tensor-core split and
 join kernels on the bf16 paths, the CUDA-core ones on the float32
 paths; the tensor-core compress and decompress kernels on every path
@@ -127,9 +155,9 @@ xDeepFM's), a path that launches one it must not (the generic
 embedding-bag kernel on a recsys path among them), or a plain run that
 launches any, fails the script.
 The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
-the index builds, the bf16 kernel runs of each serving form, the LM's
-bf16 prefill and decode, and the recsys serve_bulk forwards, retrieval
-runs and towers),
+the index builds, the bf16 kernel runs of each serving form, the
+cascades, the training paths, the LM's bf16 prefill and decode, and the
+recsys serve_bulk forwards, retrieval runs and towers),
 ``launches_by_path`` gives each path's own.
 
 Every phase that fails raises and the script exits non-zero.  It prints
@@ -139,7 +167,9 @@ last is the ``kernels`` line, the last ``{"ok": true, "device": ...}``.  Run fro
 
     python3 chip_smoke.py
 """
+import contextlib
 import functools
+import io
 import json
 import math
 import os
@@ -177,6 +207,18 @@ CASCADE_INDEXES = {"fp16": {"codec": "fp16"}, "int8": {"codec": "int8"},
 # backend: float32 within the served-score limit, bf16 within twice the
 # plain backend's own bf16 rounding (plain bf16 against plain float32)
 CASCADE_F32_TOL = 1e-3
+# training at full width (prettr_bert.full_config: bf16 compute, float32
+# params and master) on the cascade world: TRAIN_STEPS AdamW steps of 16
+# pairs x 512 tokens (16,384 tokens a step) at a constant TRAIN_LR, step
+# times the median after TRAIN_WARMUP; the state after CKPT_STEP is
+# checkpointed, and RESUME_STEPS steps from it replayed; P@20 over
+# VALIDATE_QUERIES queries' 32 candidates, as launch.train validates
+TRAIN_STEPS, TRAIN_PAIRS, TRAIN_LR, TRAIN_WARMUP = 200, 16, 1e-4, 10
+CKPT_STEP, RESUME_STEPS, VALIDATE_QUERIES = 100, 4, 8
+# the compressor's distillation (Eq. 2) at full width: car_pairs of 8
+DISTILL_STEPS, DISTILL_BATCH = 60, 8
+# each driver run of train_smoke in its own process
+SMOKE_TIMEOUT_S = 600
 N_SOUNDNESS = 4
 CLS, SEP = 1, 2
 # published H100 SXM peaks (NVIDIA data sheet, dense), at 700 W
@@ -1046,6 +1088,22 @@ PATH_KERNELS = {
     "cascade_index_pq": _INDEX_F32, "cascade_index_pruned": _INDEX_PRUNED,
     "cascade": _CASCADE + _JOIN_TC,
     "cascade_pq_f32": _PQ_SERVE + _JOIN_CC,
+    # training: the steps run the plain backend and launch nothing; the
+    # validation of the trained weights (rank_forward) runs the split
+    # kernel, the compressor round trip and the CLS-only layer's flash
+    # decode (one split at 32 rows); the distillation's frozen trunk runs
+    # the split kernel; the trained cascade builds and serves as above
+    "train": (),
+    "train_validate": ("split_attention", "compress", "decompress",
+                       "decode_attention", *_SPLIT_TC, *_COMPRESS_TC,
+                       *_DECOMPRESS_TC),
+    "plain_train_validate_bf16": (), "plain_train_validate_f32": (),
+    "distill": ("split_attention", *_SPLIT_TC),
+    "index_distilled": _INDEX_F16,
+    "cascade_trained_index_int8": _INDEX_F32,
+    "cascade_trained_index_pq": _INDEX_F32,
+    "cascade_trained_index_pruned": _INDEX_PRUNED,
+    "cascade_trained": _CASCADE + _JOIN_TC,
     **{f"plain_{p}": () for p in (
         "pq_bf16", "pq_f32", "pq_cached_bf16", "pq_cached_f32",
         "pruned_bf16", "pruned_f32", "cascade_pq_bf16", "cascade_pq_f32")},
@@ -1101,14 +1159,18 @@ PATH_KERNELS = {
         "deepfm_item_vectors", "deepfm_retrieval", "xdeepfm_serve_p99")},
 }
 # the paths whose launches make the kernels line's `launches`: the index
-# builds, the bf16 drains of each serving form, the cascade's bf16 run,
+# builds, the bf16 drains of each serving form, the cascade's bf16 runs
+# (untrained and trained), the training paths,
 # the LM's bf16 prefill and decode, and the recsys serve_bulk forwards,
 # retrieval and towers
 MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               "serve_int8_kv", "serve_cached", "index_pq", "serve_pq",
               "serve_pq_cached", "index_pruned", "serve_pruned",
               "cascade_index_fp16", "cascade_index_int8", "cascade_index_pq",
-              "cascade_index_pruned", "cascade", "lm_prefill", "lm_decode",
+              "cascade_index_pruned", "cascade", "train", "train_validate",
+              "distill", "index_distilled", "cascade_trained_index_int8",
+              "cascade_trained_index_pq", "cascade_trained_index_pruned",
+              "cascade_trained", "lm_prefill", "lm_decode",
               "dlrm_serve_bulk", "dlrm_retrieval", "dlrm_item_tower",
               "deepfm_serve_bulk", "deepfm_item_vectors", "deepfm_retrieval",
               "xdeepfm_serve_p99")
@@ -1288,7 +1350,7 @@ def cascade_phases(torch, name, params, cfg, cfg32, plain, launches, build):
     and storage; then over the PQ index through the kernels in float32
     and through the plain backend in bf16 and float32, held to
     CASCADE_F32_TOL (float32) and twice the plain backend's own bf16
-    rounding (bf16)."""
+    rounding (bf16).  Returns the world and each index's result."""
     from repro_torch.data.synthetic_ir import SyntheticIRWorld
     from repro_torch.eval import run_cascade
     from repro_torch.kernels import _build
@@ -1357,6 +1419,421 @@ def cascade_phases(torch, name, params, cfg, cfg32, plain, launches, build):
     if not ok:
         raise AssertionError("the cascade through the kernels disagrees "
                              "with the plain backend's")
+    return world, results
+
+
+# ---------------------------------------------------------------------------
+# Phase 4e: training at full width, checkpoints, distillation and the
+# trained cascade
+# ---------------------------------------------------------------------------
+
+
+def _refusals(torch):
+    """Each kernel wrapper called with grad enabled on a CUDA input that
+    requires grad: every one must raise before it launches anything."""
+    from repro_torch.kernels.decode_attention import flash_decode_attention
+    from repro_torch.kernels.embedding_bag import embedding_bag_op
+    from repro_torch.kernels.fused_compress import (fused_compress,
+                                                    fused_decompress)
+    from repro_torch.kernels.join_attention import (join_flash_attention,
+                                                    join_flash_attention_paged)
+    from repro_torch.kernels.split_attention import split_flash_attention
+    x = torch.randn(2, 2, 16, 64, device="cuda", requires_grad=True)
+    y = torch.randn(2, 2, 16, 64, device="cuda")
+    calls = {
+        "split_flash_attention": lambda: split_flash_attention(x, y, y),
+        "flash_decode_attention": lambda: flash_decode_attention(
+            x[:, :, :1], y, y),
+        "join_flash_attention": lambda: join_flash_attention(y, y, y, x, y),
+        "join_flash_attention_paged": lambda: join_flash_attention_paged(
+            y, y, y, x, x, torch.zeros((2, 1), dtype=torch.int32,
+                                       device="cuda"),
+            torch.ones((2, 2), dtype=torch.int8, device="cuda")),
+        "fused_compress": lambda: fused_compress(y[0, 0], x[0, 0, :, :8],
+                                                 y[0, 0, 0, :8]),
+        "fused_decompress": lambda: fused_decompress(
+            y[0, 0, :, :8].half(), y[0, 0, :8], x[0, 0, 0], y[0, 0, 1],
+            y[0, 0, 2]),
+        "embedding_bag_op": lambda: embedding_bag_op(
+            x.reshape(-1, 64), torch.zeros((2, 1), dtype=torch.int64,
+                                           device="cuda")),
+    }
+    out = {}
+
+    def run_all():
+        for k, call in calls.items():
+            try:
+                call()
+                out[k] = False
+            except RuntimeError as e:
+                out[k] = "plain backend" in str(e)
+    _, launched = counted(run_all)
+    if not all(out.values()) or any(launched.values()):
+        raise AssertionError(f"a kernel wrapper took an input that requires "
+                             f"grad: {out}, launches {launched}")
+    return out
+
+
+def train_phase(torch, name, params, cfg, world, launches):
+    """TRAIN_STEPS of ``prettr_train_step`` at full width (bf16 compute,
+    float32 params and master) on the cascade world's pair batches,
+    counted: the steps must launch no kernel.  Returns the trained state,
+    the state after CKPT_STEP and the losses."""
+    from repro_torch.launch.train import prettr_train_step, step_batch
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.tree import leaves_with_paths
+
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR)
+    opt = init_opt_state(params, opt_cfg)
+    refusals = _refusals(torch)
+    n_params = sum(p.numel() for k, p in leaves_with_paths(params)
+                   if not k.startswith("backbone/embed/"))
+    tokens = 2 * TRAIN_PAIRS * (cfg.max_query_len + cfg.max_doc_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def loop():
+        nonlocal params, opt
+        kept = None
+        losses, norms, events = [], [], []
+        for step in range(TRAIN_STEPS):
+            pos, neg = step_batch(world, cfg, SEED, step, TRAIN_PAIRS,
+                                  "cuda")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, opt, loss, gn = prettr_train_step(params, opt, cfg,
+                                                      opt_cfg, pos, neg)
+            end.record()
+            losses.append(loss)
+            norms.append(gn)
+            events.append((start, end))
+            if step == CKPT_STEP:
+                kept = {"params": params, "opt": opt}
+        torch.cuda.synchronize()
+        return kept, losses, norms, events
+
+    t0 = time.perf_counter()
+    (kept, losses, norms, events), launches["train"] = counted(loop)
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    step_ms = statistics.median(a.elapsed_time(b)
+                                for a, b in events[TRAIN_WARMUP:])
+    tokens_per_s = tokens / step_ms * 1e3
+    first, last = losses[:16], losses[-16:]
+    line = {"phase": "train", "device": name, "steps": TRAIN_STEPS,
+            "pairs": TRAIN_PAIRS, "tokens_per_step": tokens,
+            "lr": TRAIN_LR, "grad_clip": opt_cfg.grad_clip,
+            "loss_first_16": first, "loss_last_16": last,
+            "loss_first_16_mean": statistics.fmean(first),
+            "loss_last_16_mean": statistics.fmean(last),
+            "grad_norm_first": norms[0], "grad_norm_last": norms[-1],
+            "grad_norm_median": statistics.median(norms),
+            "ms_per_step": step_ms, "tokens_per_s": tokens_per_s,
+            "non_embedding_params": n_params,
+            "model_flops_per_step": 6 * n_params * tokens,
+            "mfu": 6 * n_params * tokens_per_s / PEAK_BF16_FLOPS,
+            "wall_s": wall, "refusals": refusals,
+            "launches": launches["train"], **memory(torch)}
+    emit(line)
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError("train: a loss or gradient norm is not finite")
+    if not line["loss_last_16_mean"] < line["loss_first_16_mean"]:
+        raise AssertionError("train: the loss did not fall")
+    # where a step's time goes: one more step (its result dropped) traced
+    batch = step_batch(world, cfg, SEED, TRAIN_STEPS, TRAIN_PAIRS, "cuda")
+    profile_run(torch, name, "train_step", lambda: prettr_train_step(
+        params, opt, cfg, opt_cfg, *batch))
+    return {"params": params, "opt": opt}, kept, losses, opt_cfg
+
+
+def train_validate_phase(torch, name, params, cfg, cfg32, plain, world,
+                         launches, untrained):
+    """P@20 validation of the trained weights through the kernels (bf16)
+    and the plain backend (bf16, float32): the kernels' scores within
+    twice the plain backend's own bf16 rounding."""
+    from repro_torch.launch.train import validation_scores
+
+    runs = {}
+    for path, c in (("train_validate", cfg),
+                    ("plain_train_validate_bf16", plain(cfg)),
+                    ("plain_train_validate_f32", plain(cfg32))):
+        runs[path], launches[path] = counted(
+            lambda c=c: validation_scores(params, c, world, "cuda",
+                                          n_queries=VALIDATE_QUERIES))
+    (s, p20), (pb, pb20), (pf, pf20) = (runs[p] for p in runs)
+    noise = float(abs(pb - pf).max())
+    line = {"phase": "train_validate", "device": name,
+            "queries": VALIDATE_QUERIES, "candidates": 32,
+            "p20_kernels_bf16": p20, "p20_plain_bf16": pb20,
+            "p20_plain_f32": pf20, "p20_untrained": untrained,
+            "bf16_max_abs_diff": float(abs(s - pb).max()),
+            "bf16_tol": 2 * noise, "bf16_rounding_of_plain": noise,
+            "launches": launches["train_validate"]}
+    ok = line["bf16_max_abs_diff"] <= 2 * noise
+    emit({**line, "ok": ok})
+    if not ok:
+        raise AssertionError("train_validate: the kernels' scores disagree "
+                             "with the plain backend's")
+    return p20
+
+
+def checkpoint_phase(torch, name, cfg, world, kept, opt_cfg, train_losses):
+    """The train state after CKPT_STEP through ``AsyncCheckpointer`` (the
+    time ``save`` holds the caller: its host snapshot); restored bit for
+    bit; a newer step with a corrupted leaf skipped; then RESUME_STEPS
+    steps from the restored state against as many from the state kept in
+    memory, both under ``torch.use_deterministic_algorithms``: the losses
+    and every leaf bit-equal."""
+    from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                        restore_checkpoint)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import prettr_train_step, step_batch
+    from repro_torch.tree import leaves_with_paths
+
+    keyed = dict(leaves_with_paths(kept))
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as d:
+        ck = AsyncCheckpointer(d, keep=3)
+        t0 = time.perf_counter()
+        ck.save(CKPT_STEP, kept)
+        snapshot_s = time.perf_counter() - t0
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        nbytes_ = sum(os.path.getsize(os.path.join(d, n, f))
+                      for n in os.listdir(d)
+                      for f in os.listdir(os.path.join(d, n)))
+        t0 = time.perf_counter()
+        restored, step = restore_checkpoint(d, kept)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = dict(leaves_with_paths(restored))
+        bit_equal = step == CKPT_STEP and sorted(got) == sorted(keyed) \
+            and all(got[k].dtype == keyed[k].dtype
+                    and got[k].device == keyed[k].device
+                    and torch.equal(got[k], keyed[k]) for k in keyed)
+        # a newer step whose first leaf is torn: restore falls back
+        ck.save(CKPT_STEP + 1, kept)
+        ck.wait()
+        newer = os.path.join(d, f"step_{CKPT_STEP + 1:08d}")
+        with open(os.path.join(newer, "leaf_00000.bin"), "r+b") as f:
+            f.write(b"\xde\xad\xbe\xef")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            _, fell_back_to = restore_checkpoint(d, kept)
+        latest = latest_step(d)
+
+    def run(state):
+        losses = []
+        for step in range(CKPT_STEP + 1, CKPT_STEP + 1 + RESUME_STEPS):
+            p, o, loss, _ = prettr_train_step(
+                state["params"], state["opt"], cfg, opt_cfg,
+                *step_batch(world, cfg, SEED, step, TRAIN_PAIRS, "cuda"))
+            state = {"params": p, "opt": o}
+            losses.append(loss)
+        return state, [float(x) for x in losses]
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        cont, cont_losses = run(kept)
+        resumed, resumed_losses = run(restored)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = dict(leaves_with_paths(cont)), dict(leaves_with_paths(resumed))
+    resume_bit_equal = cont_losses == resumed_losses \
+        and all(torch.equal(a[k], b[k]) for k in a)
+    line = {"phase": "checkpoint", "device": name, "step": CKPT_STEP,
+            "leaves": len(keyed), "bytes": nbytes_,
+            "snapshot_s": snapshot_s, "save_s": save_s,
+            "restore_s": restore_s, "restore_bit_equal": bit_equal,
+            "corrupt_step": CKPT_STEP + 1, "latest_step": latest,
+            "fell_back_to": fell_back_to, "restore_said": said.getvalue(),
+            "resume_steps": RESUME_STEPS,
+            "deterministic": True,
+            "losses_uninterrupted": cont_losses,
+            "losses_resumed": resumed_losses,
+            "resume_bit_equal": resume_bit_equal,
+            "losses_train_phase": train_losses[
+                CKPT_STEP + 1:CKPT_STEP + 1 + RESUME_STEPS]}
+    ok = bit_equal and fell_back_to == CKPT_STEP and resume_bit_equal
+    emit({**line, "ok": ok})
+    if not ok:
+        raise AssertionError(f"checkpoint: {line}")
+
+
+def distill_phase(torch, name, params, cfg, world, launches, build, root):
+    """``distill_compressor`` at full width (l = 6, e = 256) on car_pairs
+    batches of DISTILL_BATCH for DISTILL_STEPS (the frozen trunk below l
+    through the kernels, no gradient there), then the fp16 index of the
+    cascade world with the distilled compressor (the trained cascade's
+    fp16 index).  The attention MSE (Eq. 2) of one held-out batch must
+    fall from the compressor it starts from to the distilled one (the
+    training curve's first and last steps are other batches).  Returns
+    the distilled params and that index."""
+    import numpy as np
+    from repro_torch.core.compression import attention_mse_loss
+    from repro_torch.launch.build_index import distill_compressor
+
+    held_out = torch.from_numpy(world.car_pairs(
+        np.random.default_rng([SEED, DISTILL_STEPS]), DISTILL_BATCH,
+        cfg.max_query_len, cfg.max_doc_len)["tokens"]).long().cuda()
+
+    def mse(comp):
+        with torch.no_grad():
+            return float(attention_mse_loss(params["backbone"], comp,
+                                            cfg.backbone, held_out, l=cfg.l))
+
+    def run():
+        before = mse(params["compressor"])
+        comp, losses = distill_compressor(params, cfg, world, DISTILL_STEPS,
+                                          seed=SEED, batch=DISTILL_BATCH)
+        return comp, losses, before, mse(comp)
+
+    t0 = time.perf_counter()
+    (comp, losses, before, after), launches["distill"] = counted(run)
+    wall = time.perf_counter() - t0
+    distilled = {**params, "compressor": comp}
+    index, line = build(os.path.join(root, "trained_fp16"), "index_distilled",
+                        corpus=list(world.docs), p=distilled,
+                        **CASCADE_INDEXES["fp16"])
+    out = {"phase": "distill", "device": name, "steps": DISTILL_STEPS,
+           "batch": DISTILL_BATCH, "lr": 3e-3, "l": cfg.l,
+           "compress_dim": cfg.compress_dim, "attn_mse": losses,
+           "attn_mse_first": losses[0], "attn_mse_last": losses[-1],
+           "held_out_attn_mse_before": before,
+           "held_out_attn_mse_after": after,
+           "wall_s": wall, "launches": launches["distill"],
+           "index_docs": line["n_docs"]}
+    ok = all(math.isfinite(x) for x in losses + [before, after]) \
+        and after < before
+    emit({**out, "ok": ok})
+    if not ok:
+        raise AssertionError("distill: the attention MSE did not fall")
+    return distilled, index
+
+
+def cascade_trained_phase(torch, name, params, cfg, world, launches, build,
+                          untrained, root, fp16_index):
+    """``run_cascade`` with the trained, distilled weights over the
+    untrained run's world, one index each of CASCADE_INDEXES (the fp16 one
+    the distill phase built): each line gives both runs' metrics and
+    storage bytes (the paper's Table 4)."""
+    from repro_torch.eval import run_cascade
+
+    indexes = {kind: fp16_index if kind == "fp16" else
+               build(os.path.join(root, f"trained_{kind}"),
+                     f"cascade_trained_index_{kind}",
+                     corpus=list(world.docs), p=params, **kw)[0]
+               for kind, kw in CASCADE_INDEXES.items()}
+    walls = {}
+
+    def run_all():
+        out = {}
+        for kind, index in indexes.items():
+            t1 = time.perf_counter()
+            out[kind] = run_cascade(params, cfg, world, k=CASCADE_K,
+                                    k_metric=CASCADE_K_METRIC,
+                                    micro_batch=MICRO_BATCH, index=index)
+            walls[kind] = time.perf_counter() - t1
+        return out
+
+    results, launches["cascade_trained"] = counted(run_all)
+    for kind, res in results.items():
+        before = untrained[kind]
+        # what the codec moved against fp16: the largest score difference
+        # over the candidates both hold, and the share they both hold
+        moved = {stage: dict(zip(("max_abs_diff", "common"), _stage_diff(
+            res, results["fp16"], stage)))
+            for stage in ("first_stage", "rerank")}
+        emit({"phase": "cascade_trained", "index": kind, "device": name,
+              "first_stage": res.first_stage, "rerank": res.rerank,
+              "untrained_first_stage": before.first_stage,
+              "untrained_rerank": before.rerank, "vs_fp16": moved,
+              "storage_bytes": indexes[kind].storage_bytes(),
+              "bytes_per_token": indexes[kind].bytes_per_token(),
+              "wall_s": walls[kind], "meta": res.meta})
+        values = list(res.first_stage.values()) + list(res.rerank.values())
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"cascade_trained {kind}: non-finite "
+                                 f"metrics")
+    del indexes
+
+
+def train_smoke_phase(name):
+    """The drivers as a user runs them, at their default (smoke) configs,
+    each in its own process on the card: ``launch.train`` for prettr-bert
+    and gemma3-4b, ``launch.eval_quality --steps 40`` (its trained re-rank
+    must beat the same pools in a random order on P@20 or hit@10) and
+    ``launch.build_index --distill-steps 4``."""
+    from repro_torch.kernels import _build
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = {"phase": "train_smoke", "device": name}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as d:
+        qjson = os.path.join(d, "quality.json")
+        commands = {
+            "train_prettr": ["repro_torch.launch.train", "--ckpt-dir",
+                             os.path.join(d, "ck_prettr")],
+            "train_gemma3": ["repro_torch.launch.train", "--arch",
+                             "gemma3-4b", "--ckpt-dir",
+                             os.path.join(d, "ck_gemma3")],
+            "eval_quality": ["repro_torch.launch.eval_quality", "--steps",
+                             "40", "--json", qjson],
+            "build_index": ["repro_torch.launch.build_index", "--out",
+                            os.path.join(d, "idx"), "--distill-steps", "4",
+                            "--verify"],
+        }
+        for key, args in commands.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *args], cwd=d,
+                                  env=env, capture_output=True, text=True,
+                                  timeout=SMOKE_TIMEOUT_S)
+            lines = proc.stdout.strip().splitlines()
+            out[key] = {"rc": proc.returncode,
+                        "wall_s": time.perf_counter() - t0,
+                        "tail": lines[-3:]}
+            if proc.returncode != 0:
+                emit(out)
+                raise AssertionError(f"train_smoke {key} failed:\n"
+                                     f"{proc.stderr[-3000:]}")
+        with open(qjson) as f:
+            quality = json.load(f)
+    rr, chance = quality["rerank"], quality["chance"]
+    out["eval_quality"].update(
+        rerank_p20=rr["p@20"], chance_p20=chance["p@20"],
+        rerank_hit10=rr["hit@10"], chance_hit10=chance["hit@10"])
+    ok = rr["p@20"] > chance["p@20"] or rr["hit@10"] > chance["hit@10"]
+    emit({**out, "ok": ok})
+    if not ok:
+        raise AssertionError("train_smoke: the trained re-ranker does not "
+                             "beat a random ordering of its pools")
+
+
+def training_phases(torch, name, params, cfg, cfg32, plain, launches, build,
+                    world, untrained):
+    """Phases train, train_validate, checkpoint, distill and
+    cascade_trained at full width, then train_smoke."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import validation_scores
+
+    _, untrained_p20 = validation_scores(params, cfg, world, "cuda",
+                                         n_queries=VALIDATE_QUERIES)
+    state, kept, losses, opt_cfg = train_phase(torch, name, params, cfg,
+                                               world, launches)
+    trained = state["params"]
+    train_validate_phase(torch, name, trained, cfg, cfg32, plain, world,
+                         launches, untrained_p20)
+    checkpoint_phase(torch, name, cfg, world, kept, opt_cfg, losses)
+    del state, kept
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as root:
+        distilled, fp16_index = distill_phase(torch, name, trained, cfg,
+                                              world, launches, build, root)
+        cascade_trained_phase(torch, name, distilled, cfg, world, launches,
+                              build, untrained, root, fp16_index)
+        del fp16_index
+    del trained, distilled
+    torch.cuda.empty_cache()
+    train_smoke_phase(name)
 
 
 # ---------------------------------------------------------------------------
@@ -1502,6 +1979,7 @@ def lm_phases(torch, name, launches):
     import numpy as np
     from repro_torch.configs.gemma3_4b import full_config
     from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
 
     cfg = full_config(param_dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -1519,7 +1997,7 @@ def lm_phases(torch, name, launches):
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "params": cfg.num_params(),
           "param_bytes": sum(t.numel() * t.element_size() for t in
-                             _leaves(params)),
+                             leaves(params)),
           "layer_windows": cfg.layer_windows(), "init_s": init_s})
 
     # warm-up (cuBLAS handles, the kernel library), not counted
@@ -1753,6 +2231,7 @@ def recsys_phases(torch, name, launches, rows):
     from repro_torch.models.recsys import deepfm as TF
     from repro_torch.models.recsys import dlrm as TD
     from repro_torch.models.recsys import embedding as E
+    from repro_torch.tree import leaves
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1779,7 +2258,7 @@ def recsys_phases(torch, name, launches, rows):
           "table_rows": params["table"].shape[0], "embed_dim": cfg.embed_dim,
           "table_dtype": str(params["table"].dtype),
           "table_bytes": nbytes(params["table"]),
-          "param_bytes": sum(nbytes(t) for t in _leaves(params)),
+          "param_bytes": sum(nbytes(t) for t in leaves(params)),
           "init_s": time.perf_counter() - t0, **memory(torch)})
     dense, sparse = click_ids(torch, rng, REC_BULK, cfg.vocab_sizes, 13)
     for run, b in (("serve_p99", REC_P99), ("serve_bulk", REC_BULK)):
@@ -1834,7 +2313,7 @@ def recsys_phases(torch, name, launches, rows):
           "table_rows": params["table"].shape[0], "embed_dim": cfg.embed_dim,
           "table_bytes": nbytes(params["table"]),
           "w1_bytes": nbytes(params["w1"]),
-          "param_bytes": sum(nbytes(t) for t in _leaves(params)),
+          "param_bytes": sum(nbytes(t) for t in leaves(params)),
           **memory(torch)})
     _, sparse = click_ids(torch, rng, REC_BULK, cfg.vocab_sizes)
     for run, b in (("serve_p99", REC_P99), ("serve_bulk", REC_BULK)):
@@ -1891,18 +2370,10 @@ def recsys_phases(torch, name, launches, rows):
     torch.cuda.empty_cache()
 
 
-def _leaves(t):
-    if isinstance(t, dict):
-        for v in t.values():
-            yield from _leaves(v)
-    elif isinstance(t, list):
-        for v in t:
-            yield from _leaves(v)
-    else:
-        yield t
-
-
 def main():
+    # cuBLAS's workspace made explicit (the size PyTorch picks on Hopper),
+    # so the checkpoint phase may run under use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1955,13 +2426,15 @@ def main():
     plain = lambda c: dataclasses.replace(c, backbone=dataclasses.replace(
         c.backbone, attn_impl="plain", compress_impl="plain"))
 
-    def build(tmp, label, corpus=None, **kw):
-        """Build ``corpus`` (the seeded docs by default) into ``tmp``,
-        reopen it verified and print its line; every build carries chunk
-        checksums, and a build the reopening verified none of fails."""
+    def build(tmp, label, corpus=None, p=None, **kw):
+        """Build ``corpus`` (the seeded docs by default) with params ``p``
+        (the seeded random ones by default) into ``tmp``, reopen it
+        verified and print its line; every build carries chunk checksums,
+        and a build the reopening verified none of fails."""
         corpus = docs if corpus is None else corpus
+        p = params if p is None else p
         report, launches[label] = counted(
-            lambda: IndexBuilder(tmp, cfg, params, batch_size=INDEX_BATCH,
+            lambda: IndexBuilder(tmp, cfg, p, batch_size=INDEX_BATCH,
                                  **kw).build(corpus))
         t0 = time.perf_counter()
         # the pass open(verify=True), the default, runs, with its count
@@ -2179,7 +2652,15 @@ def main():
 
     # 4d. the quality cascade: first stage over the index's own reps, then
     #     the re-rank, for the fp16, int8, pq and pruned indexes
-    cascade_phases(torch, name, params, cfg, cfg32, plain, launches, build)
+    world, untrained = cascade_phases(torch, name, params, cfg, cfg32, plain,
+                                      launches, build)
+
+    # 4e. training at full width: the train steps (no kernel), the
+    #     validation through the kernels, checkpoints, the compressor's
+    #     distillation, the trained cascade; then the drivers
+    training_phases(torch, name, params, cfg, cfg32, plain, launches, build,
+                    world, untrained)
+    del world, untrained
 
     # 5. soundness: rank_forward == join_and_score(encode_query,
     #    precompute_docs), float32 compute over fp16 storage

@@ -2,21 +2,25 @@
 transformer LM's and the recsys models') -> the port's params.
 
 The JAX tree comes in as nested dicts of numpy arrays (for example
-``jax.tree.map(np.asarray, params)``); this module needs neither JAX nor
-the JAX package.  Layer leaves are stacked on a leading ``[L]`` axis there
+``jax.tree.map(np.asarray, params)``, or :func:`read_jax_checkpoint` of a
+checkpoint the JAX store wrote); this module needs neither JAX nor the
+JAX package.  Layer leaves are stacked on a leading ``[L]`` axis there
 and become one dict per layer here; PreTTR's ``lm_head`` is unused and
-skipped.
+skipped.  :func:`train_state_from_jax` bridges a whole ``{"params",
+"opt"}`` train state, moments and master included.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.core.prettr import PreTTRConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.recsys.deepfm import DeepFMConfig
 from repro_torch.models.recsys.dlrm import DLRMConfig
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.tree import leaves, tree_map
 
 
 def _tensor(a, device):
@@ -88,25 +92,55 @@ def recsys_params_from_jax(tree: dict, cfg, device=None,
     return out
 
 
+def read_jax_checkpoint(ckpt_dir: str):
+    """The newest valid step of a checkpoint the JAX store wrote (or the
+    port's, in the same format) as nested dicts of numpy arrays, the
+    keys split on "/"; walks back past corrupt or torn steps as
+    ``restore_checkpoint`` does.  A bf16 leaf comes back widened to
+    float32 (exact).  Returns ``(tree, step)``, or ``(None, None)`` when
+    no step is readable."""
+    def load(step):
+        manifest = store.read_manifest(ckpt_dir, step)
+        tree = {}
+        for meta in manifest["leaves"]:
+            arr = store.leaf_array(store.read_leaf(ckpt_dir, step, meta),
+                                   meta)
+            if meta["dtype"] in (store.BF16_STR, "|V2"):
+                arr = (arr.astype(np.uint32) << 16).view(np.float32)
+            *path, last = meta["key"].split("/")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[last] = arr
+        return tree, manifest["step"]
+
+    return store.load_newest(ckpt_dir, load) or (None, None)
+
+
+def train_state_from_jax(tree: dict, cfg, device=None) -> dict:
+    """A JAX ``{"params", "opt"}`` train state (numpy leaves, as
+    :func:`read_jax_checkpoint` gives it) -> the port's, on ``device``
+    (``None`` means the card): ``params`` and the optimizer's ``m``,
+    ``v`` and ``master`` trees bridged as params are (layers unstacked,
+    PreTTR's ``lm_head`` dropped), ``step`` an int32 scalar.  ``cfg`` is a
+    PreTTRConfig or a TransformerConfig."""
+    dev = resolve_device(device)
+    bridge = params_from_jax if isinstance(cfg, PreTTRConfig) \
+        else lm_params_from_jax
+    opt = tree["opt"]
+    out = {"step": torch.as_tensor(np.asarray(opt["step"]),
+                                   dtype=torch.int32).to(dev)}
+    for k in ("m", "v", "master"):
+        if k in opt:
+            out[k] = bridge(opt[k], cfg, dev)
+    return {"params": bridge(tree["params"], cfg, dev), "opt": out}
+
+
 def _unstack_layers(stacked: dict, n: int, device) -> list[dict]:
     """Leaves stacked on a leading ``[n]`` axis -> ``n`` layer dicts."""
-    lead = {np.asarray(a).shape[0] for a in _leaves(stacked)}
+    lead = {np.asarray(a).shape[0] for a in leaves(stacked)}
     if lead != {n}:
         raise ValueError(f"stacked layer leaves have leading sizes {lead}, "
                          f"config has n_layers={n}")
-    return [_map(stacked, lambda a: _tensor(np.asarray(a)[i], device))
+    return [tree_map(lambda a: _tensor(np.asarray(a)[i], device), stacked)
             for i in range(n)]
-
-
-def _leaves(t):
-    if isinstance(t, dict):
-        for v in t.values():
-            yield from _leaves(v)
-    else:
-        yield t
-
-
-def _map(t, fn):
-    if isinstance(t, dict):
-        return {k: _map(v, fn) for k, v in t.items()}
-    return fn(t)

@@ -6,6 +6,7 @@ padding to 512 (96.1 GB in float32, 48.1 GB with
 ``param_dtype=torch.bfloat16``)."""
 import torch
 
+from repro_torch.configs import RECSYS_SHAPES, ArchSpec
 from repro_torch.models.recsys.dlrm import CRITEO_1TB_VOCABS, DLRMConfig
 
 
@@ -21,3 +22,11 @@ def smoke_config() -> DLRMConfig:
         name="dlrm-smoke", n_dense=13, vocab_sizes=(1000,) * 26,
         embed_dim=16, bot_mlp=(32, 16), top_mlp=(64, 32, 1),
         compute_dtype=torch.float32)
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        name="dlrm-mlperf", family="recsys", config=full_config(),
+        smoke=smoke_config(), shapes=RECSYS_SHAPES,
+        notes="PreTTR analogue: item-side tower precomputed offline "
+              "(retrieval_cand cell).")

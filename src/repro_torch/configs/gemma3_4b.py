@@ -7,6 +7,7 @@ kernels (split attention's causal and window forms in prefill, flash
 decode in ``decode_step``)."""
 import torch
 
+from repro_torch.configs import LM_SHAPES, ArchSpec
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -33,3 +34,11 @@ def smoke_config(attn_impl: str = "cuda",
         scale_embeddings=True, activation="gelu", tie_embeddings=True,
         compute_dtype=compute_dtype, attn_impl=attn_impl, block_kv=16,
         logits_chunk=16)
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        name="gemma3-4b", family="lm", config=full_config(),
+        smoke=smoke_config(), shapes=LM_SHAPES,
+        notes="hybrid local:global -- long_500k runs (local layers hold a "
+              "1024 window; a sixth of the layers carry full-length KV).")

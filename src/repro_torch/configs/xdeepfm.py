@@ -3,6 +3,7 @@ cin_layers=200-200-200 mlp=400-400 interaction=cin.  The same numbers as
 ``repro.configs.xdeepfm``."""
 import torch
 
+from repro_torch.configs import RECSYS_SHAPES, ArchSpec
 from repro_torch.models.recsys.deepfm import DeepFMConfig
 
 
@@ -18,3 +19,11 @@ def smoke_config() -> DeepFMConfig:
         name="xdeepfm-smoke", n_fields=10, vocab_per_field=500, embed_dim=8,
         mlp=(32, 16), interaction="cin", cin_layers=(16, 16),
         item_fields=tuple(range(5, 10)), compute_dtype=torch.float32)
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        name="xdeepfm", family="recsys", config=full_config(),
+        smoke=smoke_config(), shapes=RECSYS_SHAPES,
+        notes="CIN mixes fields at layer 1 -- only the embedding gather is "
+              "precomputable; PreTTR largely inapplicable.")

@@ -27,7 +27,9 @@ the port of ``repro.core.prettr``.
   token by the attention mass it receives at layer ``l``; the builder
   keeps each doc's most salient tokens.
 
-Not ported yet: ``rank_pairs_loss`` (training).
+* **Training** -- :func:`rank_pairs_loss`, the paper's pairwise loss over
+  :func:`rank_forward`.  Autograd runs through the plain backend only:
+  the kernel wrappers refuse inputs that require grad.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import compression as C
 from repro_torch.device import resolve_device
@@ -177,6 +180,17 @@ def rank_forward(params, cfg: PreTTRConfig, tokens, segs, valid):
     else:
         cls = x[:, 0]
     return _score_from_cls(params, cfg, cls)
+
+
+def rank_pairs_loss(params, cfg: PreTTRConfig, pos, neg):
+    """Paper section 5.3 pairwise softmax loss, the mean of
+    ``softplus(-(s_pos - s_neg))``.  pos / neg: dicts of ``tokens`` /
+    ``segs`` / ``valid`` [B, S] tensors."""
+    s_pos = rank_forward(params, cfg, pos["tokens"], pos["segs"],
+                         pos["valid"])
+    s_neg = rank_forward(params, cfg, neg["tokens"], neg["segs"],
+                         neg["valid"])
+    return F.softplus(-(s_pos - s_neg)).mean()
 
 
 # ---------------------------------------------------------------------------

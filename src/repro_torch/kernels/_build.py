@@ -167,6 +167,25 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record through a kernel wrapper: the
+    kernels write into buffers autograd knows nothing of, so their
+    outputs carry no gradient and every parameter below them would get
+    none.  Every public wrapper calls this first, before its CPU branch,
+    so the plain version that stands in for the kernel on the CPU
+    refuses too."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel's output "
+            f"carries no gradient; train through the plain backend "
+            f"(attn_impl / compress_impl 'plain', apply_backend(cfg, "
+            f"'plain'), bag_impl 'plain'), or call it under "
+            f"torch.no_grad() / torch.inference_mode()")
+
+
 def check(name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(

@@ -2,7 +2,10 @@
 the split-KV kernel of ``csrc/decode_attention.cuh``).
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-kernel or raise.  Launch counters, one per form:
+kernel or raise.  An input that requires grad while grad is
+enabled raises first, on either device (``_build.refuse_grad``): the
+kernels' outputs carry no gradient.
+Launch counters, one per form:
 ``flash_decode_attention.launches`` (no window: the CLS-only layer and
 the LM's global layers) and ``.window_launches`` (window > 0: the LM's
 local layers); and for the calls whose keys were split across blocks,
@@ -40,6 +43,8 @@ def flash_decode_attention(q, k, v, lengths=None, k_valid=None, *,
     is ``1/sqrt(D)``.  ``out``: optional [B, Hq, 1, D] destination (any
     strides with a contiguous D axis).  Returns [B, Hq, 1, D] in q's
     dtype."""
+    _build.refuse_grad("flash_decode_attention", q, k, v, lengths, k_valid,
+                       out)
     b, hq, sq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     if sq != 1:

@@ -1,7 +1,10 @@
 """Public wrapper of the embedding-bag kernel (``csrc/embedding_bag.cu``).
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-kernel or raise.  Launch counters, one per form, each launch counted
+kernel or raise.  An input that requires grad while grad is
+enabled raises first, on either device (``_build.refuse_grad``): the
+kernels' outputs carry no gradient.
+Launch counters, one per form, each launch counted
 once: ``embedding_bag_op.launches`` (sum, output in the table's type),
 ``.mean_launches`` (mean, output in the table's type) and
 ``.cast_launches`` (bf16 output from a float32 table, either mode: the
@@ -34,6 +37,7 @@ def embedding_bag_op(table, ids, weights=None, *, mode: str = "sum",
     ``row * w`` over every slot, pads included; ``mean`` divides by
     ``max(sum_j w, 1)``.  Each row is converted to ``out_dtype`` before
     it is weighted (see ``ref.py``)."""
+    _build.refuse_grad("embedding_bag_op", table, ids, weights)
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids, weights, mode=mode,
                                  out_dtype=out_dtype)

@@ -1,7 +1,10 @@
 """Public wrappers of the compressor kernels (``csrc/fused_compress.cu``).
 
 CPU tensors take the plain versions (``ref.py``); CUDA tensors launch a
-kernel or raise.  Launch counters: ``fused_compress.launches`` (float16
+kernel or raise.  An input that requires grad while grad is
+enabled raises first, on either device (``_build.refuse_grad``): the
+kernels' outputs carry no gradient.
+Launch counters: ``fused_compress.launches`` (float16
 output) and ``.f32_launches`` (float32 output, for a quantising index
 codec); ``fused_decompress.launches`` (float16 input) and
 ``.f32_launches`` (float32 input, the decoded int8 payload).  Each call
@@ -23,6 +26,7 @@ def fused_compress(x, w, b, *, out_dtype=torch.float16):
     """x: [..., d] -> [..., e] in ``out_dtype`` (float16, or float32 for a
     quantising codec): GELU_tanh(x @ w + b), float32 inside.  ``w``
     [d, e] and ``b`` [e] are used in float32."""
+    _build.refuse_grad("fused_compress", x, w, b)
     if x.device.type == "cpu":
         return compress_ref(x, w, b, out_dtype=out_dtype)
     if out_dtype not in (torch.float16, torch.float32):
@@ -54,6 +58,7 @@ def fused_decompress(r, w, b, gamma, beta, *, out_dtype=torch.bfloat16,
     """r: [..., e] float16 (or float32, decoded from int8) -> [..., d] in
     ``out_dtype``: widen, expand, add the bias and LayerNorm (gamma, beta,
     eps) in one pass, float32 inside."""
+    _build.refuse_grad("fused_decompress", r, w, b, gamma, beta)
     if r.device.type == "cpu":
         return decompress_ref(r, w, b, gamma, beta, out_dtype=out_dtype,
                               eps=eps)

@@ -6,7 +6,10 @@ for the CLS-only final layer (Sq = 1, float K/V), and the tiled kernel
 over the doc cache's page pools.
 
 CPU tensors take the plain versions (``ref.py``); CUDA tensors launch a
-kernel or raise.  Launch counters: ``join_flash_attention.launches`` (the
+kernel or raise.  An input that requires grad while grad is
+enabled raises first, on either device (``_build.refuse_grad``): the
+kernels' outputs carry no gradient.
+Launch counters: ``join_flash_attention.launches`` (the
 tiled kernel, float K/V), ``.row_launches`` (the CLS row),
 ``.row_merge_launches`` (CLS-row calls whose keys were split across
 blocks, which also launch the merge kernel; ``.last_row_n_splits`` is
@@ -48,6 +51,8 @@ def join_flash_attention(q, kq, vq, kd, vd, kq_valid=None, kd_valid=None,
     kernel.  ``out``: optional [B, Hq, Sq, D] destination.  Sq = 1 with
     float K/V goes to the split-KV kernel, which reads the masks itself
     and never reads a masked key.  Returns [B, Hq, Sq, D] in q's dtype."""
+    _build.refuse_grad("join_flash_attention", q, kq, vq, kd, vd, kq_valid,
+                       kd_valid, kd_scales, vd_scales, out)
     quant = _check_scales(kd, kd_scales, vd_scales)
     if q.device.type == "cpu":
         if quant:
@@ -101,6 +106,9 @@ def join_flash_attention_paged(q, kq, vq, kd_pages, vd_pages, page_table,
     float32 scale pools, required for int8 pools.  The doc segment spans
     nP * page assembled positions; its valid length is computed on the
     device from ``dval_pages[page_table]``.  Returns [B, Hq, Sq, D]."""
+    _build.refuse_grad("join_flash_attention_paged", q, kq, vq, kd_pages,
+                       vd_pages, page_table, dval_pages, kq_valid,
+                       kd_scale_pages, vd_scale_pages, out)
     quant = _check_scales(kd_pages, kd_scale_pages, vd_scale_pages)
     if q.device.type == "cpu":
         res = join_attention_ref_paged(q, kq, vq, kd_pages, vd_pages,

@@ -1,7 +1,10 @@
 """Public wrapper of the split-attention kernel (``csrc/split_attention.cu``).
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-kernel or raise.  Launch counters, one per form, each launch counted
+kernel or raise.  An input that requires grad while grad is
+enabled raises first, on either device (``_build.refuse_grad``): the
+kernels' outputs carry no gradient.
+Launch counters, one per form, each launch counted
 once: ``split_flash_attention.launches`` (bidirectional, float K/V: the
 PreTTR form), ``.causal_launches`` (causal, no window),
 ``.window_launches`` (a sliding window, causal or not) and
@@ -43,6 +46,8 @@ def split_flash_attention(q, k, v, lengths=None, k_valid=None, k_scales=None,
     optional [B, Hq, Sq, D] destination (any strides with a contiguous D
     axis), so callers can receive the model layout without a copy.
     Returns [B, Hq, Sq, D] in q's dtype."""
+    _build.refuse_grad("split_flash_attention", q, k, v, lengths, k_valid,
+                       k_scales, v_scales, out)
     if (k_scales is None) != (v_scales is None):
         raise ValueError("pass both k_scales and v_scales or neither")
     b, hq, sq, d = q.shape

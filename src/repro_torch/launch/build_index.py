@@ -12,14 +12,52 @@ then serve it without rebuilding::
 It runs on the card (``--device cpu`` runs the plain versions on the
 CPU).  The corpus and config seeds match ``repro_torch.launch.serve``, so
 an index built here matches the one ``serve`` builds inline (pass the
-same ``--l`` / ``--compress-dim`` / ``--n-docs``).  Not ported: the
-compressor's distillation (``--distill-steps`` > 0; training, the port's
-roadmap Queue 1 item 4) and the data-parallel build (``--data-parallel``;
-Queue 1 item 5): both raise.
+same ``--l`` / ``--compress-dim`` / ``--n-docs``).  ``--distill-steps``
+pre-trains the compressor with the paper's attention-MSE loss (Eq. 2) on
+CAR-style heading / paragraph pairs before encoding
+(:func:`distill_compressor`).  Not ported: the data-parallel build
+(``--data-parallel``; ROADMAP.md Queue 1 item 3): it raises.
 """
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
+
+
+def distill_compressor(params, cfg, world, steps: int, seed: int = 0,
+                       batch: int = 8):
+    """Paper section 4.2, stage 1: distil the attention maps into the
+    compressor (Eq. 2) on unlabeled CAR-style pairs with AdamW at 3e-3,
+    on the params' device; the backbone stays frozen (only the
+    compressor's leaves require grad).  Returns ``(compressor params,
+    [loss a step])``."""
+    import torch
+
+    from repro_torch.core.compression import attention_mse_loss
+    from repro_torch.optim import (OptimizerConfig, adam_update,
+                                   init_opt_state, value_and_grad)
+
+    comp = params["compressor"]
+    dev = comp["w_comp"].device
+    opt_cfg = OptimizerConfig(lr=3e-3)
+    opt = init_opt_state(comp, opt_cfg)
+    rng = np.random.default_rng(seed)
+    losses = []
+    for _ in range(steps):
+        pairs = world.car_pairs(rng, batch, cfg.max_query_len,
+                                cfg.max_doc_len)
+        tokens = torch.from_numpy(pairs["tokens"]).long().to(dev)
+        loss, g = value_and_grad(
+            lambda c: attention_mse_loss(params["backbone"], c,
+                                         cfg.backbone, tokens, l=cfg.l),
+            comp)
+        comp, opt, _ = adam_update(g, opt, comp, opt_cfg, lr=opt_cfg.lr)
+        losses.append(float(loss))
+    if losses:
+        print(f"[build_index] distilled compressor {steps} steps: "
+              f"attn-MSE {losses[0]:.3e} -> {losses[-1]:.3e}")
+    return comp, losses
 
 
 def main(argv=None) -> None:
@@ -57,7 +95,8 @@ def main(argv=None) -> None:
     ap.add_argument("--max-kept-tokens", type=int, default=0,
                     help="cap on kept tokens a doc (0: no cap)")
     ap.add_argument("--distill-steps", type=int, default=0,
-                    help="compressor distillation steps (not ported)")
+                    help="attention-MSE compressor distillation steps "
+                         "before encoding (0 = keep the init compressor)")
     ap.add_argument("--data-parallel", action="store_true",
                     help="data-parallel encode (not ported)")
     ap.add_argument("--writer-depth", type=int, default=2,
@@ -68,13 +107,9 @@ def main(argv=None) -> None:
                          "streams byte for byte")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.distill_steps > 0:
-        raise SystemExit("--distill-steps > 0 needs training, which the "
-                         "port does not have yet (ROADMAP.md Queue 1 item "
-                         "4); build with the init compressor")
     if args.data_parallel:
         raise SystemExit("--data-parallel is not ported (ROADMAP.md Queue 1 "
-                         "item 5, sharded serving and lookups)")
+                         "item 3, sharded serving and lookups)")
 
     attn_impl, compress_impl = impls_for(args.backend)
     cfg = smoke_config(l=args.l, compress_dim=args.compress_dim,
@@ -84,6 +119,9 @@ def main(argv=None) -> None:
                              doc_len=cfg.max_doc_len - 2, seed=args.seed)
     params = init_prettr(cfg, torch.Generator().manual_seed(0),
                          device=args.device)
+    if args.distill_steps and cfg.compress_dim:
+        params["compressor"], _ = distill_compressor(
+            params, cfg, world, args.distill_steps, seed=args.seed)
     builder = IndexBuilder(args.out, cfg, params, codec=args.codec,
                            n_shards=args.shards, batch_size=args.batch,
                            writer_depth=args.writer_depth,

@@ -13,7 +13,7 @@ re-ranking queries, the twin of ``repro.launch.serve``.
 
 It runs on the card (``--device cpu`` runs the plain versions on the
 CPU).  Not ported: the scale-out router (``--serving-shards`` > 0;
-ROADMAP.md Queue 1 item 5): it raises.
+ROADMAP.md Queue 1 item 3): it raises.
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.serving_shards > 0:
         raise SystemExit("--serving-shards is not ported (ROADMAP.md Queue 1 "
-                         "item 5, sharded serving)")
+                         "item 3, sharded serving)")
 
     attn_impl, compress_impl = impls_for(args.backend)
     cfg = smoke_config(l=args.l, compress_dim=args.compress_dim,

@@ -14,8 +14,9 @@ Lookups run through :func:`embedding.padded_bag`: the field embeddings as
 bags of one whose rows the kernel rounds to the compute dtype (the JAX
 ``table.astype(compute_dtype)`` without casting the table), the
 first-order term as one sum bag over the fields of the width-1 ``w1``
-table, the retrieval partial sums as sum bags.  ``bce_loss`` waits for the
-training slice.
+table, the retrieval partial sums as sum bags.  ``bce_loss`` is the
+training loss; it trains with ``bag_impl="plain"`` (the kernel wrapper
+refuses a table that requires grad).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.recsys import embedding as E
-from repro_torch.models.recsys.dlrm import _cast, _dense, _mlp, _mlp_init
+from repro_torch.models.recsys.dlrm import (_bce, _cast, _dense, _mlp,
+                                            _mlp_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +117,13 @@ def deepfm_forward(params, cfg: DeepFMConfig, sparse_ids):
         return logit + cin(_cast(params["cin"], cd),
                            params["cin_out"].to(cd), emb).float()
     return logit + fm_second_order(emb).float()
+
+
+def bce_loss(params, cfg: DeepFMConfig, batch):
+    """Mean binary cross-entropy of ``deepfm_forward`` logits against
+    ``batch["labels"]`` (``dlrm._bce``)."""
+    return _bce(deepfm_forward(params, cfg, batch["sparse"]),
+                batch["labels"])
 
 
 def item_vectors(params, cfg: DeepFMConfig, item_ids):

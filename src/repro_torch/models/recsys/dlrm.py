@@ -15,7 +15,8 @@ runs the embedding-bag kernel (``cfg.bag_impl == "cuda"``).  Parameters
 are cast to ``compute_dtype`` at the use site, as in the JAX package; the
 table's cast is fused into the kernel's gather, so bf16 storage
 (``param_dtype=torch.bfloat16``) gives the same bits as float32 storage.
-``bce_loss`` waits for the training slice.
+``bce_loss`` is the training loss; it trains with ``bag_impl="plain"``
+(the kernel wrapper refuses a table that requires grad).
 """
 from __future__ import annotations
 
@@ -126,6 +127,22 @@ def dlrm_forward(params, cfg: DLRMConfig, dense, sparse_ids):
     inter = dot_interaction(vectors).to(cd)
     x = torch.cat([inter, bot], dim=-1)
     return _mlp(_cast(params["top"], cd), x)[:, 0].float()
+
+
+def _bce(logits, labels):
+    """Mean binary cross-entropy of float32 ``logits`` against 0/1
+    ``labels``, in the stable form ``max(x, 0) - x y + log1p(exp(-|x|))``
+    the JAX models use."""
+    y = labels.float()
+    return (torch.clamp(logits, min=0) - logits * y
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+def bce_loss(params, cfg: DLRMConfig, batch):
+    """Mean binary cross-entropy of ``dlrm_forward`` logits against
+    ``batch["labels"]``."""
+    return _bce(dlrm_forward(params, cfg, batch["dense"], batch["sparse"]),
+                batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,9 @@ every layer hands its own static window and RoPE base to the backend, so
 one ``forward`` runs gemma3's 5 local : 1 global pattern through the
 kernels (the JAX ``pallas`` impl traces one scan body and takes uniform
 layer ranges only; this computes what its ``plain``/``blocked`` impls
-compute).  Not ported: MoE (``n_experts > 0`` raises) and
-``causal_lm_loss`` (the training slice).
+compute).  :func:`causal_lm_loss` is the training loss (through the
+plain backend: the kernel wrappers refuse inputs that require grad).
+Not ported: MoE (``n_experts > 0`` raises).
 """
 from __future__ import annotations
 
@@ -383,6 +384,49 @@ def logits(params, cfg: TransformerConfig, hidden):
     b, s, d = hidden.shape
     return L.mm_f32(hidden.reshape(b * s, d), _head(params, cfg)) \
         .reshape(b, s, -1)
+
+
+def _chunk_nll(h, y, m, head):
+    """Summed masked next-token NLL of one chunk: h [B, C, d], y / m
+    [B, C], head [d, V].  The logits are float32: the compute-dtype
+    operands widened (exact) and multiplied in float32, which autograd
+    can differentiate."""
+    b, c, d = h.shape
+    lg = (h.reshape(b * c, d).float() @ head.float()).reshape(b, c, -1)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.take_along_dim(lg, y[..., None].long(), dim=-1)[..., 0]
+    return ((lse - gold) * m).sum()
+
+
+def causal_lm_loss(params, cfg: TransformerConfig, tokens, labels, *,
+                   label_mask=None):
+    """Next-token cross-entropy, chunked over the sequence by
+    ``cfg.logits_chunk`` (the whole sequence when the chunk does not
+    divide S), so [B, S, V] logits never exist at once; each chunk is
+    recomputed in the backward pass (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``).  Returns the mean over
+    ``label_mask`` (float [B, S], default all ones) plus ``0.01 * aux /
+    n_layers`` (the MoE load loss, 0 for dense configs)."""
+    from torch.utils.checkpoint import checkpoint
+
+    hidden, _, aux = forward(params, cfg, tokens)
+    b, s, _ = hidden.shape
+    chunk = cfg.logits_chunk or s
+    if s % chunk:
+        chunk = s
+    head = _head(params, cfg)
+    if label_mask is None:
+        label_mask = torch.ones((b, s), dtype=torch.float32,
+                                device=hidden.device)
+    label_mask = label_mask.float()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, s, chunk):
+        sl = slice(c, c + chunk)
+        total = total + checkpoint(_chunk_nll, hidden[:, sl], labels[:, sl],
+                                   label_mask[:, sl], head,
+                                   use_reentrant=False)
+    loss = total / torch.clamp(label_mask.sum(), min=1.0)
+    return loss + 0.01 * aux / max(cfg.n_layers, 1)
 
 
 def init_decode_cache(cfg: TransformerConfig, batch: int, max_len: int,

@@ -1422,3 +1422,151 @@ def test_smoke_cascade_kernels_match_plain(dev):
     assert got["cuda"].meta == got["plain"].meta
     for key, v in got["plain"].first_stage.items():
         assert got["cuda"].first_stage[key] == pytest.approx(v, abs=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Training (autograd runs through the plain backend only)
+# ---------------------------------------------------------------------------
+
+_WRAPPERS = (split_flash_attention, flash_decode_attention,
+             join_flash_attention, join_flash_attention_paged,
+             fused_compress, fused_decompress, embedding_bag_op)
+
+
+def _all_launches():
+    """Every launch counter of every kernel wrapper, summed."""
+    return sum(getattr(fn, a) for fn in _WRAPPERS for a in dir(fn)
+               if a.endswith("launches"))
+
+
+def _smoke_trainer(dev):
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.core.prettr import init_prettr
+    from repro_torch.data.synthetic_ir import SyntheticIRWorld
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+
+    cfg = smoke_config()                       # the kernels' backend
+    world = SyntheticIRWorld(n_docs=64, n_queries=8, vocab_size=512,
+                             doc_len=cfg.max_doc_len - 2, seed=0)
+    params = init_prettr(cfg, torch.Generator().manual_seed(0), device=dev)
+    opt_cfg = OptimizerConfig(lr=3e-3)
+    return cfg, world, params, opt_cfg, init_opt_state(params, opt_cfg)
+
+
+def test_train_step_on_the_card_launches_no_kernel(dev):
+    """``prettr_train_step`` with a config on the kernels' backend trains
+    through the plain one: no kernel launches, and every parameter leaf
+    with a gradient moves.  Two kinds of leaf have a gradient of 0 up to
+    rounding, which the card can round to exactly 0 (and AdamW does not
+    move a leaf whose gradient is exactly 0): the K biases (softmax is
+    shift-invariant along the keys) and the final norm's bias (it adds
+    the same score to both docs of a pair, and the loss reads their
+    difference)."""
+    from repro_torch.core.prettr import rank_pairs_loss
+    from repro_torch.launch.train import batch_tensors, prettr_train_step
+    from repro_torch.models.backend import apply_backend
+    from repro_torch.optim import value_and_grad
+    from repro_torch.tree import leaves_with_paths
+
+    cfg, world, params, opt_cfg, opt = _smoke_trainer(dev)
+    pos, neg = (batch_tensors(b, dev) for b in world.pair_batch(
+        np.random.default_rng(1), 8, cfg.max_query_len, cfg.max_doc_len))
+    before = _all_launches()
+    new, opt, loss, gn = prettr_train_step(params, opt, cfg, opt_cfg, pos,
+                                           neg)
+    torch.cuda.synchronize()
+    assert _all_launches() == before
+    assert torch.isfinite(loss) and float(gn) > 0
+    assert new["score_head"].is_cuda and int(opt["step"]) == 1
+    _, grads = value_and_grad(lambda p: rank_pairs_loss(
+        p, apply_backend(cfg, "plain"), pos, neg), params)
+    zero = {k for k, g in leaves_with_paths(grads) if not bool(g.any())}
+    assert all(k.endswith(("attn/bk", "final_norm/bias")) for k in zero), \
+        zero
+    old = dict(leaves_with_paths(params))
+    still = {k for k, p in leaves_with_paths(new) if torch.equal(p, old[k])}
+    assert still <= zero, still - zero
+
+
+def _card_wrapper_calls(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    b, h, s, d = 2, 2, 16, 16
+    return {
+        "split_flash_attention": lambda x: split_flash_attention(
+            x, r(b, h, s, d), r(b, h, s, d)),
+        "flash_decode_attention": lambda x: flash_decode_attention(
+            x[:, :, :1], r(b, h, s, d), r(b, h, s, d)),
+        "join_flash_attention": lambda x: join_flash_attention(
+            r(b, h, s, d), r(b, h, 8, d), r(b, h, 8, d), x,
+            r(b, h, s, d)),
+        "join_flash_attention_paged": lambda x: join_flash_attention_paged(
+            r(b, h, 8, d), r(b, h, 8, d), r(b, h, 8, d), x.reshape(
+                4, 8, h, d), r(4, 8, h, d),
+            torch.tensor([[1, 2], [3, 0]], dtype=torch.int32, device=dev),
+            torch.ones((4, 8), dtype=torch.int8, device=dev)),
+        "fused_compress": lambda x: fused_compress(
+            r(b, s, d), x[0, 0, :, :8], torch.zeros(8, device=dev)),
+        "fused_decompress": lambda x: fused_decompress(
+            r(b, s, 8).half(), r(8, d), x[0, 0, 0], torch.ones(d, device=dev),
+            torch.zeros(d, device=dev)),
+        "embedding_bag_op": lambda x: embedding_bag_op(
+            x.reshape(-1, d), torch.tensor([[1, 3], [4, 0]], device=dev)),
+    }
+
+
+@pytest.mark.parametrize("wrapper", [fn.__name__ for fn in _WRAPPERS])
+def test_wrappers_refuse_a_gradient_on_the_card(dev, wrapper):
+    """The refusal comes before any launch: the counters do not move."""
+    x = torch.randn(2, 2, 16, 16, device=dev).requires_grad_(True)
+    call = _card_wrapper_calls(dev)[wrapper]
+    before = _all_launches()
+    with pytest.raises(RuntimeError, match=f"{wrapper}.*plain backend"):
+        call(x)
+    assert _all_launches() == before
+    with torch.no_grad():
+        call(x)
+    torch.cuda.synchronize()
+    assert _all_launches() > before
+
+
+def test_validation_through_the_kernels_matches_plain(dev):
+    """After a few training steps, ``rank_forward`` on the validation pools
+    through the kernels (split, compress / decompress, the Sq = 1 kernel)
+    against the plain backend: float32, within 1e-4 (the served-score
+    limit), and the same P@20."""
+    from repro_torch.core.prettr import rank_forward
+    from repro_torch.launch.train import (batch_tensors, prettr_train_step,
+                                          validation_scores)
+    from repro_torch.models.backend import apply_backend
+
+    cfg, world, params, opt_cfg, opt = _smoke_trainer(dev)
+    for i in range(4):
+        pos, neg = world.pair_batch(np.random.default_rng(i), 8,
+                                    cfg.max_query_len, cfg.max_doc_len)
+        params, opt, _, _ = prettr_train_step(params, opt, cfg, opt_cfg,
+                                              batch_tensors(pos, dev),
+                                              batch_tensors(neg, dev))
+    rows = [world.pack_pair(world.queries[0], world.docs[d],
+                            cfg.max_query_len, cfg.max_doc_len)
+            for d in world.candidates(0, k=32)]
+    t, s, v = (np.stack(x) for x in zip(*rows))
+    batch = batch_tensors({"tokens": t, "segs": s, "valid": v}, dev)
+    counts = (split_flash_attention.launches, fused_compress.launches,
+              fused_decompress.launches, flash_decode_attention.launches)
+    with torch.inference_mode():
+        got = rank_forward(params, cfg, batch["tokens"], batch["segs"],
+                           batch["valid"])
+        want = rank_forward(params, apply_backend(cfg, "plain"),
+                            batch["tokens"], batch["segs"], batch["valid"])
+    assert all(n > c for n, c in zip(
+        (split_flash_attention.launches, fused_compress.launches,
+         fused_decompress.launches, flash_decode_attention.launches),
+        counts))
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() < 1e-4
+    got_scores, got_p20 = validation_scores(params, cfg, world, dev)
+    want_scores, want_p20 = validation_scores(
+        params, apply_backend(cfg, "plain"), world, dev)
+    np.testing.assert_allclose(got_scores, want_scores, atol=1e-4, rtol=0)
+    assert got_p20 == want_p20

@@ -424,9 +424,9 @@ def test_build_index_and_serve_clis_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cli,argv,item", [
-    ("build_index", ["--distill-steps", "3"], "item 4"),
-    ("build_index", ["--data-parallel"], "item 5"),
-    ("serve", ["--serving-shards", "2"], "item 5")])
+    ("train", ["--arch", "qwen3-moe-235b-a22b"], "item 5"),
+    ("build_index", ["--data-parallel"], "item 3"),
+    ("serve", ["--serving-shards", "2"], "item 3")])
 def test_unported_cli_options_name_their_roadmap_item(cli, argv, item):
     import importlib
     mod = importlib.import_module(f"repro_torch.launch.{cli}")
