@@ -69,6 +69,22 @@ at gemma3-4b's, then the recsys models at their published configs:
    (``keep_frac=0.5``; ``pruned_tokens`` gives the kept tokens against
    the unpruned build's and the pruned ``max_doc_len``, 240) and
    ``serve_pruned`` at that shape;
+4f. sharded -- ``RankingRouter`` over the same 512-doc indexes, its
+   workers sharing the card: ``serve_sharded`` at 1, 2 and 4 workers
+   (fp16) and 2 and 4 (int8 + K/V, PQ) over the 8 requests, every score
+   bit-equal to the single-process bf16 run of the same index and
+   requests, with requests/s beside two single-process runs made just
+   before and after (``serve_sharded_scaling``), the merged and
+   per-worker stats and the
+   router's overhead (``admit_s``, ``query_encode_s``, ``merge_s``);
+   ``serve_sharded_cached``: 2 workers with a paged doc cache of CACHE_MB
+   each over the zipf stream twice, each pass bit-equal to the cached
+   service's (warm = cold), the paged join launched;
+   ``serve_sharded_faults``: a transient ``engine.score`` fault on shard
+   1 retried, a persistent ``worker.drain`` fault on shard 0 failed over,
+   a stall past ``SHARD_TIMEOUT_S`` marking shard 1 dead with the
+   fallback serving its rows within the timeout plus one fault-free
+   2-worker drain, all bit-equal;
 4d. cascade -- ``run_cascade`` over a seeded ``SyntheticIRWorld`` at the
    config's vocabulary (2048 docs of 479 tokens, 64 queries, 64
    candidates, metrics at depth 10) for fp16, int8, PQ and pruned
@@ -139,7 +155,17 @@ at gemma3-4b's, then the recsys models at their published configs:
    each on a routed kernel (wide or narrow, not the generic one), with
    ``l2_bound_ms`` (the bytes that must pass the L2 over its peak rate,
    which ``tools/gather_rate.cu`` measured on an H100: ``L2_PEAK_RATE``)
-   beside the HBM ``bound_ms``.
+   beside the HBM ``bound_ms``;
+8. bert4rec -- ``configs.bert4rec.full_config`` (2^20 items, 200 slots,
+   2 heads of 32, split after layer 1 of 2, bf16) at serve_p99: PreTTR's
+   split (``precompute_history``, ``serve_scores_from_reps``) through the
+   kernels and the plain impl, bf16 and float32 (bf16 within twice the
+   plain impl's own bf16 rounding, float32 within 1e-3), top-100 of the
+   [512, 2^20] scores, ``serve_topk`` timed on the plain impl, and
+   ``forward_hidden`` refused on the kernel impl before any launch; then
+   a line with the sharded and BERT4Rec phases' wall times.  Phase 2
+   also holds split attention at head dim 32 (BERT4Rec's shapes, the
+   CUDA-core kernel) against its plain version (``split_attention_d32``).
 
 Kernel launches are counted per path: every counter is set to 0 just
 before each index build, each timed serving run, the training steps, the
@@ -151,13 +177,15 @@ paths; the tensor-core compress and decompress kernels on every path
 that runs them; the split-KV merge where the path's Sq = 1 calls split
 their keys: gemma3's decode and the 4-pair soundness check; the wide
 embedding-bag kernel on DLRM's paths, the narrow one on DeepFM's and
-xDeepFM's), a path that launches one it must not (the generic
+xDeepFM's; the CUDA-core split kernel and the head-dim-32 count on
+BERT4Rec's), a path that launches one it must not (the generic
 embedding-bag kernel on a recsys path among them), or a plain run that
 launches any, fails the script.
 The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
 the index builds, the bf16 kernel runs of each serving form, the
-cascades, the training paths, the LM's bf16 prefill and decode, and the
-recsys serve_bulk forwards, retrieval runs and towers),
+cascades, the training paths, the LM's bf16 prefill and decode, the
+recsys serve_bulk forwards, retrieval runs and towers, the router's bf16
+drains and BERT4Rec's bf16 history and join),
 ``launches_by_path`` gives each path's own.
 
 Every phase that fails raises and the script exits non-zero.  It prints
@@ -193,6 +221,17 @@ CACHED_TOL = 1e-4
 # the PQ index's doc cache holds about as many documents as the int8 one
 # (its pages are 28x smaller), so the zipf stream still evicts
 PQ_CACHED_DOCS = 200
+# sharded serving: RankingRouter at these worker counts over each index,
+# the workers sharing the one card; the fault phase's drain timeout and
+# the stall injected past it
+SHARD_COUNTS = {"fp16": (1, 2, 4), "int8_kv": (2, 4), "pq": (2, 4)}
+SHARD_TIMEOUT_S, SHARD_STALL_S = 2.0, 4.0
+# BERT4Rec's paths: (history precompute, online join) of each run
+BERT4REC_PATHS = {
+    "cuda_bf16": ("bert4rec_history", "bert4rec_join"),
+    "plain_bf16": ("plain_bert4rec_history_bf16", "plain_bert4rec_join_bf16"),
+    "cuda_f32": ("bert4rec_history_f32", "bert4rec_join_f32"),
+    "plain_f32": ("plain_bert4rec_history_f32", "plain_bert4rec_join_f32")}
 # index-time pruning of the pruned index and the cascade's pruned one
 KEEP_FRAC = 0.5
 # the quality cascade: SyntheticIRWorld at the config's vocabulary, 2048
@@ -282,6 +321,9 @@ ROUTE_COUNTERS = ("split_attention_tensor_core", "split_attention_cuda_core",
 # call whose keys were split launches the merge kernel after it
 MERGE_COUNTERS = ("decode_attention_merge", "decode_attention_window_merge",
                   "join_attention_row_merge")
+# counters of a launch's shape, on top of its form's and its kernel's:
+# split attention at head dim 32 (BERT4Rec's)
+SHAPE_COUNTERS = ("split_attention_d32",)
 # recsys limits, scaled to the data (the tables are N(0, 0.01^2), so a
 # fixed 2e-2 would pass a kernel that returned zeros).  The kernel and its
 # plain version sum the same float32 terms in other orders and round once:
@@ -521,6 +563,37 @@ def check_kernels(torch, cfg):
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
            4 * dh * h * s * valid.sum().item(),
            2 * nbytes(q) + kv_bytes(lengths, h, dh, q.element_size())
+           + nbytes(valid, lengths), PEAK_BF16_FLOPS, "bf16 tensor cores")
+
+    # -- split attention at BERT4Rec's head dim 32 (full_config at
+    #    serve_p99): the online join [512, 2, 201, 32] (the [MASK] slot,
+    #    then the history) and the history precompute [512, 2, 200, 32],
+    #    histories of 100-200 items, float32 and bf16; the bf16 history
+    #    shape is timed.  Head dim 32 takes the CUDA-core kernel
+    from repro_torch.configs.bert4rec import full_config as bert4rec_full
+    b4 = bert4rec_full()
+    b, h4, d4 = REC_P99, b4.n_heads, b4.backbone().dh
+    for dtype, dname in ((torch.float32, "float32"),
+                         (torch.bfloat16, "bfloat16")):
+        for s in (b4.seq_len + 1, b4.seq_len):
+            q, k, v = (rand(b, h4, s, d4, dtype=dtype) for _ in range(3))
+            valid = _prefix_mask(torch, gen, b, s, s // 2)
+            lengths = last_valid_lengths(valid)
+            f32 = (None if dtype == torch.float32 else split_attention_ref(
+                q.float(), k.float(), v.float(), lengths, valid).float())
+            err = compare("split_attention_d32",
+                          split_flash_attention(q, k, v, lengths,
+                                                k_valid=valid),
+                          split_attention_ref(q, k, v, lengths, valid),
+                          dname, [b, h4, s, d4], f32)
+    mask = valid[:, None, None, :].expand(b, 1, s, s)
+    record("split_attention_d32", "src/repro_torch/csrc/split_attention.cu",
+           "src/repro/kernels/split_attention/kernel.py:109", err,
+           lambda: split_flash_attention(q, k, v, lengths, k_valid=valid),
+           lambda: split_attention_ref(q, k, v, lengths, valid),
+           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+           4 * d4 * h4 * s * valid.sum().item(),
+           2 * nbytes(q) + kv_bytes(lengths, h4, d4, q.element_size())
            + nbytes(valid, lengths), PEAK_BF16_FLOPS, "bf16 tensor cores")
 
     # -- split attention's LM forms at gemma3's prefill shape (q [4, 8,
@@ -981,6 +1054,7 @@ def launch_counters():
             "split_attention_window": (split_flash_attention,
                                        "window_launches"),
             "split_attention_int8": (split_flash_attention, "int8_launches"),
+            "split_attention_d32": (split_flash_attention, "d32_launches"),
             "decode_attention": (flash_decode_attention, "launches"),
             "decode_attention_window": (flash_decode_attention,
                                         "window_launches"),
@@ -1126,6 +1200,23 @@ PATH_KERNELS = {
     "serve_cached_f32": _CACHED_SERVE + _JOIN_CC
     + ("join_attention_paged_cuda_core",),
     "plain_bf16": (), "plain_f32": (),
+    # the router's workers serve each index as the single-process service
+    # does; the cached run walks the paged join
+    **{f"serve_sharded_fp16_{n}": _FP16_SERVE + _JOIN_TC
+       for n in SHARD_COUNTS["fp16"]},
+    **{f"serve_sharded_int8_kv_{n}": _INT8_SERVE + _JOIN_TC
+       for n in SHARD_COUNTS["int8_kv"]},
+    **{f"serve_sharded_pq_{n}": _PQ_SERVE + _JOIN_TC
+       for n in SHARD_COUNTS["pq"]},
+    "serve_sharded_cached": _CACHED_SERVE + _JOIN_TC
+    + ("join_attention_paged_tensor_core",),
+    # BERT4Rec: head dim 32, so every split call takes the CUDA-core
+    # kernel (the tensor-core one takes 64, 128 and 256), bf16 and float32
+    **{p: ("split_attention", "split_attention_cuda_core",
+           "split_attention_d32")
+       for run in ("cuda_bf16", "cuda_f32") for p in BERT4REC_PATHS[run]},
+    **{p: () for run in ("plain_bf16", "plain_f32")
+       for p in BERT4REC_PATHS[run]},
     "plain_legacy_bf16": (), "plain_legacy_f32": (),
     "plain_int8_kv_bf16": (), "plain_int8_kv_f32": (),
     "plain_cached_bf16": (), "plain_cached_f32": (),
@@ -1161,8 +1252,9 @@ PATH_KERNELS = {
 # the paths whose launches make the kernels line's `launches`: the index
 # builds, the bf16 drains of each serving form, the cascade's bf16 runs
 # (untrained and trained), the training paths,
-# the LM's bf16 prefill and decode, and the recsys serve_bulk forwards,
-# retrieval and towers
+# the LM's bf16 prefill and decode, the recsys serve_bulk forwards,
+# retrieval and towers, the router's bf16 drains and BERT4Rec's bf16
+# history and join
 MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               "serve_int8_kv", "serve_cached", "index_pq", "serve_pq",
               "serve_pq_cached", "index_pruned", "serve_pruned",
@@ -1173,7 +1265,22 @@ MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               "cascade_trained", "lm_prefill", "lm_decode",
               "dlrm_serve_bulk", "dlrm_retrieval", "dlrm_item_tower",
               "deepfm_serve_bulk", "deepfm_item_vectors", "deepfm_retrieval",
-              "xdeepfm_serve_p99")
+              "xdeepfm_serve_p99",
+              *(f"serve_sharded_{i}_{n}" for i, ns in SHARD_COUNTS.items()
+                for n in ns), "serve_sharded_cached",
+              *BERT4REC_PATHS["cuda_bf16"])
+
+
+def _scores(resps):
+    """{(request id, doc id): score} of a drain's responses, each checked
+    sorted."""
+    out = {}
+    for r in resps:
+        assert list(r.scores) == sorted(r.scores, reverse=True), \
+            r.request_id
+        for doc, sc in zip(r.doc_ids, r.scores):
+            out[(r.request_id, doc)] = float(sc)
+    return out
 
 
 def serve(torch, params, cfg, index, requests, label, name, passes=1,
@@ -1204,15 +1311,7 @@ def serve(torch, params, cfg, index, requests, label, name, passes=1,
         return out
 
     resps, launches = counted(drain)
-    runs = []
-    for resp in resps:
-        scores = {}
-        for r in resp:
-            assert list(r.scores) == sorted(r.scores, reverse=True), \
-                r.request_id
-            for doc, sc in zip(r.doc_ids, r.scores):
-                scores[(r.request_id, doc)] = float(sc)
-        runs.append(scores)
+    runs = [_scores(resp) for resp in resps]
     finite = all(math.isfinite(s) for sc in runs for s in sc.values())
     st = svc.stats
     wall = sum(walls)
@@ -1321,6 +1420,173 @@ def serve_faults(torch, params, cfg, index, requests, name, clean):
             and svc.stats.n_degraded == len(degraded) and not wrong
             and shed_error and shed.stats.n_shed == 1 and n_served == 2):
         raise AssertionError(f"serve_faults: {line}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4f: sharded serving (RankingRouter over shard workers)
+# ---------------------------------------------------------------------------
+
+
+def _join_new_threads(before):
+    """Wait for the threads started since ``before`` (a timed-out drain's
+    runs on after the router gives up on it), so that none outlives its
+    phase."""
+    import threading
+    for th in set(threading.enumerate()) - before:
+        th.join(timeout=120.0)
+
+
+def serve_router(torch, params, cfg, index, requests, label, name, n_shards,
+                 want, passes=1, **kw):
+    """Serve ``requests`` ``passes`` times through a RankingRouter of
+    ``n_shards`` workers sharing the card, after a one-request warm-up on
+    another router; every pass's scores must equal ``want`` (a
+    single-process run's, per pass) bit for bit.  Prints the merged and
+    per-worker stats and the router's overhead: ``admit_s`` (the submits,
+    query encodes among them), ``query_encode_s`` and ``merge_s`` (the
+    router's drain wall less its slowest worker's: threads, waits, the
+    scatter of scores); returns each pass's scores, the launches and the
+    line."""
+    from repro_torch.serving import RankingRouter, RankRequest
+    warm = RankingRouter(params, cfg, index, n_shards=n_shards,
+                         micro_batch=MICRO_BATCH,
+                         use_layer_kv=kw.get("use_layer_kv"))
+    q, qv, ids = requests[0]
+    warm.rank(q, qv, ids[:MICRO_BATCH])
+    del warm
+    router = RankingRouter(params, cfg, index, n_shards=n_shards,
+                           micro_batch=MICRO_BATCH, **kw)
+    torch.cuda.synchronize()
+    walls, admits = [], []
+
+    def drain():
+        out = []
+        for _ in range(passes):
+            t0 = time.perf_counter()
+            for i, (q, qv, ids) in enumerate(requests):
+                router.submit(RankRequest(q, qv, ids, request_id=f"r{i}"))
+            admits.append(time.perf_counter() - t0)
+            out.append(router.drain())
+            walls.append(time.perf_counter() - t0)
+        return out
+
+    resps, launches = counted(drain)
+    runs = [_scores(r) for r in resps]
+    diffs = [max_diff(run, w) for run, w in zip(runs, want)]
+    unequal = [sum(run[k] != w[k] for k in w) for run, w in zip(runs, want)]
+    st, per = router.stats, router.worker_stats
+    wall = sum(walls)
+    worker_keys = ("n_rows", "n_batches", "n_pad_rows", "h2d_bytes",
+                   "load_s", "combine_s", "wall_s", "n_doc_cache_hit",
+                   "n_doc_cache_miss", "resident_docs")
+    line = {"phase": "serve_sharded", "run": label, "device": name,
+            "n_shards": n_shards, "owned_docs": [w.n_owned
+                                                 for w in router.workers],
+            "requests": len(requests) * passes, "wall_s": wall,
+            "pass_wall_s": walls, "qps": len(requests) * passes / wall,
+            "docs_per_s": st.n_rows / wall, "admit_s": sum(admits),
+            "query_encode_s": st.query_encode_s,
+            "merge_s": st.wall_s - max(w.wall_s for w in per),
+            "merged": {k: getattr(st, k) for k in worker_keys + (
+                "n_requests", "n_join_dispatch", "n_decode_dispatch",
+                "n_retries", "n_failovers", "n_degraded")},
+            "workers": [{k: getattr(w, k) for k in worker_keys}
+                        for w in per],
+            "max_abs_diff_vs_service": diffs,
+            "unequal_vs_service": unequal, "launches": launches}
+    emit(line)
+    if any(unequal) or any(len(run) != len(w) for run, w in zip(runs, want)):
+        raise AssertionError(f"serve_sharded {label}: router scores are not "
+                             f"bit-equal to the single-process service's")
+    if st.n_rows != len(requests) * N_CANDIDATES * passes \
+            or st.n_decode_dispatch or st.n_degraded:
+        raise AssertionError(f"serve_sharded {label}: {line['merged']}")
+    return runs, launches, line
+
+
+def sharded_faults(torch, params, cfg, index, requests, name, clean,
+                   drain_wall_s):
+    """The router's recovery ladder on the card, 2 workers: a transient
+    ``engine.score`` fault on shard 1 is retried; a persistent
+    ``worker.drain`` fault on shard 0 is failed over; a ``latency`` fault
+    past ``drain_timeout_s`` marks shard 1 dead and the fallback serves
+    its rows within the timeout plus one drain (``drain_wall_s``: the
+    fault-free 2-worker router's pass over the same requests; ``wall_s``
+    is the router's drain, the submits before it apart).  Every score
+    bit-equal to ``clean``."""
+    import threading
+
+    from repro_torch.serving import (FaultPlan, FaultSpec, RankingRouter,
+                                     RankRequest, WorkerHealth)
+    cases = {
+        "retry": (dict(), [FaultSpec("engine.score", "error", tag=1,
+                                     count=1)]),
+        "failover": (dict(retry_backoff_s=0.0),
+                     [FaultSpec("worker.drain", "error", tag=0,
+                                count=None)]),
+        "timeout": (dict(drain_timeout_s=SHARD_TIMEOUT_S, max_retries=0),
+                    [FaultSpec("worker.drain", "latency", tag=1,
+                               latency_s=SHARD_STALL_S)]),
+    }
+    out = {}
+    for case, (kw, specs) in cases.items():
+        before = set(threading.enumerate())
+        router = RankingRouter(params, cfg, index, n_shards=2,
+                               micro_batch=MICRO_BATCH, **kw)
+        with FaultPlan(specs, seed=SEED) as plan:
+            for i, (q, qv, ids) in enumerate(requests):
+                router.submit(RankRequest(q, qv, ids, request_id=f"r{i}"))
+            t0 = time.perf_counter()
+            resps = router.drain()
+            wall = time.perf_counter() - t0
+        got = _scores(resps)
+        st = router.stats
+        out[case] = {
+            "fired": plan.n_fired(), "wall_s": wall,
+            "n_retries": st.n_retries, "n_failovers": st.n_failovers,
+            "n_degraded": st.n_degraded,
+            "health": [h.state for h in router.health],
+            "timeouts": [h.n_timeouts for h in router.health],
+            "unequal": sum(got.get(k) != v for k, v in clean.items())}
+        _join_new_threads(before)
+        del router
+    limit = SHARD_TIMEOUT_S + drain_wall_s
+    line = {"phase": "serve_sharded_faults", "device": name, **out,
+            "timeout_s": SHARD_TIMEOUT_S, "stall_s": SHARD_STALL_S,
+            "timeout_wall_limit_s": limit}
+    emit(line)
+    r, f, t = out["retry"], out["failover"], out["timeout"]
+    if not (r["fired"] == 1 and r["n_retries"] > 0 and not r["n_failovers"]
+            and f["n_failovers"] > 0 and t["n_failovers"] > 0
+            and t["health"][1] == WorkerHealth.DEAD
+            and t["timeouts"][1] == 1 and t["wall_s"] <= limit
+            and not any(c["unequal"] or c["n_degraded"]
+                        for c in out.values())):
+        raise AssertionError(f"serve_sharded_faults: {line}")
+
+
+def sharded_phases(torch, params, cfg, index, requests, name, launches,
+                   index_name, want, shard_counts, **kw):
+    """``serve_sharded`` over one index: the router at each of
+    ``shard_counts`` workers against the single-process bf16 run
+    ``want``, between two more single-process runs of the same requests
+    (serving walls drift between phases, so the scaling line compares
+    runs made in turn); returns the router lines by worker count."""
+    lines, qps = {}, {}
+    service = lambda label: serve(torch, params, cfg, index, requests,
+                                  f"cuda_{index_name}_{label}", name,
+                                  **kw)[2]["qps"]
+    before = service("service_before")
+    for n in shard_counts:
+        path = f"serve_sharded_{index_name}_{n}"
+        _, launches[path], lines[n] = serve_router(
+            torch, params, cfg, index, requests, f"cuda_{index_name}_{n}",
+            name, n, [want], **kw)
+        qps[n] = lines[n]["qps"]
+    emit({"phase": "serve_sharded_scaling", "index": index_name,
+          "device": name, "service_qps": [before, service("service_after")],
+          "router_qps": qps})
+    return lines
 
 
 def _stage_diff(a, b, stage):
@@ -1933,7 +2199,8 @@ def profile_run(torch, name, label, fn, **extra):
     emit({"phase": "profile", "run": label, "device": name, **extra,
           "wall_ms": wall_ms,
           **_device_time(read[0], wall_ms, sum(
-              n for k, n in launched.items() if k not in ROUTE_COUNTERS))})
+              n for k, n in launched.items()
+              if k not in ROUTE_COUNTERS + SHAPE_COUNTERS))})
 
 
 def _device_time(events, wall_ms, launched):
@@ -2370,6 +2637,117 @@ def recsys_phases(torch, name, launches, rows):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: BERT4Rec's PreTTR split
+# ---------------------------------------------------------------------------
+
+
+def bert4rec_phase(torch, name, launches):
+    """BERT4Rec at ``configs.bert4rec.full_config`` (2^20 items, 200 slots,
+    d 64, 2 heads of 32, split after layer 1 of 2, bf16) at serve_p99
+    (REC_P99 histories): ``precompute_history`` (the history through
+    layer 0, offline) and ``serve_scores_from_reps`` (a [MASK] slot joined
+    to it through layer 1, online) through the kernels and through the
+    plain impl, bf16 and float32; the kernels' bf16 scores held to twice
+    the plain impl's own bf16 rounding, float32 to the served-score limit;
+    top-100 from those scores beside one ``torch.topk``; ``serve_topk``
+    timed on the plain impl (its one range mixes split flags); and
+    ``forward_hidden`` on the kernel impl must raise that refusal before
+    any launch."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.bert4rec import full_config
+    from repro_torch.data.recsys import item_seq_batch
+    from repro_torch.models.recsys import bert4rec as TB
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = full_config()
+    cfgs = {"cuda_bf16": cfg,
+            "plain_bf16": dataclasses.replace(cfg, attn_impl="plain"),
+            "cuda_f32": dataclasses.replace(cfg, compute_dtype=torch.float32),
+            "plain_f32": dataclasses.replace(cfg, attn_impl="plain",
+                                             compute_dtype=torch.float32)}
+    params = TB.init_bert4rec(cfg, torch.Generator(device="cuda")
+                              .manual_seed(SEED))
+    batch = item_seq_batch(np.random.default_rng(SEED), REC_P99,
+                           n_items=cfg.n_items, seq_len=cfg.seq_len)
+    # a user's history is the item sequence itself: the Cloze holes filled
+    hist = np.where(batch["targets"] > 0, batch["targets"],
+                    batch["item_seq"])
+    seq = torch.from_numpy(hist.astype(np.int64)).cuda()
+    valid = torch.from_numpy(batch["valid"]).cuda()
+    out, ms = {}, {}
+    for run, c in cfgs.items():
+        history, join = BERT4REC_PATHS[run]
+        with torch.inference_mode():
+            reps, launches[history] = counted(
+                lambda: TB.precompute_history(params, c, seq, valid))
+            scores, launches[join] = counted(
+                lambda: TB.serve_scores_from_reps(params, c, reps, valid))
+            ms[run] = {
+                "history": wall_ms(torch, lambda: TB.precompute_history(
+                    params, c, seq, valid)),
+                "join": wall_ms(torch, lambda: TB.serve_scores_from_reps(
+                    params, c, reps, valid))}
+        out[run] = (reps.float(), scores)
+    diff = lambda a, b, i: (out[a][i] - out[b][i]).abs().max().item()
+    rounding = diff("plain_bf16", "plain_f32", 1)
+    agree = {"scores_bf16_max_abs_diff": diff("cuda_bf16", "plain_bf16", 1),
+             "scores_bf16_limit": 2 * rounding,
+             "bf16_rounding_of_plain": rounding,
+             "reps_bf16_max_abs_diff": diff("cuda_bf16", "plain_bf16", 0),
+             "reps_bf16_limit": 2 * diff("plain_bf16", "plain_f32", 0),
+             "scores_f32_max_abs_diff": diff("cuda_f32", "plain_f32", 1),
+             "reps_f32_max_abs_diff": diff("cuda_f32", "plain_f32", 0),
+             "f32_tol": 1e-3}
+    scores = out["cuda_bf16"][1]
+    with torch.inference_mode():
+        vals, ids = TB.two_stage_topk(scores, 100, 16)
+        want_v = torch.topk(scores, 100, dim=-1).values
+        topk_ok = bool(torch.equal(vals, want_v)) and bool(torch.equal(
+            torch.take_along_dim(scores, ids, 1), vals))
+        topk_ms = wall_ms(torch, lambda: TB.two_stage_topk(scores, 100, 16))
+        item_seq = torch.from_numpy(batch["item_seq"].astype(np.int64)) \
+            .cuda()
+        masked = item_seq.clone()
+        last = valid.long().sum(-1) - 1
+        masked[torch.arange(REC_P99, device="cuda"), last] = TB.MASK_ITEM
+        serve_topk_ms = wall_ms(torch, lambda: TB.serve_topk(
+            params, cfgs["plain_bf16"], masked, valid, k=100), n=3)
+        try:
+            _, refused_launches = counted(lambda: TB.forward_hidden(
+                params, cfg, masked, valid))
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+            refused_launches = {k: getattr(w, a) for k, (w, a)
+                                in launch_counters().items()}
+    line = {"phase": "bert4rec", "device": name, "batch": REC_P99,
+            "seq_len": cfg.seq_len, "n_items": cfg.n_items + 2,
+            "head_dim": cfg.backbone().dh, "prettr_l": cfg.prettr_l,
+            "table_bytes": nbytes(params["embed"]["tokens"]),
+            "scores_bytes": nbytes(scores), "ms": ms, **agree,
+            "top100_ok": topk_ok, "top100_ms": topk_ms,
+            "serve_topk_plain_ms": serve_topk_ms,
+            "forward_hidden_refusal": refusal,
+            "refusal_launches": sum(refused_launches.values()),
+            "launches": {p: launches[p] for p in BERT4REC_PATHS["cuda_bf16"]},
+            **memory(torch)}
+    emit(line)
+    finite = all(bool(torch.isfinite(o[1]).all()) for o in out.values())
+    if not (finite and topk_ok
+            and agree["scores_bf16_max_abs_diff"] <= agree[
+                "scores_bf16_limit"]
+            and agree["reps_bf16_max_abs_diff"] <= agree["reps_bf16_limit"]
+            and agree["scores_f32_max_abs_diff"] <= agree["f32_tol"]
+            and agree["reps_f32_max_abs_diff"] <= agree["f32_tol"]
+            and refusal and "uniform split-flag" in refusal
+            and line["refusal_launches"] == 0):
+        raise AssertionError(f"bert4rec: {line}")
+
+
 def main():
     # cuBLAS's workspace made explicit (the size PyTorch picks on Hopper),
     # so the checkpoint phase may run under use_deterministic_algorithms
@@ -2423,6 +2801,7 @@ def main():
 
     launches = {}                  # path -> kernel -> launches
     lines = {}                     # path -> its serve line
+    added_s = {}                   # the sharded and BERT4Rec phases' walls
     plain = lambda c: dataclasses.replace(c, backbone=dataclasses.replace(
         c.backbone, attn_impl="plain", compress_impl="plain"))
 
@@ -2546,6 +2925,15 @@ def main():
         serve_faults(torch, params, cfg, index, requests, name,
                      fused_runs["serve"][0])
         profile_serve(torch, params, cfg, index, requests, name)
+        # 4f. the router over the same index: 1, 2 and 4 workers sharing
+        #     the card, bit-equal to the service; then its fault ladder
+        t0 = time.perf_counter()
+        router_lines = sharded_phases(
+            torch, params, cfg, index, requests, name, launches, "fp16",
+            fused_runs["serve"][0], SHARD_COUNTS["fp16"])
+        sharded_faults(torch, params, cfg, index, requests, name,
+                       fused_runs["serve"][0], router_lines[2]["wall_s"])
+        added_s["serve_sharded_fp16"] = time.perf_counter() - t0
         del index
 
     # 4b. int8 reps with int8 layer-l K/V: the index, then the service
@@ -2555,12 +2943,17 @@ def main():
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
         index, _ = build(tmp, "index_int8", codec="int8",
                          store_layer_kv=True, kv_codec="int8")
-        serve_both(index, requests,
+        int8_runs = serve_both(index, requests,
                    ("serve_int8_kv", "plain_int8_kv_bf16",
                     "serve_int8_kv_f32", "plain_int8_kv_f32"),
                    ("cuda_int8_kv_bf16", "plain_int8_kv_bf16",
                     "cuda_int8_kv_f32", "plain_int8_kv_f32"),
                    use_layer_kv=True)
+        t0 = time.perf_counter()
+        sharded_phases(torch, params, cfg, index, requests, name, launches,
+                       "int8_kv", int8_runs["serve_int8_kv"][0],
+                       SHARD_COUNTS["int8_kv"], use_layer_kv=True)
+        added_s["serve_sharded_int8_kv"] = time.perf_counter() - t0
         uncached, launches["serve_int8_kv_zipf_f32"], _ = serve(
             torch, params, cfg32, index, zipf, "cuda_int8_kv_zipf_f32", name,
             use_layer_kv=True)
@@ -2571,6 +2964,29 @@ def main():
                            "cuda_cached_f32", "plain_cached_f32"),
                           passes=2, use_layer_kv=True, doc_cache_mb=CACHE_MB,
                           page_tokens=PAGE_TOKENS)
+        # the router with a paged doc cache of CACHE_MB a worker: cold
+        # then warm, each pass bit-equal to the service's
+        t0 = time.perf_counter()
+        sh_runs, launches["serve_sharded_cached"], sh_line = serve_router(
+            torch, params, cfg, index, zipf, "cuda_cached_2", name, 2,
+            runs["serve_cached"], passes=2, use_layer_kv=True,
+            doc_cache_mb=CACHE_MB, page_tokens=PAGE_TOKENS)
+        sh_cached = {"phase": "serve_sharded_cached", "device": name,
+                     "warm_vs_cold_max_abs_diff": max_diff(sh_runs[0],
+                                                           sh_runs[1]),
+                     "pass_qps": [N_CACHED_REQUESTS / w
+                                  for w in sh_line["pass_wall_s"]],
+                     "paged_join_launches": launches[
+                         "serve_sharded_cached"]["join_attention_paged"],
+                     "doc_cache_hit": sh_line["merged"]["n_doc_cache_hit"],
+                     "doc_cache_miss": sh_line["merged"]["n_doc_cache_miss"]}
+        emit(sh_cached)
+        if sh_cached["warm_vs_cold_max_abs_diff"] \
+                or not sh_cached["paged_join_launches"] \
+                or not (sh_cached["doc_cache_hit"]
+                        and sh_cached["doc_cache_miss"]):
+            raise AssertionError(f"serve_sharded_cached: {sh_cached}")
+        added_s["serve_sharded_cached"] = time.perf_counter() - t0
         del index
     cold_warm = {p: max_diff(runs[p][0], runs[p][1]) for p in paths}
     cached = {"phase": "serve_cached_checks", "device": name,
@@ -2590,10 +3006,15 @@ def main():
     #     hot-document stream; then fp16 reps pruned to half their tokens
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
         index, pq_line = build(tmp, "index_pq", codec="pq")
-        serve_both(index, requests, ("serve_pq", "plain_pq_bf16",
-                                     "serve_pq_f32", "plain_pq_f32"),
-                   ("cuda_pq_bf16", "plain_pq_bf16", "cuda_pq_f32",
-                    "plain_pq_f32"))
+        pq_runs = serve_both(index, requests, ("serve_pq", "plain_pq_bf16",
+                                               "serve_pq_f32",
+                                               "plain_pq_f32"),
+                             ("cuda_pq_bf16", "plain_pq_bf16", "cuda_pq_f32",
+                              "plain_pq_f32"))
+        t0 = time.perf_counter()
+        sharded_phases(torch, params, cfg, index, requests, name, launches,
+                       "pq", pq_runs["serve_pq"][0], SHARD_COUNTS["pq"])
+        added_s["serve_sharded_pq"] = time.perf_counter() - t0
         emit({"phase": "pq_h2d", "device": name,
               "h2d_bytes": {p: lines[p]["h2d_bytes"] for p in
                             ("serve", "serve_int8_kv", "serve_pq")},
@@ -2702,7 +3123,14 @@ def main():
     # 7. the recsys models, once the LM's state is freed
     recsys_phases(torch, name, launches, rows)
 
-    # 8. kernels line: `launches` counts the main paths (the index builds,
+    # 8. BERT4Rec's PreTTR split at serve_p99
+    t0 = time.perf_counter()
+    bert4rec_phase(torch, name, launches)
+    added_s["bert4rec"] = time.perf_counter() - t0
+    emit({"phase": "sharded_and_bert4rec_wall", "device": name,
+          "seconds": added_s, "total_s": sum(added_s.values())})
+
+    # 9. kernels line: `launches` counts the main paths (the index builds,
     #    the bf16 drains, the LM's bf16 prefill and decode and the recsys
     #    paths of MAIN_PATHS); `launches_by_path` each counted path alone
     for row in rows:

@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's params pytrees (PreTTR's, the
-transformer LM's and the recsys models') -> the port's params.
+transformer LM's, BERT4Rec's and the recsys models') -> the port's
+params.
 
 The JAX tree comes in as nested dicts of numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``, or :func:`read_jax_checkpoint` of a
@@ -61,6 +62,13 @@ def lm_params_from_jax(tree: dict, cfg: TransformerConfig,
     if not cfg.tie_embeddings:
         out["lm_head"] = _tensor(tree["lm_head"], dev)
     return out
+
+
+def bert4rec_params_from_jax(tree: dict, cfg, device=None) -> dict:
+    """JAX ``init_bert4rec`` params (numpy leaves) -> the port's on
+    ``device`` (``None`` means the card): its backbone's transformer
+    params (tied head, so no ``lm_head``)."""
+    return lm_params_from_jax(tree, cfg.backbone(), device)
 
 
 def recsys_params_from_jax(tree: dict, cfg, device=None,

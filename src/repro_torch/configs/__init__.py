@@ -3,10 +3,11 @@ ten assigned architectures and the paper's own model.
 
 ``get_arch(name)`` -> :class:`ArchSpec` with the published full config, a
 reduced smoke config of the same family and the architecture's shape-cell
-table, for the five configs the port has (``prettr-bert``, ``gemma3-4b``,
-``dlrm-mlperf``, ``deepfm``, ``xdeepfm``).  A name the JAX registry knows
-whose model the port has not ported yet raises ``NotImplementedError``
-naming the ``ROADMAP.md`` Queue 1 item that ports it.
+table, for the six configs the port has (``prettr-bert``, ``gemma3-4b``,
+``dlrm-mlperf``, ``deepfm``, ``xdeepfm``, ``bert4rec``).  A name the JAX
+registry knows whose model the port has not ported yet raises
+``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that ports
+it.
 """
 from __future__ import annotations
 
@@ -79,7 +80,6 @@ NOT_PORTED = {
     "qwen3-moe-235b-a22b": "item 5 (MoE and the other LM configs)",
     "granite-moe-3b-a800m": "item 5 (MoE and the other LM configs)",
     "dimenet": "item 6 (DimeNet)",
-    "bert4rec": "item 4 (BERT4Rec)",
 }
 
 ALL_ARCHS = tuple(_ARCH_MODULES)

@@ -1,6 +1,8 @@
 """Device selection shared by every entry point of the port."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,3 +24,12 @@ def to_device(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_device(v, device) for v in tree)
     return tree.to(device)
+
+
+def device_scope(device: torch.device):
+    """Make ``device`` the calling thread's current card while the block
+    runs (the kernels' C entries launch on the current device, and a new
+    thread starts on card 0); a no-op for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

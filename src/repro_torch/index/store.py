@@ -28,6 +28,11 @@ the chunks each read touches (``repro_torch.index.integrity``).  A
 manifest without the block (v1, or a build with
 ``checksum_chunk_bytes=0``) opens unverified.  Indexes written by either
 package open in both.
+
+For sharded serving, :meth:`TermRepIndex.serving_assignment` maps each
+doc to a serving shard along the physical shard files and
+:meth:`TermRepIndex.shard_view` gives one shard's
+:class:`ShardIndexView`, which refuses ids it does not own.
 """
 from __future__ import annotations
 
@@ -445,3 +450,160 @@ class TermRepIndex:
                              valid.numpy()))
         return ({k: t.to(dev, non_blocking=True) for k, t in host.items()},
                 valid.to(dev, non_blocking=True))
+
+    def gather(self, doc_ids: Sequence[int], pad_to: int | None = None):
+        """Decoded float batch on the host -> (reps ``[N, Ld, e]``, valid
+        ``[N, Ld]``): the stored bytes as they are for a float codec, the
+        codec's decode for the others.  Reads the codec's streams only,
+        never the layer-``l`` K/V pair."""
+        parts, valid = self.gather_raw(
+            doc_ids, pad_to=pad_to,
+            streams=list(self.codec.streams(self.rep_dim)))
+        return self.codec.decode(parts), valid
+
+    def load_docs(self, doc_ids: Sequence[int], pad_to: int | None = None):
+        """Alias of :meth:`gather` (the original per-doc API's name)."""
+        return self.gather(doc_ids, pad_to=pad_to)
+
+    # -- scale-out serving ---------------------------------------------------
+    def serving_assignment(self, n_serving: int) -> np.ndarray:
+        """Each doc id's serving shard (``[N]`` int64), aligned with the
+        physical shard files so that a doc's bytes stay with the worker
+        that stores them: with ``n_serving <= n_shards`` physical shard
+        ``s`` goes whole to ``s % n_serving``; with more serving shards,
+        each physical shard's docs are split contiguously among serving
+        shards ``s, s + n_shards, ...``.  Deterministic, so the router and
+        its workers compute it alike."""
+        if n_serving < 1:
+            raise ValueError(f"n_serving must be >= 1, got {n_serving}")
+        phys = self._doc_table[:, 0]
+        n_phys = max(1, self.n_shards)
+        out = np.empty(len(phys), np.int64)
+        if n_serving <= n_phys:
+            out[:] = phys % n_serving
+            return out
+        for si in range(n_phys):
+            sel = np.flatnonzero(phys == si)
+            if sel.size == 0:
+                continue
+            targets = np.arange(si, n_serving, n_phys, dtype=np.int64)
+            out[sel] = targets[(np.arange(sel.size) * targets.size)
+                               // sel.size]
+        return out
+
+    def shard_view(self, assignment: np.ndarray,
+                   shard_id: int) -> "ShardIndexView":
+        """The ownership-checking view of the docs ``assignment`` (see
+        :meth:`serving_assignment`) routes to ``shard_id``."""
+        return ShardIndexView(self, assignment, shard_id)
+
+    @staticmethod
+    def projected_storage_bytes(n_docs: int, avg_tokens: float, rep_dim: int,
+                                bytes_per_val: float,
+                                keep_frac: float = 1.0) -> int:
+        """The paper's section 6.2 projection (ClueWeb09-B: 112 TB raw ->
+        2.8 TB at e = 128 fp16).  ``bytes_per_val`` may be fractional (pq's
+        sub-byte codes) and ``keep_frac`` scales the tokens for index-time
+        pruning."""
+        return int(n_docs * avg_tokens * keep_frac * rep_dim * bytes_per_val)
+
+
+class ShardIndexView:
+    """One serving shard's window onto a :class:`TermRepIndex`.
+
+    The view keeps the global doc-id space (``len(view) == len(base)``)
+    but owns only the docs its ``assignment`` maps to ``shard_id``.  Every
+    method that takes doc ids (:meth:`gather_raw`, :meth:`stage`,
+    :meth:`gather`, :meth:`load_docs`) checks them first and raises
+    IndexError on an out-of-range id or one another shard stores, naming
+    that shard, instead of reading its bytes.  Everything else (codec,
+    streams, ``rep_dim``, ``l``, K/V metadata, the doc table the fault
+    injector reads) comes from the base index, so a view drops into
+    ``BatchEngine``, ``DeviceDocCache`` and ``validate_index_compat``."""
+
+    def __init__(self, base: TermRepIndex, assignment: np.ndarray,
+                 shard_id: int):
+        assignment = np.asarray(assignment, np.int64).reshape(-1)
+        if len(assignment) != len(base):
+            raise ValueError(
+                f"assignment maps {len(assignment)} docs but the index "
+                f"has {len(base)}")
+        if not (0 <= shard_id < max(1, assignment.max(initial=0) + 1)):
+            raise ValueError(
+                f"shard_id {shard_id} outside the assignment's range "
+                f"[0, {assignment.max(initial=0) + 1})")
+        self.base = base
+        self.assignment = assignment
+        self.shard_id = int(shard_id)
+        self._owned_mask = assignment == self.shard_id
+
+    def __getattr__(self, name):
+        # the id-independent surface; "base" itself never delegates (a
+        # half-built or unpickled view would recurse)
+        if name == "base":
+            raise AttributeError(name)
+        return getattr(self.base, name)
+
+    def __len__(self):
+        return len(self.base)
+
+    @property
+    def n_owned(self) -> int:
+        return int(self._owned_mask.sum())
+
+    @property
+    def owned_ids(self) -> np.ndarray:
+        """Global ids of the docs this shard stores (``[n_owned]``)."""
+        return np.flatnonzero(self._owned_mask)
+
+    def owns(self, doc_ids) -> np.ndarray:
+        """Per-id residency (``[n]`` bool); out-of-range ids are False."""
+        ids = np.asarray(list(doc_ids), np.int64).reshape(-1)
+        ok = (ids >= 0) & (ids < len(self.base))
+        out = np.zeros(ids.size, bool)
+        out[ok] = self._owned_mask[ids[ok]]
+        return out
+
+    def describe_misroute(self, doc_ids) -> str | None:
+        """The first few in-range ids this shard does not store, with the
+        shard that does (None when it stores them all); the hook
+        ``validate_doc_routing`` reads at admission."""
+        ids = np.asarray(list(doc_ids), np.int64).reshape(-1)
+        in_range = ids[(ids >= 0) & (ids < len(self.base))]
+        bad = in_range[~self._owned_mask[in_range]]
+        if bad.size == 0:
+            return None
+        shown = bad[:4]
+        pairs = ", ".join(f"{d}->shard {h}"
+                          for d, h in zip(shown, self.assignment[shown]))
+        more = f" (+{bad.size - shown.size} more)" if bad.size > 4 else ""
+        return (f"doc id(s) routed to serving shard {self.shard_id} but "
+                f"resident elsewhere: {pairs}{more} — shard-affinity "
+                f"routing must send each candidate to the shard that "
+                f"stores its bytes (TermRepIndex.serving_assignment)")
+
+    def _check(self, doc_ids) -> np.ndarray:
+        ids = np.asarray(list(doc_ids), np.int64).reshape(-1)
+        if ids.size and (ids.min() < 0 or ids.max() >= len(self.base)):
+            raise IndexError(
+                f"doc id out of range [0, {len(self.base)}) in gather()")
+        msg = self.describe_misroute(ids)
+        if msg:
+            raise IndexError(msg)
+        return ids
+
+    def gather_raw(self, doc_ids, pad_to=None, streams=None, out=None):
+        return self.base.gather_raw(self._check(doc_ids), pad_to=pad_to,
+                                    streams=streams, out=out)
+
+    def stage(self, doc_ids, pad_to=None, streams=None, device=None):
+        # the base's stage reads through the base's gather_raw, past this
+        # view's check: check here first
+        return self.base.stage(self._check(doc_ids), pad_to=pad_to,
+                               streams=streams, device=device)
+
+    def gather(self, doc_ids, pad_to=None):
+        return self.base.gather(self._check(doc_ids), pad_to=pad_to)
+
+    def load_docs(self, doc_ids, pad_to=None):
+        return self.gather(doc_ids, pad_to=pad_to)

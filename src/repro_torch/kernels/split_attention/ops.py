@@ -13,7 +13,8 @@ one per kernel the C entry routed the call to:
 ``.tensor_core_launches`` (``split_attention_tc_kernel``: bf16 / fp16 q,
 head dim 64, 128 or 256, Sq > 1, 16-byte aligned operands) and
 ``.cuda_core_launches`` (``split_attention_kernel``: everything else,
-float32 q among it)."""
+float32 q among it); and ``.d32_launches``, the launches at head dim 32
+(BERT4Rec's heads), on top of their form's and their kernel's count."""
 from __future__ import annotations
 
 import math
@@ -24,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.masking import last_valid_lengths
 from repro_torch.kernels.split_attention.ref import split_attention_ref
 
-# 16 smoke_config's head dim, 64 PreTTR-BERT's, 256 gemma3's
+# 16 smoke_config's head dim, 32 BERT4Rec's, 64 PreTTR-BERT's, 256 gemma3's
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
@@ -95,6 +96,8 @@ def split_flash_attention(q, k, v, lengths=None, k_valid=None, k_scales=None,
         fn.tensor_core_launches += 1
     else:
         fn.cuda_core_launches += 1
+    if d == 32:
+        fn.d32_launches += 1
     if quant:
         fn.int8_launches += 1
     elif window > 0:
@@ -112,6 +115,7 @@ split_flash_attention.window_launches = 0
 split_flash_attention.int8_launches = 0
 split_flash_attention.tensor_core_launches = 0
 split_flash_attention.cuda_core_launches = 0
+split_flash_attention.d32_launches = 0
 
 
 def _check(q, k, v, quant: bool):

@@ -16,7 +16,8 @@ same ``--l`` / ``--compress-dim`` / ``--n-docs``).  ``--distill-steps``
 pre-trains the compressor with the paper's attention-MSE loss (Eq. 2) on
 CAR-style heading / paragraph pairs before encoding
 (:func:`distill_compressor`).  Not ported: the data-parallel build
-(``--data-parallel``; ROADMAP.md Queue 1 item 3): it raises.
+(``--data-parallel``; ROADMAP.md Queue 1 item 7, device meshes): it
+raises.
 """
 from __future__ import annotations
 
@@ -109,7 +110,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.data_parallel:
         raise SystemExit("--data-parallel is not ported (ROADMAP.md Queue 1 "
-                         "item 3, sharded serving and lookups)")
+                         "item 7, device meshes)")
 
     attn_impl, compress_impl = impls_for(args.backend)
     cfg = smoke_config(l=args.l, compress_dim=args.compress_dim,

@@ -9,11 +9,13 @@ re-ranking queries, the twin of ``repro.launch.serve``.
    Table 5's Query / load / Combine split; ``--service`` serves through
    :class:`~repro_torch.serving.RankingService` instead (``--concurrency``
    queries admitted at a time, packed into shared micro-batches) and
-   reports requests/s with p50 / p99 latency.
+   reports requests/s with p50 / p99 latency; with ``--serving-shards
+   N`` it serves through a :class:`~repro_torch.serving.RankingRouter`
+   of N shard workers (one card each when the machine has N cards,
+   else all on one).
 
 It runs on the card (``--device cpu`` runs the plain versions on the
-CPU).  Not ported: the scale-out router (``--serving-shards`` > 0;
-ROADMAP.md Queue 1 item 3): it raises.
+CPU).
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ def main(argv=None) -> None:
     from repro_torch.index import (IndexBuilder, TermRepIndex,
                                    available_codecs)
     from repro_torch.models.backend import BACKENDS, impls_for
-    from repro_torch.serving import (RankingService, RankRequest, Reranker,
+    from repro_torch.serving import (RankingRouter, RankingService,
+                                     RankRequest, Reranker,
                                      ServiceOverloadError)
 
     ap = argparse.ArgumentParser()
@@ -59,7 +62,8 @@ def main(argv=None) -> None:
                          "packing, prefetch) instead of the Reranker loop")
     ap.add_argument("--concurrency", type=int, default=4)
     ap.add_argument("--serving-shards", type=int, default=0,
-                    help="scale-out router shard workers (not ported)")
+                    help="serve through a RankingRouter of this many shard "
+                         "workers (with --service)")
     ap.add_argument("--store-layer-kv", action="store_true")
     ap.add_argument("--kv-codec", default=None)
     ap.add_argument("--doc-cache-mb", type=float, default=0.0)
@@ -69,9 +73,9 @@ def main(argv=None) -> None:
     ap.add_argument("--max-queue", type=int, default=0)
     ap.add_argument("--verify-reads", action="store_true")
     args = ap.parse_args(argv)
-    if args.serving_shards > 0:
-        raise SystemExit("--serving-shards is not ported (ROADMAP.md Queue 1 "
-                         "item 3, sharded serving)")
+    if args.serving_shards > 0 and not args.service:
+        raise SystemExit("--serving-shards serves through the router: add "
+                         "--service")
 
     attn_impl, compress_impl = impls_for(args.backend)
     cfg = smoke_config(l=args.l, compress_dim=args.compress_dim,
@@ -117,13 +121,27 @@ def main(argv=None) -> None:
 
     # ---- phase 2: serve ----------------------------------------------------
     if args.service:
-        svc = RankingService(params, cfg, idx, micro_batch=args.micro_batch,
-                             fused=not args.legacy_join,
-                             doc_cache_mb=args.doc_cache_mb,
-                             page_tokens=args.doc_cache_page,
-                             page_bucket=args.doc_cache_bucket,
-                             max_queue=args.max_queue or None,
-                             device=args.device)
+        kw = dict(micro_batch=args.micro_batch, fused=not args.legacy_join,
+                  doc_cache_mb=args.doc_cache_mb,
+                  page_tokens=args.doc_cache_page,
+                  page_bucket=args.doc_cache_bucket,
+                  max_queue=args.max_queue or None)
+        if args.serving_shards > 0:
+            n = args.serving_shards
+            # one card a worker when there are enough; else they share one
+            # (the same scores either way)
+            devices = ([torch.device("cuda", i) for i in range(n)]
+                       if args.device is None
+                       and torch.cuda.device_count() >= n else None)
+            svc = RankingRouter(params, cfg, idx, n_shards=n,
+                                devices=devices, device=args.device, **kw)
+            pinned = "one card each" if devices else \
+                f"sharing {svc.device}"
+            print(f"[serve] scale-out: {n} shard workers ({pinned}; "
+                  + ", ".join(f"s{w.shard_id}={w.n_owned} docs"
+                              for w in svc.workers) + ")")
+        else:
+            svc = RankingService(params, cfg, idx, device=args.device, **kw)
         q0, qv0 = pack_query(world.queries[0], cfg.max_query_len)
         svc.rank(q0, qv0, list(world.candidates(0, k=args.candidates)),
                  request_id="warmup")
@@ -156,8 +174,10 @@ def main(argv=None) -> None:
         cache_note = (f" doc_cache_hit={s.doc_cache_hit_rate:.2f} "
                       f"resident_docs={s.resident_docs}"
                       if svc.doc_cache is not None else "")
-        fault_note = (f" shed={s.n_shed} degraded={n_degraded}"
-                      if s.n_shed or n_degraded else "")
+        fault_note = (f" shed={s.n_shed} degraded={n_degraded} "
+                      f"retries={s.n_retries} failovers={s.n_failovers}"
+                      if s.n_shed or n_degraded or s.n_retries
+                      or s.n_failovers else "")
         print(f"[serve] service mode: {len(lat_s)} queries x "
               f"{args.candidates} candidates, concurrency={args.concurrency}"
               f" | QPS={len(lat_s) / wall:.2f} p50={p50 * 1e3:.1f}ms "

@@ -14,7 +14,8 @@ plain ``index_add_``.
 ``impl`` picks the gather-reduce: ``"cuda"`` calls the kernel wrapper
 (the kernel on CUDA tensors, its plain version on CPU ones), ``"plain"``
 the plain version everywhere.  The row sharding of the JAX package
-(``sharded_lookup``) waits for the port's sharding item.
+(``sharded_lookup``) waits for the port's device meshes (ROADMAP.md
+Queue 1 item 7).
 """
 from __future__ import annotations
 

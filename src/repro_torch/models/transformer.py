@@ -301,8 +301,21 @@ def _run_layers(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
     """Layers [lo, hi), each with its own window, RoPE base and split
     flag.  Returns ``(x, kv)``: the per-layer K/V stacked to
     ``[hi - lo, B, S, Hkv, Dh]`` pairs (``collect_cache``), the updated
-    cache (``cache``), else None."""
+    cache (``cache``), else None.
+
+    The kernel impl takes the split mask as one static ``seg_boundary``
+    and cannot mask by per-token segment ids, so on ``"cuda"`` a range
+    whose split flags differ is refused before any layer runs, as the JAX
+    ``pallas`` impl refuses it; windows may differ (each layer passes its
+    own)."""
     windows, bases = cfg.layer_windows(), cfg.layer_rope_bases()
+    splits = [i < cfg.split_layers for i in range(lo, hi)]
+    if cfg.attn_impl == "cuda" and len(set(splits)) > 1:
+        raise ValueError(
+            f"attn_impl='cuda' requires a uniform split-flag per layer "
+            f"range; layers [{lo}, {hi}) mix windows={windows[lo:hi]} "
+            f"splits={splits} — run heterogeneous layers via separate "
+            f"layer ranges or use attn_impl='plain'")
     ks, vs = [], []
     for i in range(lo, hi):
         x, (k, v) = _layer_step(

@@ -28,7 +28,11 @@ matches any.
     Fired in ``BatchEngine._score_batch`` before the join runs: a device
     fault or a wedged dispatch.
 
-The shard workers' ``"worker.drain"`` site comes with the sharded slice.
+``"worker.drain"``
+    Fired at the top of ``ShardWorker.drain`` (the router runs each
+    worker's drain on its own thread).  ``error`` models a crashed or
+    unreachable shard, ``latency`` a wedged one (past the router's drain
+    timeout the worker is declared dead).
 
 Semantics
 ---------
@@ -55,7 +59,7 @@ import time
 
 import numpy as np
 
-SITES = ("index.gather", "engine.stage", "engine.score")
+SITES = ("index.gather", "engine.stage", "engine.score", "worker.drain")
 KINDS = ("latency", "error", "corrupt")
 
 

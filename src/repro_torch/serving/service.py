@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prettr as P
-from repro_torch.device import resolve_device, to_device
+from repro_torch.device import device_scope, resolve_device, to_device
 from repro_torch.serving import faults
 from repro_torch.serving.doc_cache import DeviceDocCache
 
@@ -117,15 +117,28 @@ class ServiceOverloadError(RuntimeError):
     Nothing was enqueued."""
 
 
+#: ServiceStats fields that are one engine's gauges (its doc cache's
+#: residents): a router merging workers takes their max, not their sum
+_STATS_GAUGE_FIELDS = frozenset({"resident_docs"})
+#: overlapped clocks: shard workers drain concurrently, so the fleet's
+#: wall is the slowest one's, not the sum
+_STATS_CONCURRENT_FIELDS = frozenset({"wall_s"})
+
+
 @dataclasses.dataclass
 class ServiceStats:
-    """Aggregate counters across drained batches."""
+    """Aggregate counters across drained batches.  Mergeable
+    (:meth:`merge`, ``+``, ``sum``), field by field, so a counter added
+    later merges too: gauges (``resident_docs``) and overlapped walls
+    (``wall_s``) take the max, every other field sums."""
     n_requests: int = 0
     n_batches: int = 0                    # accepted (not redispatched)
     n_rows: int = 0                       # real candidate rows scored
     n_pad_rows: int = 0                   # shape-padding rows
     n_redispatch: int = 0                 # micro-batches split on deadline
     n_failed_rows: int = 0                # rows a fault failed (-inf)
+    n_retries: int = 0                    # tasks retried on their worker
+    n_failovers: int = 0                  # tasks served by the fallback
     n_degraded: int = 0                   # responses with failed rows
     n_shed: int = 0                       # requests shed at admission
     h2d_bytes: int = 0                    # doc-side bytes copied to device
@@ -151,6 +164,28 @@ class ServiceStats:
         n = self.n_doc_cache_hit + self.n_doc_cache_miss
         return self.n_doc_cache_hit / n if n else 0.0
 
+    def merge(self, other: "ServiceStats") -> "ServiceStats":
+        """Field-complete aggregate of two stat blocks: counters and phase
+        clocks sum, gauges and overlapped walls take the max."""
+        out = ServiceStats()
+        for f in dataclasses.fields(ServiceStats):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            if f.name in _STATS_GAUGE_FIELDS | _STATS_CONCURRENT_FIELDS:
+                setattr(out, f.name, max(a, b))
+            else:
+                setattr(out, f.name, a + b)
+        return out
+
+    def __add__(self, other):
+        if not isinstance(other, ServiceStats):
+            return NotImplemented
+        return self.merge(other)
+
+    def __radd__(self, other):
+        if other == 0:                    # sum([...]) starts at 0
+            return self.merge(ServiceStats())
+        return NotImplemented
+
 
 class SchedulerPolicy:
     """Packing order and straggler policy: requests are admitted by
@@ -158,13 +193,29 @@ class SchedulerPolicy:
     tightest deadline of its requests is split in half and re-dispatched,
     at most ``max_split_depth`` times.  Subclass to change the order
     (:meth:`admission_key`), the batch deadline (:meth:`batch_deadline`)
-    or the split (:meth:`split`)."""
+    or the split (:meth:`split`).  A router gives each worker's drain
+    :meth:`drain_timeout` seconds before it declares the worker dead."""
+
+    #: least seconds a router waits on one worker's drain: generous, for
+    #: a cold worker's first drain; deadlines tighten nothing below it
+    drain_timeout_floor: float = 300.0
 
     def __init__(self, max_split_depth: int = 2):
         self.max_split_depth = max_split_depth
 
     def admission_key(self, state: "_ReqState"):
         return (state.priority, state.seq)
+
+    def drain_timeout(self, deadlines: Sequence[float | None],
+                      n_rows: int = 0) -> float:
+        """A worker drain's wall budget: every row at the slowest
+        deadline with 8x slack (redispatch halves, staging), never below
+        :attr:`drain_timeout_floor`."""
+        ds = [d for d in deadlines if d is not None]
+        if not ds:
+            return self.drain_timeout_floor
+        return max(self.drain_timeout_floor,
+                   8.0 * max(ds) * max(1, n_rows))
 
     def batch_deadline(self, deadlines: Sequence[float | None]
                        ) -> float | None:
@@ -450,13 +501,14 @@ class BatchEngine:
         return payload
 
     def _prefetch_loop(self, in_q: queue.Queue, out_q: queue.Queue):
-        """Prefetch thread: stage the planned batches in order; an error
-        travels with its plan."""
-        while True:
-            plan = in_q.get()
-            if plan is _STOP:
-                return
-            out_q.put(self._staged(plan))
+        """Prefetch thread: stage the planned batches in order, on the
+        engine's card; an error travels with its plan."""
+        with device_scope(self.device):
+            while True:
+                plan = in_q.get()
+                if plan is _STOP:
+                    return
+                out_q.put(self._staged(plan))
 
     def _staged(self, plan: _Plan):
         """(plan, payload, seconds, error): a staging error travels with
@@ -623,7 +675,13 @@ class BatchEngine:
                 done.append(s)
 
     def drain(self) -> list:
-        """Score every enqueued state; returns them in completion order."""
+        """Score every enqueued state; returns them in completion order.
+        Runs with the engine's card current, so a drain on any thread
+        launches there."""
+        with device_scope(self.device):
+            return self._drain()
+
+    def _drain(self) -> list:
         t_wall = time.perf_counter()
         done: list = []
         self._admit_waiting()
@@ -765,6 +823,26 @@ class RankingService:
     @micro_batch.setter
     def micro_batch(self, value: int):
         self.engine.micro_batch = int(value)
+
+    @property
+    def policy(self) -> SchedulerPolicy:
+        return self.engine.policy
+
+    @policy.setter
+    def policy(self, value: SchedulerPolicy):
+        self.engine.policy = value
+
+    @property
+    def prefetch_depth(self) -> int:
+        return self.engine.prefetch_depth
+
+    @property
+    def fused(self) -> bool:
+        return self.engine.fused
+
+    @property
+    def use_layer_kv(self) -> bool:
+        return self.engine.use_layer_kv
 
     @property
     def doc_cache(self) -> DeviceDocCache | None:

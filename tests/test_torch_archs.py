@@ -15,7 +15,8 @@ from repro_torch import configs as T
 from repro_torch.checkpoint import latest_step
 from repro_torch.launch import build_index, eval_quality, train
 
-PORTED = ("prettr-bert", "gemma3-4b", "dlrm-mlperf", "deepfm", "xdeepfm")
+PORTED = ("prettr-bert", "gemma3-4b", "dlrm-mlperf", "deepfm", "xdeepfm",
+          "bert4rec")
 # the backend knobs name each package's own implementations
 IMPL_FIELDS = {"attn_impl", "compress_impl", "bag_impl"}
 

@@ -3,8 +3,9 @@ PyTorch version on the same inputs, the wrappers' argument checks, and
 the smoke-size service through the kernels against the plain impl (fused
 and legacy concat joins, prefetched and synchronous drains, an injected
 staging fault), gemma3's smoke_config forward and decode through the
-kernels against the plain impl, and the embedding-bag kernel with the
-recsys smoke models through it.
+kernels against the plain impl, the embedding-bag kernel with the
+recsys smoke models through it, the sharded router against the service
+and the split kernel at BERT4Rec's head dim 32.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; this file imports neither JAX nor the JAX package, so it runs on a
@@ -1570,3 +1571,117 @@ def test_validation_through_the_kernels_matches_plain(dev):
         params, apply_backend(cfg, "plain"), world, dev)
     np.testing.assert_allclose(got_scores, want_scores, atol=1e-4, rtol=0)
     assert got_p20 == want_p20
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving and BERT4Rec's split on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+@pytest.mark.parametrize("cache_mb", [0, 8])
+def test_router_on_the_card_bit_equals_the_service(dev, tmp_path, n_shards,
+                                                   cache_mb):
+    """RankingRouter over workers sharing the card against the
+    single-process RankingService, bf16 kernels over an int8 + int8 K/V
+    index (the paged join with the cache): every score the same bits,
+    the cache's warm pass too."""
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.core.prettr import init_prettr
+    from repro_torch.index import IndexBuilder, TermRepIndex
+    from repro_torch.serving import (RankingRouter, RankingService,
+                                     RankRequest)
+
+    cfg = smoke_config(compute_dtype=torch.bfloat16)
+    params = init_prettr(cfg, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(5)
+    docs = [rng.integers(4, 512, rng.integers(3, 60)) for _ in range(48)]
+    IndexBuilder(str(tmp_path), cfg, params, batch_size=8, codec="int8",
+                 store_layer_kv=True, kv_codec="int8", n_shards=2).build(docs)
+    idx = TermRepIndex.open(str(tmp_path))
+    reqs = []
+    for i in range(6):
+        q = np.zeros(8, np.int64)
+        q[:5] = [1, *rng.integers(4, 512, 3), 2]
+        reqs.append(RankRequest(q, q != 0, [int(d) for d in
+                                            rng.integers(0, 48, 20)],
+                                request_id=f"r{i}"))
+    kw = dict(micro_batch=8, doc_cache_mb=cache_mb, page_tokens=16)
+
+    def passes(svc):
+        out = []
+        for _ in range(2):
+            for r in reqs:
+                svc.submit(r)
+            out.append({r.request_id: (r.doc_ids, r.scores)
+                        for r in svc.drain()})
+        return out
+
+    want = passes(RankingService(params, cfg, idx, **kw))
+    router = RankingRouter(params, cfg, idx, n_shards=n_shards, **kw)
+    got = passes(router)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for rid in w:
+            assert g[rid][0] == w[rid][0]
+            np.testing.assert_array_equal(g[rid][1], w[rid][1])
+    st = router.stats
+    assert st.n_degraded == 0 and st.n_rows == 2 * 6 * 20
+    if cache_mb:
+        assert st.n_doc_cache_hit > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 200, 201])
+def test_split_attention_bert4rec_head_dim_32(dev, s, dtype):
+    """The split kernel at BERT4Rec's shapes (full_config at serve_p99:
+    the [MASK] slot alone, the history [512, 2, 200, 32], the join
+    [512, 2, 201, 32]) against its plain version; head dim 32 takes the
+    CUDA-core kernel and counts in ``d32_launches``."""
+    g = torch.Generator(device=dev).manual_seed(s)
+    dt = DTYPES[dtype]
+    q, k, v = (_rand(g, dev, dt, 512, 2, s, 32) for _ in range(3))
+    valid = torch.arange(s, device=dev)[None] < torch.randint(
+        (s + 1) // 2, s + 1, (512, 1), device=dev, generator=g)
+    counts = (split_flash_attention.d32_launches,
+              split_flash_attention.cuda_core_launches)
+    got = split_flash_attention(q, k, v, None, k_valid=valid)
+    assert (split_flash_attention.d32_launches - counts[0],
+            split_flash_attention.cuda_core_launches - counts[1]) == (1, 1)
+    want = split_attention_ref(q, k, v, last_valid_lengths(valid), valid)
+    _close(got, want, dtype)
+
+
+def test_bert4rec_split_kernels_match_plain(dev):
+    """BERT4Rec's smoke_config (head dim 16) on the card:
+    precompute_history and serve_scores_from_reps through the kernels
+    (three split launches: the history's layer 0, the [MASK] slot's layer
+    0, the join's layer 1) against the plain impl in float32 (2e-5), and
+    forward_hidden refused on the kernel impl before any launch."""
+    import dataclasses
+
+    from repro_torch.configs.bert4rec import smoke_config
+    from repro_torch.data.recsys import item_seq_batch
+    from repro_torch.models.recsys import bert4rec as TB
+
+    cfg = smoke_config()
+    params = TB.init_bert4rec(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    batch = item_seq_batch(np.random.default_rng(0), 16,
+                           n_items=cfg.n_items, seq_len=cfg.seq_len)
+    seq = torch.from_numpy(batch["item_seq"].astype(np.int64)).to(dev)
+    valid = torch.from_numpy(batch["valid"]).to(dev)
+    out = {}
+    for impl in ("cuda", "plain"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        before = split_flash_attention.launches
+        with torch.inference_mode():
+            reps = TB.precompute_history(params, c, seq, valid)
+            out[impl] = TB.serve_scores_from_reps(params, c, reps, valid)
+        assert split_flash_attention.launches - before == (
+            3 if impl == "cuda" else 0)
+    _close(out["cuda"], out["plain"], "float32")
+    before = split_flash_attention.launches
+    with pytest.raises(ValueError, match="uniform split-flag"):
+        TB.forward_hidden(params, cfg, seq, valid)
+    assert split_flash_attention.launches == before

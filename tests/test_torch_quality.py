@@ -425,10 +425,28 @@ def test_build_index_and_serve_clis_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("cli,argv,item", [
     ("train", ["--arch", "qwen3-moe-235b-a22b"], "item 5"),
-    ("build_index", ["--data-parallel"], "item 3"),
-    ("serve", ["--serving-shards", "2"], "item 3")])
+    ("build_index", ["--data-parallel"], "item 7")])
 def test_unported_cli_options_name_their_roadmap_item(cli, argv, item):
     import importlib
     mod = importlib.import_module(f"repro_torch.launch.{cli}")
     with pytest.raises(SystemExit, match=item):
         mod.main(argv + ["--device", "cpu"])
+
+
+def test_serve_cli_serves_through_the_router(tmp_path, capsys):
+    """--serving-shards N serves through a RankingRouter of N workers
+    (on the CPU all share it); without --service it is refused."""
+    from repro_torch.launch import serve
+    serve.main(["--service", "--serving-shards", "2", "--n-docs", "40",
+                "--n-queries", "4", "--candidates", "12", "--micro-batch",
+                "8", "--shards", "2", "--codec", "int8", "--store-layer-kv",
+                "--kv-codec", "int8", "--doc-cache-mb", "1", "--max-queue",
+                "2", "--index-dir", str(tmp_path / "idx"), "--device",
+                "cpu"])
+    text = capsys.readouterr().out
+    assert "scale-out: 2 shard workers (sharing cpu; s0=20 docs, " \
+        "s1=20 docs)" in text
+    assert "service mode: 4 queries x 12 candidates" in text
+    assert "decode_dispatch=0" in text and "resident_docs=" in text
+    with pytest.raises(SystemExit, match="--service"):
+        serve.main(["--serving-shards", "2", "--device", "cpu"])

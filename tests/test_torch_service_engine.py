@@ -1,7 +1,7 @@
 """The port's batch engine: the prefetch thread, the straggler policy,
 plan-failure isolation, admission shedding and the fault injector, as
 tests/test_service.py and tests/test_faults.py hold them for the JAX
-service (the router's tests wait for the sharded slice).
+service (the router's are tests/test_torch_router_faults.py).
 
 A small fp16 index built by the port on the CPU, float32 compute, seeded
 random weights.  Scores of the same micro-batch shape are compared bit
@@ -326,7 +326,8 @@ def test_abandon_pending_returns_unfinished_states(world):
 
 def test_spec_validation():
     with pytest.raises(ValueError, match="unknown site"):
-        FaultSpec("worker.drain", "error")
+        FaultSpec("router.merge", "error")
+    FaultSpec("worker.drain", "error")           # the shard workers' site
     with pytest.raises(ValueError, match="unknown kind"):
         FaultSpec("engine.stage", "meteor")
 
