@@ -3,8 +3,9 @@
 
 Drives the port's main paths at full width with seeded random weights:
 PreTTR at the paper's (``repro_torch.configs.prettr_bert.full_config``:
-12 layers, d=768, split at l=6, e=256, bf16 compute), the transformer LM
-at gemma3-4b's, then the recsys models at their published configs:
+12 layers, d=768, split at l=6, e=256, bf16 compute), the transformer LMs
+(gemma3-4b, granite-moe-3b-a800m, chatglm3-6b, qwen3-moe-235b-a22b,
+mistral-large-123b), then the recsys models at their published configs:
 
 1. device  -- the card's name and power limit, the kernel build time;
 2. kernels -- each hand-written kernel form at its main-path shape against
@@ -13,10 +14,15 @@ at gemma3-4b's, then the recsys models at their published configs:
    that computes the same function, and the least time the card could
    take (``device_ms``: the kernel's call queued behind a spin kernel, so
    that the wrapper's host work is not counted): split attention (PreTTR's validity + seg_boundary form, gemma3's
-   causal and causal + window forms at [4, 8, 2048, 256], raw int8 K/V),
+   causal and causal + window forms at [4, 8, 2048, 256], the causal form
+   at granite-moe's [4, 24 / 8, 2048, 64] and chatglm3's [4, 32 / 2,
+   2048, 128], raw int8 K/V),
    join attention (dense float, raw int8 K/V, paged over int8 and fp16
-   pools, the CLS row), flash decode (the CLS-only layer's shape, and
-   gemma3's decode shape with and without its window), compress and
+   pools, the CLS row), flash decode (the CLS-only layer's shape,
+   gemma3's decode shape with and without its window, and the later
+   LMs' GQA groups of 3, 16 and 12 query heads a KV head: granite-moe's,
+   chatglm3's and qwen3-moe's, mistral-large's, in row groups of up to
+   8), compress and
    decompress (fp16 and float32 storage; their library call is the same
    function in float32 with TF32 off; every form must run the
    tensor-core kernel, split TF32, and its bound counts its passes at
@@ -134,7 +140,23 @@ at gemma3-4b's, then the recsys models at their published configs:
    and through the kernels in float32, fed the timed run's tokens;
    ``lm_soundness``, prefill + one ``decode_step`` against ``forward``
    over 2049 tokens, float32 through the kernels; then a profile of one
-   prefill and 4 decode steps;
+   prefill and 4 decode steps; then the same phases, their paths
+   suffixed ``_<key>``, for each model of ``LM_MORE``: granite-moe-3b-a800m
+   (``_granite``, 32 layers, uncut: the slice's main path) and chatglm3-6b
+   (``_chatglm3``, 28, uncut), qwen3-moe-235b-a22b (``_qwen3``) and
+   mistral-large-123b (``_mistral``) at full width with 2 of their 94 and
+   88 layers (``lm_model`` gives ``reduced``); prefill runs split
+   attention's causal form, decode flash decode and its merge.  An MoE
+   model's agreement line reports its routing: the share of prompt
+   tokens whose top-k experts differ between two runs, layer by layer,
+   and the compared rows routed apart; its bf16 and float32 limits
+   compare runs whose experts are pinned to one routing (``routed``), and
+   its soundness runs at capacity factor E / k, where no slot can drop
+   (at 1.25 the 2049-token forward drops other slots than the 2048-token
+   prefill did, in the JAX package as well), pinned to the prefill's
+   routing, while the forward's own routing may tip no more than
+   ``LM_ROUTED_APART`` of its tokens a layer;
+   an ``lm_wall`` line gives each model's seconds;
 7. recsys -- once the LM's state is freed, every lookup through the
    embedding-bag kernel and, on the same inputs, through its plain
    version (each pair within a limit scaled to the data, ``REC_REL``;
@@ -183,9 +205,10 @@ embedding-bag kernel on a recsys path among them), or a plain run that
 launches any, fails the script.
 The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
 the index builds, the bf16 kernel runs of each serving form, the
-cascades, the training paths, the LM's bf16 prefill and decode, the
+cascades, the training paths, the LMs' bf16 prefill and decode, the
 recsys serve_bulk forwards, retrieval runs and towers, the router's bf16
-drains and BERT4Rec's bf16 history and join),
+drains and BERT4Rec's bf16 history and join), each launch under one
+row: the later LMs' under the rows that hold their shapes;
 ``launches_by_path`` gives each path's own.
 
 Every phase that fails raises and the script exits non-zero.  It prints
@@ -292,6 +315,26 @@ LM_F32_TOL = 1e-3
 # hidden states against 0.02-scaled tied embeddings over d = 2560), so
 # 1e-3 leaves a factor of ~10 over that estimate.
 LM_SOUND_TOL = 1e-3
+# the LMs after gemma3-4b, at full width with bf16 weights from
+# init_params: (path key, config module, layers kept of the published
+# depth, None keeping all).  qwen3-moe (94 layers, ~470 GB in bf16) and
+# mistral-large (88, ~246 GB) cannot live on one card: they keep 2
+# layers, every width as published
+LM_MORE = (("granite", "granite_moe_3b", None),
+           ("chatglm3", "chatglm3_6b", None),
+           ("qwen3", "qwen3_moe_235b", 2),
+           ("mistral", "mistral_large_123b", 2))
+LM_MOE = ("granite", "qwen3")
+# an MoE soundness run's forward over 2049 tokens at its own routing
+# against the prefill + decode step's: the share of its tokens a layer
+# whose experts may differ.  Float32 sums in another order tip only exact
+# near-ties: 0 of 8196 a layer over granite-moe's 32 layers, 1 and 2 over
+# qwen3-moe's 2 (H100, 700 W), where bf16 rounding alone tips 2-21 % a
+# layer.  1e-3 (8 tokens a layer) is 4x the most float32 tipped and far
+# below what a path that routes apart would move.  A tipped token moves
+# the step's logits by the model's own scale (0.0067 at qwen3-moe's 2
+# tokens), so that distance is reported with no limit
+LM_ROUTED_APART = 1e-3
 # the JAX package's recsys shapes (src/repro/configs/__init__.py
 # RECSYS_SHAPES): serve_p99 B = 512, serve_bulk B = 262,144, and
 # retrieval_cand's 1,000,000 candidates padded to a multiple of 256 as
@@ -444,11 +487,14 @@ def compare(name, got, want, dtype_name, shape, want_f32=None):
 
 def record_kernel(rows, name, source, replaces, err, kernel_fn, plain_fn,
                   library_fn, flops, n_bytes, peak, peak_name, row=True,
-                  split_kv=None, **extra):
+                  split_kv=None, counter=None, paths=None, **extra):
     """Time a kernel beside its plain version and library call and return
     its kernels-line row; with ``row`` False (a second form of a kernel
     already in the line) only the kernel_time line is printed.  ``extra``
-    goes on that line.  An
+    goes on that line.  A row's launches are its name's counter summed
+    over MAIN_PATHS but LM_MORE_MAIN, or (a shape of a form another row
+    counts) the ``counter`` summed over the main ``paths`` that run that
+    shape.  An
     attention row names the kernel its call was routed to
     (``kernels_run``).  An Sq = 1 row (``split_kv``: the wrapper and the
     attribute where it records the split count it launched with) also
@@ -468,6 +514,8 @@ def record_kernel(rows, name, source, replaces, err, kernel_fn, plain_fn,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
            "device_ms": time_ms(kernel_fn, spin=True)}
+    if counter is not None:
+        out.update(counter=counter, paths=list(paths))
     routes = [k for k in ROUTE_COUNTERS if launched[k]]
     if routes:
         out["kernels_run"] = routes
@@ -634,6 +682,45 @@ def check_kernels(torch, cfg):
                2 * nbytes(q) + nbytes(k, v), PEAK_BF16_FLOPS,
                "bf16 tensor cores")
     del q, k, v, visible
+
+    # -- the causal form at the later LMs' prefill shapes, float32 and
+    #    bf16: granite-moe's (q [4, 24, 2048, 64], GQA 24/8) for the
+    #    head-dim-64 row; qwen3-moe's (64/4), mistral-large's (96/8) and
+    #    chatglm3's (32/2) at head dim 128 for the row that counts those
+    #    three prefills.  The last shape of each row, in bf16, is timed
+    for name, ldh, groups, paths in (
+            ("split_attention_causal_d64", 64, ((24, 8),),
+             ("lm_prefill_granite",)),
+            ("split_attention_causal_d128", 128,
+             ((64, 4), (96, 8), (32, 2)),
+             ("lm_prefill_chatglm3", "lm_prefill_qwen3",
+              "lm_prefill_mistral"))):
+        for lhq, lhkv in groups:
+            for dtype, dname in ((torch.float32, "float32"),
+                                 (torch.bfloat16, "bfloat16")):
+                q = rand(lb, lhq, ls, ldh, dtype=dtype)
+                k, v = (rand(lb, lhkv, ls, ldh, dtype=dtype)
+                        for _ in range(2))
+                f32 = (None if dtype == torch.float32
+                       else split_attention_ref(q.float(), k.float(),
+                                                v.float(), full,
+                                                causal=True).float())
+                err = compare(name,
+                              split_flash_attention(q, k, v, causal=True),
+                              split_attention_ref(q, k, v, full, causal=True),
+                              dname, [lb, lhq, lhkv, ls, ldh], f32)
+                del f32
+        record(name, "src/repro_torch/csrc/split_attention.cu",
+               "src/repro/kernels/split_attention/kernel.py:109", err,
+               lambda: split_flash_attention(q, k, v, causal=True),
+               lambda: split_attention_ref(q, k, v, full, causal=True),
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True),
+               4 * ldh * lhq * lb * ls * (ls + 1) // 2,
+               2 * nbytes(q) + nbytes(k, v), PEAK_BF16_FLOPS,
+               "bf16 tensor cores", counter="split_attention_causal",
+               paths=paths)
+    del q, k, v
 
     # -- split attention over raw int8 K/V + per-token scales (no path
     #    reaches it in either package; held at PreTTR's join-layer shape
@@ -896,6 +983,45 @@ def check_kernels(torch, cfg):
                row=window > 0,
                split_kv=(flash_decode_attention, "last_n_splits"))
 
+    # -- flash decode at the later LMs' GQA groups, against the same
+    #    2080-key cache at position 2063: R = 3 (granite-moe, q [4, 24, 1,
+    #    64], Hkv 8: blocks of 4 rows, 3 used), 16 (chatglm3, [4, 32, 1,
+    #    128], Hkv 2: two row groups of 8; qwen3-moe's [4, 64, 1, 128],
+    #    Hkv 4, held first) and 12 (mistral-large, [4, 96, 1, 128], Hkv 8:
+    #    a row group of 8 and a partial one of 4), float32 and bf16; the
+    #    last shape of each row, in bf16, is timed
+    keys = pos < lengths[:, None]
+    n_keys = int(keys.sum())
+    for name, gd, groups, paths in (
+            ("decode_attention_r3", 64, ((24, 8),), ("lm_decode_granite",)),
+            ("decode_attention_r16", 128, ((64, 4), (32, 2)),
+             ("lm_decode_chatglm3", "lm_decode_qwen3")),
+            ("decode_attention_r12", 128, ((96, 8),),
+             ("lm_decode_mistral",))):
+        for ghq, ghkv in groups:
+            q = rand(gb, ghq, 1, gd)
+            k, v = (rand(gb, ghkv, gs, gd) for _ in range(2))
+            shape = [gb, ghq, ghkv, 1, gd, gs]
+            f32 = [t.float() for t in (q, k, v)]
+            compare(name, flash_decode_attention(*f32, lengths),
+                    decode_attention_ref(*f32, lengths), "float32", shape)
+            err = compare(name, flash_decode_attention(q, k, v, lengths),
+                          decode_attention_ref(q, k, v, lengths), "bfloat16",
+                          shape, _decode_f32(q, k, v, lengths))
+        record(name, "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:75", err,
+               lambda: flash_decode_attention(q, k, v, lengths),
+               lambda: decode_attention_ref(q, k, v, lengths),
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=keys[:, None, None, :],
+                   enable_gqa=True),
+               4 * gd * ghq * n_keys,
+               2 * nbytes(q) + 2 * n_keys * ghkv * gd * q.element_size()
+               + nbytes(lengths), PEAK_BF16_FLOPS, "bf16 tensor cores",
+               split_kv=(flash_decode_attention, "last_n_splits"),
+               counter="decode_attention", paths=paths)
+    del q, k, v, f32
+
     # -- compress (index time) and decompress (every micro-batch); their
     #    weights stay float32, so the same-function library call is a
     #    float32 addmm (TF32 off).  The kernels run split TF32 on the tensor
@@ -1135,6 +1261,8 @@ _LM_PREFILL = ("split_attention_causal", "split_attention_window")
 # the card with one split, at rank_forward's 4 pairs they split
 _LM_DECODE = ("decode_attention", "decode_attention_window",
               "decode_attention_merge", "decode_attention_window_merge")
+_LM_CAUSAL = ("split_attention_causal",)
+_LM_GLOBAL_DECODE = ("decode_attention", "decode_attention_merge")
 # PQ reps decode by a codebook gather (plain torch) to float32, which the
 # float32-input decompress kernel widens; a PQ index stores no layer-l
 # K/V, so its cached drain assembles dense reps from the pools and joins
@@ -1226,6 +1354,17 @@ PATH_KERNELS = {
     "lm_cuda_f32": _LM_PREFILL + _LM_DECODE + _SPLIT_CC,
     "lm_soundness": _LM_PREFILL + _SPLIT_CC,
     "lm_plain_bf16": (), "lm_plain_f32": (),
+    # the later LMs: pure causal attention, so prefill runs the causal
+    # form alone and decode flash decode without a window, its merge too
+    # (the planner splits the 2080-key rows at each model's groups); an
+    # MoE model's soundness runs its own prefill and decode step
+    **{p: kernels for key, *_ in LM_MORE for p, kernels in (
+        (f"lm_prefill_{key}", _LM_CAUSAL + _SPLIT_TC),
+        (f"lm_decode_{key}", _LM_GLOBAL_DECODE),
+        (f"lm_cuda_f32_{key}", _LM_CAUSAL + _LM_GLOBAL_DECODE + _SPLIT_CC),
+        (f"lm_soundness_{key}", _LM_CAUSAL + _SPLIT_CC
+         + (_LM_GLOBAL_DECODE if key in LM_MOE else ())),
+        (f"lm_plain_bf16_{key}", ()), (f"lm_plain_f32_{key}", ()))},
     # recsys: DLRM's single-hot gather is the sum form over a bf16 table,
     # its towers mean bags, all on the wide kernel (256-byte rows); DeepFM's
     # gather rounds float32 rows to bf16 (the cast form) and its
@@ -1249,10 +1388,15 @@ PATH_KERNELS = {
         "dlrm_item_tower", "deepfm_serve_p99", "deepfm_serve_bulk",
         "deepfm_item_vectors", "deepfm_retrieval", "xdeepfm_serve_p99")},
 }
+# the later LMs' bf16 prefill and decode: their launches count under the
+# rows that hold their shapes (each row's ``paths``), every other row's
+# under the main paths but these, so a launch counts under one row
+LM_MORE_MAIN = tuple(f"lm_{kind}_{key}" for key, *_ in LM_MORE
+                     for kind in ("prefill", "decode"))
 # the paths whose launches make the kernels line's `launches`: the index
 # builds, the bf16 drains of each serving form, the cascade's bf16 runs
 # (untrained and trained), the training paths,
-# the LM's bf16 prefill and decode, the recsys serve_bulk forwards,
+# each LM's bf16 prefill and decode, the recsys serve_bulk forwards,
 # retrieval and towers, the router's bf16 drains and BERT4Rec's bf16
 # history and join
 MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
@@ -1262,7 +1406,7 @@ MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               "cascade_index_pruned", "cascade", "train", "train_validate",
               "distill", "index_distilled", "cascade_trained_index_int8",
               "cascade_trained_index_pq", "cascade_trained_index_pruned",
-              "cascade_trained", "lm_prefill", "lm_decode",
+              "cascade_trained", "lm_prefill", "lm_decode", *LM_MORE_MAIN,
               "dlrm_serve_bulk", "dlrm_retrieval", "dlrm_item_tower",
               "deepfm_serve_bulk", "deepfm_item_vectors", "deepfm_retrieval",
               "xdeepfm_serve_p99",
@@ -2103,7 +2247,7 @@ def training_phases(torch, name, params, cfg, cfg32, plain, launches, build,
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: gemma3-4b prefill and decode
+# Phase 6: the LMs' prefill and decode (gemma3-4b, then LM_MORE)
 # ---------------------------------------------------------------------------
 
 
@@ -2119,12 +2263,13 @@ def lm_prefill(torch, T, params, cfg, prompts):
     return lg, kv, time.perf_counter() - t0
 
 
-def lm_decode(torch, T, params, cfg, kv, first, forced=None):
+def lm_decode(torch, T, params, cfg, kv, first, forced=None,
+              steps=LM_STEPS):
     """The collected K/V (S keys) copied into ``init_decode_cache(cfg, B,
-    S + LM_STEPS)``, then LM_STEPS ``decode_step``s from position S:
-    greedy from ``first`` [B, 1], or fed ``forced`` [B, LM_STEPS]
+    S + LM_STEPS)``, then ``steps`` ``decode_step``s from position S:
+    greedy from ``first`` [B, 1], or fed ``forced`` [B, >= steps]
     (teacher forcing).  Returns (each step's logits, the tokens fed
-    [B, LM_STEPS], seconds of the steps alone)."""
+    [B, steps], seconds of the steps alone)."""
     b, s = kv[0].shape[1], kv[0].shape[2]
     with torch.inference_mode():
         cache = T.init_decode_cache(cfg, b, s + LM_STEPS)
@@ -2133,7 +2278,7 @@ def lm_decode(torch, T, params, cfg, kv, first, forced=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tok, fed, out = first, [], []
-        for i in range(LM_STEPS):
+        for i in range(steps):
             if forced is not None:
                 tok = forced[:, i:i + 1]
             fed.append(tok)
@@ -2149,10 +2294,11 @@ def lm_max_diff(a, b):
     return max((x - y).abs().max().item() for x, y in zip(a, b))
 
 
-def profile_lm(torch, T, params, cfg, prompts, fed, name):
+def profile_lm(torch, T, params, cfg, prompts, fed, name, suffix=""):
     """Where the LM's device time goes: one prefill of 4 x 2048 tokens,
     then 4 decode steps, each under torch.profiler: the device's busy
-    time beside the wall time, and its kernels by total time."""
+    time beside the wall time, and its kernels by total time (runs
+    ``lm_prefill`` and ``lm_decode_4_steps``, plus ``suffix``)."""
     _, kv, _ = lm_prefill(torch, T, params, cfg, prompts)     # warm
     with torch.inference_mode():
         cache = T.init_decode_cache(cfg, LM_B, LM_S + LM_STEPS)
@@ -2165,9 +2311,9 @@ def profile_lm(torch, T, params, cfg, prompts, fed, name):
             for i in range(4):
                 T.decode_step(params, cfg, fed[:, i:i + 1], cache, LM_S + i)
 
-    profile_run(torch, name, "lm_prefill",
+    profile_run(torch, name, "lm_prefill" + suffix,
                 lambda: lm_prefill(torch, T, params, cfg, prompts))
-    profile_run(torch, name, "lm_decode_4_steps", steps)
+    profile_run(torch, name, "lm_decode_4_steps" + suffix, steps)
 
 
 def profile_run(torch, name, label, fn, **extra):
@@ -2236,19 +2382,90 @@ def _device_time(events, wall_ms, launched):
                     for k, (n, t) in top]}
 
 
-def lm_phases(torch, name, launches):
-    """gemma3-4b at full width on the card: the timed bf16 prefill and
-    greedy decode through the kernels, the same through the plain impl
-    and in float32 (fed the kernel run's tokens), the soundness of
-    prefill + decode against a longer forward, and a profile."""
+class _TorchWith:
+    """``torch`` as a module sees it, with some of its functions
+    replaced."""
+
+    def __init__(self, base, **fns):
+        self._base, self._fns = base, fns
+
+    def __getattr__(self, name):
+        return self._fns.get(name) or getattr(self._base, name)
+
+
+def routed(torch, fn, pin=None):
+    """``fn()`` with every ``moe_ffn`` call's top-k experts ([T, k], in
+    ``topk``'s order) recorded; with ``pin``, a recorded run's experts,
+    each call takes those, call by call, in place of its own top-k,
+    weighted by its own probabilities at them (drops and combine follow
+    the pinned experts).  Returns (fn's result, the experts)."""
+    from repro_torch.models import moe
+    sets, pins = [], iter(pin or ())
+
+    def topk(probs, k, dim=-1):
+        idx = next(pins) if pin is not None \
+            else torch.topk(probs, k, dim=dim).indices
+        sets.append(idx)
+        return probs.gather(dim, idx), idx
+
+    moe.torch = _TorchWith(torch, topk=topk)
+    try:
+        return fn(), sets
+    finally:
+        moe.torch = torch
+
+
+def compared_routes(sets, n_layers, b):
+    """A prefill + decode run's experts -> for each compared output (the
+    prefill's last position, then each step's token) the [B, L, k]
+    sorted expert sets of its token in every layer."""
+    import torch
+    calls = [sets[i:i + n_layers] for i in range(0, len(sets), n_layers)]
+    return [torch.stack([x.reshape(b, -1, x.shape[-1])[:, -1].sort(-1)
+                         .values for x in c], 1) for c in calls]
+
+
+def same_routes(a, b):
+    """Per compared output, the [B] rows whose token took the same
+    experts in every layer in both runs."""
+    return [(x == y).all(-1).all(-1) for x, y in zip(a, b)]
+
+
+def prefill_flips(a, b, n_layers):
+    """The share of the prefill's tokens whose expert set differs between
+    two runs, layer by layer."""
+    return [(x.sort(-1).values != y.sort(-1).values).any(-1).float().mean()
+            .item() for x, y in zip(a[:n_layers], b[:n_layers])]
+
+
+def lm_phases(torch, name, launches, key="", module="gemma3_4b",
+              layers=None):
+    """One LM at full width on the card (``configs.<module>``, bf16
+    weights; ``layers`` keeps that many of the published depth): the
+    timed bf16 prefill and greedy decode through the kernels, the same
+    through the plain impl and in float32 (fed the kernel run's tokens),
+    the soundness of prefill + decode against a longer forward, and a
+    profile.  Paths are ``lm_<kind>`` for gemma3-4b (``key`` ""), else
+    ``lm_<kind>_<key>``.  An MoE model also reports its routing flips
+    between the runs, and its soundness runs at capacity factor E / k,
+    where no slot can drop: at 1.25 the longer forward drops other
+    tokens' slots than the prefill did, in the JAX package as well; it
+    is held on the prefill's routing, and the share of tokens its own
+    routing tips on ``LM_ROUTED_APART``."""
     import dataclasses
+    import importlib
 
     import numpy as np
-    from repro_torch.configs.gemma3_4b import full_config
     from repro_torch.models import transformer as T
     from repro_torch.tree import leaves
 
-    cfg = full_config(param_dtype=torch.bfloat16)
+    path = lambda kind: f"lm_{kind}" + (f"_{key}" if key else "")
+    published = importlib.import_module(
+        f"repro_torch.configs.{module}").full_config(
+            param_dtype=torch.bfloat16)
+    cfg = dataclasses.replace(published,
+                              n_layers=layers or published.n_layers)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device="cuda")
                            .manual_seed(SEED))
@@ -2261,89 +2478,186 @@ def lm_phases(torch, name, launches):
                                                    compute_dtype=dt)
     cfg32 = impl(cfg, "cuda", torch.float32)
     emit({"phase": "lm_model", "device": name, "config": cfg.name,
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_layers": cfg.n_layers,
+          "n_layers_published": published.n_layers,
+          "reduced": ({"n_layers": [cfg.n_layers, published.n_layers]}
+                      if cfg.n_layers != published.n_layers else {}),
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "head_dim": cfg.dh, "d_ff": cfg.d_ff,
+          "experts": [cfg.n_experts, cfg.top_k, cfg.capacity_factor],
           "params": cfg.num_params(),
+          "params_published": published.num_params(),
           "param_bytes": sum(t.numel() * t.element_size() for t in
                              leaves(params)),
-          "layer_windows": cfg.layer_windows(), "init_s": init_s})
+          "layer_windows": cfg.layer_windows(), "decode_steps": LM_STEPS,
+          "init_s": init_s})
 
     # warm-up (cuBLAS handles, the kernel library), not counted
     lg, kv, _ = lm_prefill(torch, T, params, cfg, prompts[:, :64])
-    lm_decode(torch, T, params, cfg, kv, lg.argmax(-1))
+    lm_decode(torch, T, params, cfg, kv, lg.argmax(-1), steps=2)
     del lg, kv
 
     # the main path: bf16 prefill, then greedy decode, through the kernels
-    (lg0, kv, prefill_s), launches["lm_prefill"] = counted(
+    (lg0, kv, prefill_s), launches[path("prefill")] = counted(
         lambda: lm_prefill(torch, T, params, cfg, prompts))
     flops = 2 * cfg.num_active_params() * LM_B * LM_S
-    emit({"phase": "lm_prefill", "device": name, "batch": LM_B,
-          "prompt": LM_S, "ms": prefill_s * 1e3,
+    emit({"phase": "lm_prefill", "device": name, "config": cfg.name,
+          "batch": LM_B, "prompt": LM_S, "ms": prefill_s * 1e3,
           "tokens_per_s": LM_B * LM_S / prefill_s, "model_flops": flops,
           "model_flops_share_of_bf16_peak":
               flops / prefill_s / PEAK_BF16_FLOPS,
           "finite": bool(torch.isfinite(lg0).all()),
-          "launches": launches["lm_prefill"]})
-    (steps, fed, decode_s), launches["lm_decode"] = counted(
+          "launches": launches[path("prefill")]})
+    (out, fed, decode_s), launches[path("decode")] = counted(
         lambda: lm_decode(torch, T, params, cfg, kv, lg0.argmax(-1)))
     del kv
-    emit({"phase": "lm_decode", "device": name, "batch": LM_B,
-          "steps": LM_STEPS, "cache": LM_S + LM_STEPS,
+    emit({"phase": "lm_decode", "device": name, "config": cfg.name,
+          "batch": LM_B, "steps": LM_STEPS, "cache": LM_S + LM_STEPS,
           "ms_per_step": decode_s / LM_STEPS * 1e3,
           "tokens_per_s": LM_B * LM_STEPS / decode_s,
-          "finite": all(bool(torch.isfinite(x).all()) for x in steps),
-          "launches": launches["lm_decode"]})
-    cuda_bf16 = [lg0, *steps]
+          "finite": all(bool(torch.isfinite(x).all()) for x in out),
+          "max_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches[path("decode")]})
+    cuda_bf16 = [lg0, *out]
     if not all(bool(torch.isfinite(x).all()) for x in cuda_bf16) \
             or lg0.shape != (LM_B, 1, cfg.vocab_size):
-        raise AssertionError("lm: non-finite or misshapen logits")
+        raise AssertionError(f"{cfg.name}: non-finite or misshapen logits")
 
     # agreement: the plain impl in bf16 and float32 and the kernels in
     # float32, all fed the kernel run's tokens
-    runs = {}
-    for path, c in (("lm_plain_bf16", impl(cfg, "plain", torch.bfloat16)),
-                    ("lm_plain_f32", impl(cfg, "plain", torch.float32)),
-                    ("lm_cuda_f32", cfg32)):
-        def run(c=c):
-            lg, kv, _ = lm_prefill(torch, T, params, c, prompts)
-            out, _, _ = lm_decode(torch, T, params, c, kv, None, forced=fed)
-            return [lg, *out]
-        runs[path], launches[path] = counted(run)
-    bf16_noise = lm_max_diff(runs["lm_plain_bf16"],
-                             runs["lm_plain_f32"])
-    agree = {"phase": "lm_agreement", "device": name,
-             "f32_max_abs_diff": lm_max_diff(runs["lm_cuda_f32"],
-                                             runs["lm_plain_f32"]),
-             "f32_tol": LM_F32_TOL,
-             "bf16_max_abs_diff": lm_max_diff(cuda_bf16,
-                                              runs["lm_plain_bf16"]),
-             "bf16_tol": 2 * bf16_noise, "bf16_rounding_of_plain": bf16_noise,
-             "bf16_kernels_vs_plain_f32": lm_max_diff(
-                 cuda_bf16, runs["lm_plain_f32"]),
-             "logit_abs_max": runs["lm_plain_f32"][0].abs().max().item(),
-             "same_greedy_tokens_plain_bf16": int(sum(
-                 (a.argmax(-1) == b.argmax(-1)).sum().item()
-                 for a, b in zip(cuda_bf16, runs["lm_plain_bf16"]))),
-             "of": LM_B * (LM_STEPS + 1),
-             "launches": {p: launches[p] for p in runs}}
+    moe = bool(cfg.n_experts)
+
+    def run(c):
+        lg, kv, _ = lm_prefill(torch, T, params, c, prompts)
+        got, _, _ = lm_decode(torch, T, params, c, kv, None, forced=fed)
+        return [lg, *got]
+
+    plain16 = impl(cfg, "plain", torch.bfloat16)
+    runs, experts = {}, {}
+    for kind, c in (("plain_bf16", plain16),
+                    ("plain_f32", impl(cfg, "plain", torch.float32)),
+                    ("cuda_f32", cfg32)):
+        (runs[kind], experts[kind]), launches[path(kind)] = counted(
+            lambda c=c: routed(torch, lambda: run(c)))
+    agree = {"phase": "lm_agreement", "device": name, "config": cfg.name}
+    bf16_ref = noise_ref = runs["plain_bf16"]
+    f32_ref = runs["plain_f32"]
+    if moe:
+        # A token whose top-k experts differ between two runs in some
+        # layer (a near-tie that rounding tipped) takes other experts'
+        # weights: a difference of the model's size, not of rounding, and
+        # through attention it reaches other tokens.  Each run's routing
+        # is recorded (the kernel run's by a replay), and the limits
+        # compare runs whose experts are pinned to one routing: the
+        # kernels against the plain impl taking the kernel run's experts,
+        # the plain bf16 rounding against the plain impl taking the float32
+        # run's; the distances at each run's own routing are reported
+        replay, experts["cuda_bf16"] = routed(torch, lambda: run(cfg))
+        bf16_ref, _ = routed(torch, lambda: run(plain16),
+                             pin=experts["cuda_bf16"])
+        noise_ref, _ = routed(torch, lambda: run(plain16),
+                              pin=experts["plain_f32"])
+        f32_ref, _ = routed(torch, lambda: run(impl(cfg, "plain",
+                                                    torch.float32)),
+                            pin=experts["cuda_f32"])
+        routes = {k: compared_routes(v, cfg.n_layers, LM_B)
+                  for k, v in experts.items()}
+        pairs = (("cuda_bf16", "plain_bf16"), ("plain_bf16", "plain_f32"),
+                 ("cuda_f32", "plain_f32"))
+        agree.update(
+            replay_max_abs_diff=lm_max_diff(replay, cuda_bf16),
+            routing_flips_by_layer={
+                f"{a}_vs_{b}": prefill_flips(experts[a], experts[b],
+                                             cfg.n_layers)
+                for a, b in pairs},
+            rows_routed_apart={
+                f"{a}_vs_{b}": LM_B * (LM_STEPS + 1) - int(sum(
+                    m.sum().item() for m in same_routes(routes[a],
+                                                        routes[b])))
+                for a, b in pairs},
+            bf16_max_abs_diff_own_routing=lm_max_diff(cuda_bf16,
+                                                      runs["plain_bf16"]),
+            bf16_rounding_of_plain_own_routing=lm_max_diff(
+                runs["plain_bf16"], runs["plain_f32"]),
+            f32_max_abs_diff_own_routing=lm_max_diff(runs["cuda_f32"],
+                                                     runs["plain_f32"]))
+        del replay, routes
+    del experts
+    bf16_noise = lm_max_diff(noise_ref, runs["plain_f32"])
+    agree.update(
+        f32_max_abs_diff=lm_max_diff(runs["cuda_f32"], f32_ref),
+        f32_tol=LM_F32_TOL,
+        bf16_max_abs_diff=lm_max_diff(cuda_bf16, bf16_ref),
+        bf16_tol=2 * bf16_noise, bf16_rounding_of_plain=bf16_noise,
+        bf16_kernels_vs_plain_f32=lm_max_diff(cuda_bf16, runs["plain_f32"]),
+        logit_abs_max=runs["plain_f32"][0].abs().max().item(),
+        same_greedy_tokens_plain_bf16=int(sum(
+            (a.argmax(-1) == b.argmax(-1)).sum().item()
+            for a, b in zip(cuda_bf16, bf16_ref))),
+        of=LM_B * (LM_STEPS + 1),
+        launches={path(k): launches[path(k)] for k in runs})
     emit(agree)
+    del bf16_ref, noise_ref, f32_ref
     if agree["f32_max_abs_diff"] > LM_F32_TOL \
             or agree["bf16_max_abs_diff"] > agree["bf16_tol"]:
-        raise AssertionError("lm: the kernels disagree with the plain impl")
+        raise AssertionError(f"{cfg.name}: the kernels disagree with the "
+                             f"plain impl")
 
-    # soundness: prefill over 2048 + one decode step == forward over 2049
+    # soundness: prefill over 2048 + one decode step == forward over 2049.
+    # An MoE model runs both at E / k, where no slot drops, and the
+    # forward takes the experts the prefill and the step took (a prompt
+    # token tipped to other experts moves the step's logits through
+    # attention); its own routing may tip at most LM_ROUTED_APART of the
+    # tokens a layer, and its distance, a model-sized move, is given
+    snd = cfg32
+    if moe:
+        snd = dataclasses.replace(cfg32, capacity_factor=cfg.n_experts
+                                  / cfg.top_k)
+
+    def forward_last(pin=None):
+        def fwd():
+            with torch.inference_mode():
+                h, _, _ = T.forward(params, snd,
+                                    torch.cat([prompts, fed[:, :1]], 1))
+                return T.logits(params, snd, h[:, -1:])
+        return routed(torch, fwd, pin=pin)
+
     def sound():
-        with torch.inference_mode():
-            h, _, _ = T.forward(params, cfg32,
-                                torch.cat([prompts, fed[:, :1]], 1))
-            return T.logits(params, cfg32, h[:, -1:])
-    longer, launches["lm_soundness"] = counted(sound)
-    err = (longer - runs["lm_cuda_f32"][1]).abs().max().item()
-    emit({"phase": "lm_soundness", "device": name, "max_abs_err": err,
-          "tol": LM_SOUND_TOL, "launches": launches["lm_soundness"]})
+        if not moe:
+            return runs["cuda_f32"][1], forward_last()[0], None
+
+        def prefill_step():
+            _, kv, _ = lm_prefill(torch, T, params, snd, prompts)
+            return lm_decode(torch, T, params, snd, kv, None, forced=fed,
+                             steps=1)[0][0]
+        step, sets = routed(torch, prefill_step)
+        n = cfg.n_layers
+        pin = [torch.cat([p.reshape(LM_B, LM_S, -1), d[:, None]], 1)
+               .reshape(-1, p.shape[-1]) for p, d in zip(sets[:n], sets[n:])]
+        own, own_sets = forward_last()
+        apart = prefill_flips(pin, own_sets, n)
+        return step, forward_last(pin)[0], {
+            "own_routing_max_abs_err": (own - step).abs().max().item(),
+            "tokens_routed_apart_by_layer": [
+                round(f * LM_B * (LM_S + 1)) for f in apart],
+            "routed_apart_share_max": max(apart),
+            "routed_apart_tol": LM_ROUTED_APART}
+    (step, longer, own), launches[path("soundness")] = counted(sound)
+    err = (longer - step).abs().max().item()
+    emit({"phase": "lm_soundness", "device": name, "config": cfg.name,
+          "max_abs_err": err, "tol": LM_SOUND_TOL,
+          "capacity_factor": snd.capacity_factor if moe else None,
+          **(own or {}), "launches": launches[path("soundness")],
+          **memory(torch)})
     if not err <= LM_SOUND_TOL:
-        raise AssertionError("lm: prefill + decode_step != forward")
-    del runs, longer
-    profile_lm(torch, T, params, cfg, prompts, fed, name)
+        raise AssertionError(f"{cfg.name}: prefill + decode_step != "
+                             f"forward")
+    if own and not own["routed_apart_share_max"] <= LM_ROUTED_APART:
+        raise AssertionError(f"{cfg.name}: the forward's own routing "
+                             f"differs from the prefill's")
+    del runs, longer, step
+    profile_lm(torch, T, params, cfg, prompts, fed, name,
+               "" if not key else f"_{key}")
 
 
 # ---------------------------------------------------------------------------
@@ -3117,8 +3431,16 @@ def main():
         raise AssertionError("rank_forward != join_and_score(encode_query, "
                              "precompute_docs)")
 
-    # 6. gemma3-4b prefill and decode
-    lm_phases(torch, name, launches)
+    # 6. gemma3-4b, then the later LMs, prefill and decode
+    lm_s = {}
+    for model in (("", "gemma3_4b", None), *LM_MORE):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lm_phases(torch, name, launches, *model)
+        lm_s[model[1]] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_wall", "device": name, "seconds": lm_s,
+          "total_s": sum(lm_s.values())})
 
     # 7. the recsys models, once the LM's state is freed
     recsys_phases(torch, name, launches, rows)
@@ -3131,15 +3453,18 @@ def main():
           "seconds": added_s, "total_s": sum(added_s.values())})
 
     # 9. kernels line: `launches` counts the main paths (the index builds,
-    #    the bf16 drains, the LM's bf16 prefill and decode and the recsys
-    #    paths of MAIN_PATHS); `launches_by_path` each counted path alone
+    #    the bf16 drains, the LMs' bf16 prefill and decode and the recsys
+    #    paths of MAIN_PATHS, the later LMs' under their shapes' rows);
+    #    `launches_by_path` each counted path alone
     for row in rows:
-        k = row["name"]
-        row["launches"] = sum(launches[p][k] for p in MAIN_PATHS)
+        k = row.pop("counter", row["name"])
+        paths = row.pop("paths", [p for p in MAIN_PATHS
+                                  if p not in LM_MORE_MAIN])
+        row["launches"] = sum(launches[p][k] for p in paths)
         row["launches_by_path"] = {p: n[k] for p, n in launches.items()}
         if k + "_merge" in MERGE_COUNTERS:
             row["merge_launches"] = sum(launches[p][k + "_merge"]
-                                        for p in MAIN_PATHS)
+                                        for p in paths)
     emit({"kernels": rows})
     missing = [f"{p}: {k}" for p, kernels in PATH_KERNELS.items()
                for k in kernels if launches[p][k] == 0]

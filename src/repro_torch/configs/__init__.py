@@ -3,11 +3,11 @@ ten assigned architectures and the paper's own model.
 
 ``get_arch(name)`` -> :class:`ArchSpec` with the published full config, a
 reduced smoke config of the same family and the architecture's shape-cell
-table, for the six configs the port has (``prettr-bert``, ``gemma3-4b``,
+table, for the ten configs the port has (``prettr-bert``, the five LMs,
 ``dlrm-mlperf``, ``deepfm``, ``xdeepfm``, ``bert4rec``).  A name the JAX
-registry knows whose model the port has not ported yet raises
-``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that ports
-it.
+registry knows whose model the port has not ported yet (``dimenet``)
+raises ``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item
+that ports it.
 """
 from __future__ import annotations
 
@@ -75,10 +75,6 @@ _ARCH_MODULES = {
 #: architectures the port has no model for yet, with the ROADMAP.md
 #: Queue 1 item that ports each
 NOT_PORTED = {
-    "mistral-large-123b": "item 5 (MoE and the other LM configs)",
-    "chatglm3-6b": "item 5 (MoE and the other LM configs)",
-    "qwen3-moe-235b-a22b": "item 5 (MoE and the other LM configs)",
-    "granite-moe-3b-a800m": "item 5 (MoE and the other LM configs)",
     "dimenet": "item 6 (DimeNet)",
 }
 

@@ -147,7 +147,7 @@ def _cls_only_layer(lp, x, cfg: T.TransformerConfig, *, positions, valid):
         q_pos=q_pos, window=-1, k_valid=valid, static_window=-1)
     out = out.reshape(b, 1, cfg.n_heads * cfg.dh) \
         @ p["wo"].to(cfg.compute_dtype)
-    return T.block_tail(lp, cfg, x[:, :1], out)[:, 0]
+    return T.block_tail(lp, cfg, x[:, :1], out)[0][:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -415,7 +415,7 @@ def _join_layer_split(lp, bcfg: T.TransformerConfig, x_q, x_d, q_valid,
 
     def finish(x, o):
         attn_out = o.reshape(x.shape[0], x.shape[1], bcfg.n_heads * dh) @ wo
-        return T.block_tail(lp, bcfg, x, attn_out)
+        return T.block_tail(lp, bcfg, x, attn_out)[0]
 
     return finish(x_q, out[:, :lq]), finish(x_d, out[:, lq:])
 
@@ -443,7 +443,7 @@ def _cls_only_layer_split(lp, bcfg: T.TransformerConfig, x_q, x_d, q_valid,
         kq_valid=q_valid, kd_valid=d_valid, kd_scale=kd_scale,
         vd_scale=vd_scale, paged=paged)
     out = out.reshape(b, 1, bcfg.n_heads * bcfg.dh) @ p["wo"].to(cd)
-    x_cls = T.block_tail(lp, bcfg, x_q[:, :1], out)
+    x_cls = T.block_tail(lp, bcfg, x_q[:, :1], out)[0]
     return x_cls[:, 0]
 
 

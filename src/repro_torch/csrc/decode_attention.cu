@@ -24,7 +24,7 @@ extern "C" int rt_decode_attention(const void* q, const void* k, const void* v, 
                                    void* stream, int* launched) {
   *launched = 0;
   if (!rt::sq1::plan_agrees(align, max_splits, block_rows) || B <= 0 || Hkv <= 0 ||
-      Hq % Hkv != 0 || Hq / Hkv > 8 || S < 0)
+      Hq % Hkv != 0 || S < 0)
     return (int)cudaErrorInvalidValue;
   const rt::BHS ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   cudaStream_t s = (cudaStream_t)stream;

@@ -1,8 +1,8 @@
 """Generic transformer LM / encoder, the port of ``repro.models.transformer``:
 config, init, embeddings, Q/K/V projections with bias, qk-norm and RoPE,
-the block tail with post-norms and gated MLP, a plain Python loop over
-layers, full-sequence ``forward``, ``logits`` and the KV-cache
-``decode_step``.
+the block tail with post-norms and the gated MLP or the MoE FFN
+(``repro_torch.models.moe``), a plain Python loop over layers,
+full-sequence ``forward``, ``logits`` and the KV-cache ``decode_step``.
 
 Parameters are plain dicts of tensors; ``params["layers"]`` is a list with
 one dict per layer (the JAX package stacks them on a leading axis;
@@ -13,7 +13,6 @@ kernels (the JAX ``pallas`` impl traces one scan body and takes uniform
 layer ranges only; this computes what its ``plain``/``blocked`` impls
 compute).  :func:`causal_lm_loss` is the training loss (through the
 plain backend: the kernel wrappers refuse inputs that require grad).
-Not ported: MoE (``n_experts > 0`` raises).
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import backend as B
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +59,10 @@ class TransformerConfig:
     learned_pos: int = 0                      # >0: learned positions (BERT)
     segment_vocab: int = 0                    # >0: segment embeddings (BERT)
     tie_embeddings: bool = False
-    # --- MoE (the MoE slice) ---
+    # --- MoE ---
     n_experts: int = 0
     top_k: int = 0
+    capacity_factor: float = 1.25
     # --- execution ---
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -75,10 +76,6 @@ class TransformerConfig:
     def __post_init__(self):
         # unknown impl names fail here, not at the first forward
         B.validate_config(self.attn_impl, self.compress_impl)
-        if self.n_experts:
-            raise NotImplementedError(
-                "MoE layers are not ported yet: they arrive with the MoE "
-                "slice of the port (qwen3-moe, granite-moe)")
 
     @property
     def dh(self) -> int:
@@ -153,7 +150,10 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         p = {"attn": attn, "ln1": norm(), "ln2": norm()}
         if cfg.use_post_norm:
             p.update(ln1_post=norm(), ln2_post=norm())
-        if cfg.gated_mlp:
+        if cfg.n_experts:
+            p["moe"] = moe_lib.init_moe(d, cfg.d_ff, cfg.n_experts, pd,
+                                        generator, dev)
+        elif cfg.gated_mlp:
             p["mlp"] = {"w_gate": dense(d, cfg.d_ff),
                         "w_up": dense(d, cfg.d_ff),
                         "w_down": dense(cfg.d_ff, d)}
@@ -264,25 +264,42 @@ def _attention(p, x, cfg: TransformerConfig, *, positions, window,
 
 def block_tail(lp, cfg: TransformerConfig, x, attn_out):
     """Everything after attention in a block: post-norm, residual, norm,
-    MLP, post-norm, residual.  Shared by the layer step and the PreTTR
-    split-residual join."""
+    MLP or MoE FFN, post-norm, residual.  Returns ``(x, aux)``: ``aux``
+    the MoE load loss (a float32 scalar tensor), or the Python ``0.0`` in
+    a dense block, which so launches nothing for it.  Shared by the layer
+    step and the PreTTR split-residual join.
+
+    The MoE FFN runs over the ``[B * S, d]`` tokens at
+    ``cfg.capacity_factor`` with its default SiLU, its weights (the
+    router's too) cast to the compute dtype first, as the JAX block
+    does."""
     cd = cfg.compute_dtype
     if cfg.use_post_norm:
         attn_out = L.apply_norm(lp["ln1_post"], attn_out, cfg.norm)
     x = x + attn_out
     h = L.apply_norm(lp["ln2"], x, cfg.norm)
-    mlp_p = {k: v.to(cd) for k, v in lp["mlp"].items()}
-    ff = L.mlp(mlp_p, h, gated=cfg.gated_mlp, activation=cfg.activation)
+    if cfg.n_experts:
+        b, s, d = h.shape
+        moe_p = {k: v.to(cd) for k, v in lp["moe"].items()}
+        ff, aux = moe_lib.moe_ffn(moe_p, h.reshape(b * s, d),
+                                  top_k=cfg.top_k,
+                                  capacity_factor=cfg.capacity_factor)
+        ff = ff.reshape(b, s, d)
+    else:
+        mlp_p = {k: v.to(cd) for k, v in lp["mlp"].items()}
+        ff = L.mlp(mlp_p, h, gated=cfg.gated_mlp, activation=cfg.activation)
+        aux = 0.0
     if cfg.use_post_norm:
         ff = L.apply_norm(lp["ln2_post"], ff, cfg.norm)
-    return x + ff
+    return x + ff, aux
 
 
 def _layer_step(lp, x, cfg: TransformerConfig, **kw):
-    """One full block over ``x [B, S, d]``; returns ``(x, kv)``."""
+    """One full block over ``x [B, S, d]``; returns ``(x, kv, aux)``."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
     attn_out, kv = _attention(lp["attn"], h, cfg, **kw)
-    return block_tail(lp, cfg, x, attn_out), kv
+    x, aux = block_tail(lp, cfg, x, attn_out)
+    return x, kv, aux
 
 
 def layer_step(lp, x, cfg: TransformerConfig, *, split_flag: bool, segs,
@@ -299,9 +316,10 @@ def _run_layers(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
                 positions, segs=None, valid=None, seg_boundary=-1,
                 collect_cache=False, cache=None, cache_pos=None):
     """Layers [lo, hi), each with its own window, RoPE base and split
-    flag.  Returns ``(x, kv)``: the per-layer K/V stacked to
+    flag.  Returns ``(x, kv, aux)``: ``kv`` the per-layer K/V stacked to
     ``[hi - lo, B, S, Hkv, Dh]`` pairs (``collect_cache``), the updated
-    cache (``cache``), else None.
+    cache (``cache``), else None; ``aux`` the layers' MoE load losses
+    summed (the Python ``0.0`` over dense layers).
 
     The kernel impl takes the split mask as one static ``seg_boundary``
     and cannot mask by per-token segment ids, so on ``"cuda"`` a range
@@ -317,20 +335,23 @@ def _run_layers(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
             f"splits={splits} — run heterogeneous layers via separate "
             f"layer ranges or use attn_impl='plain'")
     ks, vs = [], []
+    aux = 0.0
     for i in range(lo, hi):
-        x, (k, v) = _layer_step(
+        x, (k, v), a = _layer_step(
             params["layers"][i], x, cfg, positions=positions,
             window=windows[i], rope_base=bases[i],
             split_flag=i < cfg.split_layers, segs=segs, valid=valid,
             seg_boundary=seg_boundary,
             cache=None if cache is None else (cache[0][i], cache[1][i]),
             cache_pos=cache_pos)
+        aux = aux + a
         if collect_cache:
             ks.append(k)
             vs.append(v)
     if cache is not None:
-        return x, cache
-    return x, ((torch.stack(ks), torch.stack(vs)) if collect_cache else None)
+        return x, cache, aux
+    return x, ((torch.stack(ks), torch.stack(vs)) if collect_cache
+               else None), aux
 
 
 def run_layer_range(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
@@ -373,14 +394,17 @@ def forward(params, cfg: TransformerConfig, tokens, *, positions=None,
     """Full-sequence forward.  Returns ``(hidden [B, S, d], kv, aux)``:
     ``kv`` the per-layer K/V as a ``(k, v)`` pair of
     ``[L, B, S, Hkv, Dh]`` (``collect_cache``) or None; ``aux`` the MoE
-    load loss, 0 here."""
+    load loss summed over layers (0 for a dense config)."""
     positions = _positions(tokens, positions)
     x = embed(params, cfg, tokens, positions, segs)
-    x, kv = _run_layers(params, cfg, x, 0, cfg.n_layers, positions=positions,
-                        segs=segs, valid=valid, seg_boundary=seg_boundary,
-                        collect_cache=collect_cache)
+    x, kv, aux = _run_layers(params, cfg, x, 0, cfg.n_layers,
+                             positions=positions, segs=segs, valid=valid,
+                             seg_boundary=seg_boundary,
+                             collect_cache=collect_cache)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    return x, kv, torch.zeros((), dtype=torch.float32, device=x.device)
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, kv, aux
 
 
 def _head(params, cfg: TransformerConfig):
@@ -462,8 +486,8 @@ def decode_step(params, cfg: TransformerConfig, tokens, cache,
     positions = torch.full((b, 1), int(cache_pos), dtype=torch.long,
                            device=tokens.device)
     x = embed(params, cfg, tokens, positions, None)
-    x, cache = _run_layers(params, cfg, x, 0, cfg.n_layers,
-                           positions=positions, cache=cache,
-                           cache_pos=int(cache_pos))
+    x, cache, _ = _run_layers(params, cfg, x, 0, cfg.n_layers,
+                              positions=positions, cache=cache,
+                              cache_pos=int(cache_pos))
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     return logits(params, cfg, x), cache

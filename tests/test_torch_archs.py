@@ -15,8 +15,9 @@ from repro_torch import configs as T
 from repro_torch.checkpoint import latest_step
 from repro_torch.launch import build_index, eval_quality, train
 
-PORTED = ("prettr-bert", "gemma3-4b", "dlrm-mlperf", "deepfm", "xdeepfm",
-          "bert4rec")
+PORTED = ("prettr-bert", "gemma3-4b", "granite-moe-3b-a800m",
+          "qwen3-moe-235b-a22b", "chatglm3-6b", "mistral-large-123b",
+          "dlrm-mlperf", "deepfm", "xdeepfm", "bert4rec")
 # the backend knobs name each package's own implementations
 IMPL_FIELDS = {"attn_impl", "compress_impl", "bag_impl"}
 

@@ -749,6 +749,63 @@ def test_decode_attention_gemma3_window(dev):
            decode_attention_ref(q, k, v, lengths, window=1024), "bfloat16")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [-1, 1024])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("r", [3, 12, 16, 24])
+def test_decode_attention_large_groups(dev, r, d, window, dtype):
+    """GQA groups of 3 (padded to 4 rows), 12 (a row group of 8 and a
+    partial one of 4), 16 and 24 query heads a KV head: the four LMs'
+    decode groups.  Ragged lengths over a 2080-key cache, into a
+    model-layout output that starts as NaN (every head must be written);
+    the planner splits the keys, so the merge runs on the row groups."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    dt, b, hkv, s = DTYPES[dtype], 4, 2, 2080
+    q = _rand(g, dev, dt, b, hkv * r, 1, d)
+    k, v = (_rand(g, dev, dt, b, hkv, s, d) for _ in range(2))
+    lengths = torch.tensor([2080, 2064, 1000, 1], device=dev,
+                           dtype=torch.int32)
+    out = torch.full((b, 1, hkv * r, d), float("nan"), device=dev, dtype=dt)
+    flash_decode_attention(q, k, v, lengths, window=window,
+                           out=out.transpose(1, 2))
+    assert flash_decode_attention.last_n_splits > 1
+    _close(out.transpose(1, 2), decode_attention_ref(q, k, v, lengths,
+                                                     window=window), dtype)
+
+
+def test_moe_smoke_model_kernels_match_plain(dev):
+    """qwen3-moe's smoke config on the card, float32: forward, logits
+    and two decode steps through the kernels (split attention's causal
+    form, flash decode at 2 query heads a KV head) against the plain
+    impl; the MoE FFN is plain torch in both."""
+    import dataclasses
+
+    from repro_torch.configs.qwen3_moe_235b import smoke_config
+    from repro_torch.models import transformer as T
+    cfg = smoke_config()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40))).to(dev)
+    out = {}
+    for impl in ("cuda", "plain"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        before = split_flash_attention.causal_launches
+        with torch.inference_mode():
+            h, kv, aux = T.forward(params, c, toks[:, :38],
+                                   collect_cache=True)
+            cache = T.init_decode_cache(c, 2, 40, dtype=torch.float32,
+                                        device=dev)
+            cache[0][:, :, :38], cache[1][:, :, :38] = kv
+            steps = [T.decode_step(params, c, toks[:, 38 + i:39 + i], cache,
+                                   38 + i)[0] for i in range(2)]
+        assert (split_flash_attention.causal_launches - before
+                == (cfg.n_layers if impl == "cuda" else 0))
+        out[impl] = [T.logits(params, c, h), *steps, aux]
+    for got, want in zip(out["cuda"], out["plain"]):
+        _close(got, want, "float32")
+
+
 def _split_kv(monkeypatch, n_splits):
     """Force the split-KV planner of both Sq = 1 wrappers to ``n_splits``
     ("one": 1, "many": 7) instead of its choice for the card."""
@@ -894,8 +951,8 @@ def test_sq1_kernels_refuse_a_planner_that_drifted(dev, monkeypatch, drift):
 
 def test_decode_attention_rejects_what_it_does_not_take(dev):
     q = torch.zeros((2, 18, 1, 64), device=dev)
-    k = torch.zeros((2, 2, 8, 64), device=dev)
-    with pytest.raises(ValueError, match="at most 8"):
+    k = torch.zeros((2, 4, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="not a multiple"):
         flash_decode_attention(q, k, k)
     with pytest.raises(ValueError, match="head dim"):
         z = torch.zeros((2, 2, 8, 48), device=dev)

@@ -31,7 +31,8 @@ from repro.kernels.decode_attention import (
     flash_decode_attention as jax_flash_decode)
 from repro.kernels.join_attention.ref import (
     join_attention_ref as jax_join_ref)
-from repro_torch.kernels.decode_attention.plan import (ALIGN, decode_span,
+from repro_torch.kernels.decode_attention.plan import (ALIGN, BLOCK_ROWS,
+                                                       decode_span,
                                                        plan_splits,
                                                        row_groups,
                                                        split_bounds)
@@ -177,6 +178,67 @@ def test_planner_reads_no_device_value():
     with pytest.raises(TypeError, match="Python ints"):
         plan_splits(16, torch.tensor([2064]), H100_SMS)
     assert row_groups(8) == 1 and row_groups(12) == 2
+
+
+def _row_blocks(r):
+    """A KV head's blocks for a GQA group of ``r`` query heads, as
+    ``sq1::launch`` and the kernel cut it: RB rows a block (1, 2, 4 or
+    BLOCK_ROWS), and each block's first row and row count."""
+    rb = 1 if r == 1 else 2 if r == 2 else 4 if r <= 4 else BLOCK_ROWS
+    return rb, [(r0, min(rb, r - r0)) for r0 in range(0, r, rb)]
+
+
+# the four LMs' decode groups: granite 24/8 (R = 3, padded to 4 rows),
+# mistral 96/8 (12: a full row group and a partial one of 4), chatglm3
+# 32/2 and qwen3 64/4 (16: two full ones), and 24 (three)
+LM_GROUPS = {"granite": (4, 24, 8), "mistral": (4, 96, 8),
+             "chatglm3": (4, 32, 2), "qwen3": (4, 64, 4),
+             "r24": (2, 48, 2)}
+
+
+@pytest.mark.parametrize("model", list(LM_GROUPS))
+def test_row_groups_address_each_head_once(model):
+    """Every query head is written by exactly one block, none past
+    Hq - 1, and the split partials of every block stay inside the
+    planner's [B, Hq, n_splits, D + 2] buffer; the planner counts the
+    blocks the kernel launches."""
+    b, hq, hkv = LM_GROUPS[model]
+    r, d = hq // hkv, 128
+    rb, blocks = _row_blocks(r)
+    assert len(blocks) == row_groups(r) == -(-r // BLOCK_ROWS)
+    n_splits = plan_splits(b * hkv * row_groups(r),
+                           decode_span(2080, -1), H100_SMS)
+    written, top = [], 0
+    for hk in range(hkv):
+        for r0, nr in blocks:
+            assert 0 < nr <= rb
+            h0 = hk * r + r0
+            written.extend(range(h0, h0 + nr))
+            last = ((b - 1) * hq + h0 + nr - 1) * n_splits + n_splits - 1
+            top = max(top, (last + 1) * (d + 2))
+    assert sorted(written) == list(range(hq))
+    assert top == b * hq * n_splits * (d + 2)
+
+
+@pytest.mark.parametrize("window", [-1, 40])
+@pytest.mark.parametrize("r", [3, 12, 16, 24])
+def test_large_groups_split_kv_match_pallas(r, window):
+    """GQA groups above 8 rows through the emulated kernel, one row group
+    at a time, against the Pallas flash decode (whose block takes the
+    whole group): D = 64, ragged lengths over 300 keys, two splits."""
+    rng = np.random.default_rng(31)
+    b, hkv, s, d = 2, 2, 300, 64
+    q = _f32(rng, b, hkv * r, 1, d)
+    k, v = _f32(rng, b, hkv, s, d), _f32(rng, b, hkv, s, d)
+    lengths = [300, 137]
+    want = _jax_decode(q, k, v, lengths, None, window)
+    lo, hi = _decode_range(lengths, s, window)
+    rows = _grouped(q, hkv)
+    got = torch.cat([split_kv_emulate(rows[:, :, r0:r0 + nr], k, v,
+                                      torch.ones((b, s), dtype=torch.bool),
+                                      lo, hi, 2)
+                     for r0, nr in _row_blocks(r)[1]], dim=2)
+    _hold(got, want, torch.ones(b, dtype=torch.bool))
 
 
 @pytest.mark.parametrize("n_splits", [1, 2, 6, 17, 33])

@@ -424,7 +424,7 @@ def test_build_index_and_serve_clis_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cli,argv,item", [
-    ("train", ["--arch", "qwen3-moe-235b-a22b"], "item 5"),
+    ("train", ["--arch", "dimenet"], "item 6"),
     ("build_index", ["--data-parallel"], "item 7")])
 def test_unported_cli_options_name_their_roadmap_item(cli, argv, item):
     import importlib
