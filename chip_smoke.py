@@ -5,7 +5,8 @@ Drives the port's main paths at full width with seeded random weights:
 PreTTR at the paper's (``repro_torch.configs.prettr_bert.full_config``:
 12 layers, d=768, split at l=6, e=256, bf16 compute), the transformer LMs
 (gemma3-4b, granite-moe-3b-a800m, chatglm3-6b, qwen3-moe-235b-a22b,
-mistral-large-123b), then the recsys models at their published configs:
+mistral-large-123b), then the recsys models at their published configs
+and DimeNet at three of its cells:
 
 1. device  -- the card's name and power limit, the kernel build time;
 2. kernels -- each hand-written kernel form at its main-path shape against
@@ -187,12 +188,33 @@ mistral-large-123b), then the recsys models at their published configs:
    ``forward_hidden`` refused on the kernel impl before any launch; then
    a line with the sharded and BERT4Rec phases' wall times.  Phase 2
    also holds split attention at head dim 32 (BERT4Rec's shapes, the
-   CUDA-core kernel) against its plain version (``split_attention_d32``).
+   CUDA-core kernel) against its plain version (``split_attention_d32``);
+9. dimenet -- ``configs.dimenet.full_config`` (6 blocks, d 128, float32
+   compute) at three of GNN_SHAPES' cells at their published sizes:
+   ``full_graph_sm`` (Cora's 2708 nodes, 10556 edges, 1433 features),
+   ``molecule`` (128 molecules of 30 atoms and 64 edges, the energy task)
+   and ``minibatch_lg`` (Reddit's 232,965-node, 114,615,892-edge graph
+   built on the host, one ``NeighborSampler`` batch of 1024 seeds at
+   fanout (15, 10), 8 triplets an edge at most, the loss over the seeds).
+   Each ``dimenet_<cell>`` line gives the host build, the sizes, the
+   forward's ms, DIMENET_STEPS of ``launch.steps.gnn_train_step`` (ms a
+   step, losses that must fall, ``mfu`` over the float32 peak, peak
+   memory), the card against the port on the CPU on the same inputs and
+   weights (forward, loss, every gradient leaf, within ``DIMENET_*_REL``;
+   the gradients also against the card's float64 run, which tells the
+   card's rounding from the CPU's) and the card's run-to-run distance
+   (its index_add atomics), then a
+   ``profile`` of one step; ``dimenet_bf16``: Cora's forward in bf16 on
+   the card within twice the CPU port's own bf16 rounding;
+   ``dimenet_wall``.  DimeNet reaches no ``pl.pallas_call`` in the JAX
+   package (gathers, segment sums, small dense products), so its paths
+   launch no kernel of the port: ``PATH_KERNELS`` gives them none, and a
+   launch fails the run.
 
 Kernel launches are counted per path: every counter is set to 0 just
 before each index build, each timed serving run, the training steps, the
-validation and distillation runs, the soundness check, each LM run and
-each recsys run, and read just after.  A path that
+validation and distillation runs, the soundness check, each LM run,
+each recsys run and each DimeNet cell, and read just after.  A path that
 misses a kernel it must run (``PATH_KERNELS``: the tensor-core split and
 join kernels on the bf16 paths, the CUDA-core ones on the float32
 paths; the tensor-core compress and decompress kernels on every path
@@ -207,7 +229,8 @@ The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
 the index builds, the bf16 kernel runs of each serving form, the
 cascades, the training paths, the LMs' bf16 prefill and decode, the
 recsys serve_bulk forwards, retrieval runs and towers, the router's bf16
-drains and BERT4Rec's bf16 history and join), each launch under one
+drains, BERT4Rec's bf16 history and join and the DimeNet cells), each
+launch under one
 row: the later LMs' under the rows that hold their shapes;
 ``launches_by_path`` gives each path's own.
 
@@ -379,6 +402,29 @@ SHAPE_COUNTERS = ("split_attention_d32",)
 #   a few float32 ulps (2^-23); 2^-16 * max|plain| is 128 ulps of the
 #   largest value.
 REC_REL = {"bits": 0.0, "bfloat16": 2.0 ** -7, "float32": 2.0 ** -16}
+# DimeNet (configs.dimenet.full_config: 6 blocks, d 128) at three of
+# GNN_SHAPES' cells at their published sizes, in float32 as
+# launch.steps.gnn_cell_config picks below 1 M padded edges: Cora's graph
+# (full_graph_sm), 128 molecules (molecule) and one neighbour-sampled
+# batch of Reddit's graph (minibatch_lg: 1024 seed nodes at fanout (15,
+# 10), its triplets capped at 8 an edge, the loss over the seeds);
+# ogb_products (495 M triplet slots) waits for the mesh.  DIMENET_STEPS
+# AdamW steps at OptimizerConfig()'s defaults, times the median after
+# DIMENET_WARMUP; the mean of the last DIMENET_LOSS_WINDOW losses must
+# fall below the first's
+DIMENET_CELLS = ("full_graph_sm", "molecule", "minibatch_lg")
+DIMENET_STEPS, DIMENET_WARMUP, DIMENET_LOSS_WINDOW = 30, 5, 5
+# the card against the port on the CPU, same inputs and weights, float32:
+# index_add and the gathers' backward accumulate in another order on the
+# card (atomics), so these are summation-order limits, scaled to the data
+# (random weights drive energies to ~5e5 through the envelope's 1/d): the
+# forward within 1e-4 of max|cpu|, the loss 1e-5 relative.  Gradients:
+# each leaf of the card's within 1e-4 of that leaf's max|.| of the same
+# gradient in float64 (on the card), and of the CPU's within 1e-4 plus
+# the CPU's own distance from float64: the energy task's sums cancel, and
+# an H100 machine's CPU put its float32 gradient 1.2e-4 from float64
+# there (the card 4.3e-5)
+DIMENET_FWD_REL, DIMENET_LOSS_REL, DIMENET_GRAD_REL = 1e-4, 1e-5, 1e-4
 # the spin kernel ahead of each call timed for ``device_ms``: ~2 ms at
 # the H100's 1.98 GHz, longer than any timed call's host work
 SPIN_CYCLES = 4_000_000
@@ -1346,6 +1392,9 @@ PATH_KERNELS = {
     **{p: () for run in ("plain_bf16", "plain_f32")
        for p in BERT4REC_PATHS[run]},
     "plain_legacy_bf16": (), "plain_legacy_f32": (),
+    # DimeNet: gathers, index_add and dense products, no kernel of the
+    # port (the reference reaches no pl.pallas_call on this path)
+    **{f"dimenet_{c}": () for c in (*DIMENET_CELLS, "bf16")},
     "plain_int8_kv_bf16": (), "plain_int8_kv_f32": (),
     "plain_cached_bf16": (), "plain_cached_f32": (),
     # gemma3-4b: prefill through the causal (global) and window (local)
@@ -1397,8 +1446,8 @@ LM_MORE_MAIN = tuple(f"lm_{kind}_{key}" for key, *_ in LM_MORE
 # builds, the bf16 drains of each serving form, the cascade's bf16 runs
 # (untrained and trained), the training paths,
 # each LM's bf16 prefill and decode, the recsys serve_bulk forwards,
-# retrieval and towers, the router's bf16 drains and BERT4Rec's bf16
-# history and join
+# retrieval and towers, the router's bf16 drains, BERT4Rec's bf16
+# history and join and the DimeNet cells
 MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               "serve_int8_kv", "serve_cached", "index_pq", "serve_pq",
               "serve_pq_cached", "index_pruned", "serve_pruned",
@@ -1412,7 +1461,8 @@ MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               "xdeepfm_serve_p99",
               *(f"serve_sharded_{i}_{n}" for i, ns in SHARD_COUNTS.items()
                 for n in ns), "serve_sharded_cached",
-              *BERT4REC_PATHS["cuda_bf16"])
+              *BERT4REC_PATHS["cuda_bf16"],
+              *(f"dimenet_{c}" for c in DIMENET_CELLS))
 
 
 def _scores(resps):
@@ -3062,6 +3112,277 @@ def bert4rec_phase(torch, name, launches):
         raise AssertionError(f"bert4rec: {line}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: DimeNet, forward and training at three GNN cells
+# ---------------------------------------------------------------------------
+
+
+def dimenet_graph(cell):
+    """The cell's graph (a numpy ``GraphBatch``), the host seconds it took
+    and the line's notes on how it was made."""
+    import numpy as np
+    from repro_torch.configs import GNN_SHAPES
+    from repro_torch.data import graphs as G
+    from repro_torch.launch.steps import FANOUT_CAP
+
+    t0 = time.perf_counter()
+    if cell == "full_graph_sm":
+        info = GNN_SHAPES[cell]
+        g = G.make_graph_batch(info["n_nodes"], info["n_edges"],
+                               d_feat=info["d_feat"], fanout_cap=FANOUT_CAP,
+                               n_classes=16, seed=SEED)
+        return g, time.perf_counter() - t0, {}
+    if cell == "molecule":
+        info = GNN_SHAPES[cell]
+        g = G.make_molecule_batch(info["batch"], info["n_nodes"],
+                                  info["n_edges"], fanout_cap=FANOUT_CAP,
+                                  seed=SEED)
+        return g, time.perf_counter() - t0, {}
+    info = GNN_SHAPES["minibatch_lg"]
+    n = info["n_nodes"]
+    feat, pos, src, dst, labels = G.random_graph(
+        n, info["n_edges"], d_feat=602, n_classes=41, seed=SEED)
+    t1 = time.perf_counter()
+    sampler = G.NeighborSampler(src, dst, n, seed=SEED)
+    del src, dst
+    t2 = time.perf_counter()
+    seeds = np.random.default_rng(SEED).choice(n, info["batch_nodes"],
+                                               replace=False)
+    s_src, s_dst, node_map = sampler.sample(seeds, info["fanout"])
+    del sampler
+    t3 = time.perf_counter()
+    t_kj, t_ji, t_valid = G.build_triplets(s_src, s_dst, FANOUT_CAP)
+    g = G.GraphBatch(feat[node_map], pos[node_map], s_src, s_dst,
+                     np.ones(len(s_src), bool), t_kj, t_ji, t_valid,
+                     labels[node_map])
+    t4 = time.perf_counter()
+    return g, t4 - t0, {
+        "source_nodes": n, "source_edges": info["n_edges"],
+        "seed_nodes": info["batch_nodes"], "fanout": list(info["fanout"]),
+        "host_s": {"random_graph": t1 - t0, "sampler_init": t2 - t1,
+                   "sample": t3 - t2, "build_triplets": t4 - t3}}
+
+
+def _dimenet_forward(D, params, cfg, b):
+    extra = {}
+    if cfg.task == "energy":
+        extra = {"graph_ids": b["graph_ids"], "n_graphs": b["labels"].shape[0]}
+    return D.dimenet_forward(
+        params, cfg, node_feat=b["node_feat"], positions=b["positions"],
+        edge_src=b["edge_src"], edge_dst=b["edge_dst"],
+        edge_valid=b["edge_valid"], trip_kj=b["trip_kj"],
+        trip_ji=b["trip_ji"], trip_valid=b["trip_valid"], **extra)
+
+
+def _grad_rel(got, want):
+    """Per leaf, max|got - want| over max|want| (0 where both are 0, inf
+    where only ``want`` is): the largest, and the three leaves that give
+    the largest."""
+    from repro_torch.tree import leaves_with_paths
+    want = {k: w.cpu().double() for k, w in leaves_with_paths(want)}
+    rel = []
+    for k, g in leaves_with_paths(got):
+        err = (g.cpu().double() - want[k]).abs().max().item()
+        scale = want[k].abs().max().item()
+        rel.append((err / scale if scale else (0.0 if err == 0 else
+                                                math.inf), k))
+    rel.sort(reverse=True)
+    return rel[0][0], {k: r for r, k in rel[:3]}
+
+
+def dimenet_cell(torch, name, launches, cell):
+    """One cell: the port on the card against the port on the CPU (the
+    forward, the loss and every gradient leaf, same inputs and weights),
+    the card's run-to-run distance (and both float32 gradients against
+    the card's float64 one), the forward's ms, DIMENET_STEPS of
+    ``gnn_train_step`` (ms a step, losses, ``mfu`` over the float32 peak,
+    peak memory), then a profile of one more step.  Every card call is
+    counted under ``dimenet_<cell>`` and must launch no kernel.  Returns
+    the CPU params and batch for the bf16 line."""
+    import dataclasses
+
+    from repro_torch.configs import dimenet as DC
+    from repro_torch.data import graphs as G
+    from repro_torch.device import to_device
+    from repro_torch.launch.steps import (_dimenet_flops, gnn_cell_config,
+                                          gnn_train_step)
+    from repro_torch.models.gnn import dimenet as D
+    from repro_torch.optim import (OptimizerConfig, init_opt_state,
+                                   value_and_grad)
+    from repro_torch.tree import tree_map
+
+    spec = gnn_cell_config(DC.spec(), cell)
+    cfg = spec.cfg
+    g, host_s, notes = dimenet_graph(cell)
+    b_cpu = G.graph_batch_tensors(g, device="cpu")
+    if cell == "minibatch_lg":         # the loss over the seeds, first
+        b_cpu["label_mask"] = torch.arange(len(g.labels)) < notes[
+            "seed_nodes"]
+    n_nodes, n_edges, n_trip = (len(g.positions), len(g.edge_src),
+                                len(g.trip_kj))
+    del g
+    p_cpu = D.init_dimenet(cfg, torch.Generator().manual_seed(SEED),
+                           device="cpu")
+    loss_fn = D.energy_loss if cfg.task == "energy" else D.node_cls_loss
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out_cpu = _dimenet_forward(D, p_cpu, cfg, b_cpu)
+    loss_cpu, grads_cpu = value_and_grad(lambda p: loss_fn(p, cfg, b_cpu),
+                                         p_cpu)
+    cpu_s = time.perf_counter() - t0
+    b, params = to_device(b_cpu, "cuda"), to_device(p_cpu, "cuda")
+    # the same gradients in float64 on the card: how far each float32 run
+    # sits from them
+    cfg64 = dataclasses.replace(cfg, compute_dtype=torch.float64)
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in b.items()}
+    _, grads64 = value_and_grad(lambda p: loss_fn(p, cfg64, b64),
+                                tree_map(lambda a: a.double(), params))
+    del b64
+    fwd = lambda: _dimenet_forward(D, params, cfg, b)
+    opt_cfg = OptimizerConfig()
+
+    def on_card():
+        with torch.no_grad():
+            outs = [fwd(), fwd()]
+        runs = [value_and_grad(lambda p: loss_fn(p, cfg, b), params)
+                for _ in range(2)]
+        with torch.no_grad():
+            fwd_ms = time_ms(fwd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        p, opt = params, init_opt_state(params, opt_cfg)
+        losses, norms, events = [], [], []
+        for _ in range(DIMENET_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            p, opt, out = gnn_train_step(p, opt, cfg, opt_cfg, b)
+            end.record()
+            losses.append(out["loss"])
+            norms.append(out["grad_norm"])
+            events.append((start, end))
+        torch.cuda.synchronize()
+        return outs, runs, fwd_ms, (p, opt), losses, norms, events
+
+    t0 = time.perf_counter()
+    (outs, runs, fwd_ms, state, losses, norms, events), \
+        launches[f"dimenet_{cell}"] = counted(on_card)
+    card_s = time.perf_counter() - t0
+    mem = memory(torch)
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    step_ms = statistics.median(a.elapsed_time(e)
+                                for a, e in events[DIMENET_WARMUP:])
+    flops = 3 * _dimenet_flops(cfg, n_edges, n_trip, n_nodes, cfg.d_feat)
+    w = DIMENET_LOSS_WINDOW
+    scale = out_cpu.abs().max().item()
+    rel_cpu, rel64 = (_grad_rel(runs[0][1], ref)
+                      for ref in (grads_cpu, grads64))
+    cpu64 = _grad_rel(grads_cpu, grads64)
+    del grads64
+    line = {"phase": f"dimenet_{cell}", "device": name,
+            "config": cfg.name, "n_blocks": cfg.n_blocks,
+            "d_hidden": cfg.d_hidden, "task": cfg.task,
+            "d_feat": cfg.d_feat, "n_classes": cfg.n_classes,
+            "compute_dtype": str(cfg.compute_dtype), **notes,
+            "host_build_s": host_s, "nodes": n_nodes, "edges": n_edges,
+            "triplet_slots": n_trip,
+            "triplets_valid_share": b["trip_valid"].float().mean().item(),
+            "cell_nodes": spec.n_nodes, "cell_edges_padded": spec.n_edges,
+            "cell_triplet_slots": spec.n_trip,
+            "forward_ms": fwd_ms, "step_ms": step_ms,
+            "steps": DIMENET_STEPS, "lr": opt_cfg.lr,
+            "loss_first": losses[:w], "loss_last": losses[-w:],
+            "loss_first_mean": statistics.fmean(losses[:w]),
+            "loss_last_mean": statistics.fmean(losses[-w:]),
+            "grad_norm_first": norms[0], "grad_norm_last": norms[-1],
+            "model_flops_per_step": flops,
+            "model_flops_per_s": flops / step_ms * 1e3,
+            "mfu": flops / step_ms * 1e3 / PEAK_F32_FLOPS,
+            "mfu_peak": "float32, CUDA cores (TF32 off)",
+            "max_abs_out": scale,
+            "fwd_rel_vs_cpu": (outs[0].cpu() - out_cpu).abs().max().item()
+            / scale,
+            "loss_rel_vs_cpu": abs(runs[0][0].item() - loss_cpu.item())
+            / abs(loss_cpu.item()),
+            "grad_rel_vs_cpu": rel_cpu[0],
+            "grad_rel_vs_cpu_worst": rel_cpu[1],
+            "grad_rel_vs_f64": {"card": rel64[0], "cpu": cpu64[0],
+                                "card_worst": rel64[1],
+                                "cpu_worst": cpu64[1]},
+            "limits": {"fwd_rel": DIMENET_FWD_REL,
+                       "loss_rel": DIMENET_LOSS_REL,
+                       "grad_rel_vs_f64": DIMENET_GRAD_REL,
+                       "grad_rel_vs_cpu": DIMENET_GRAD_REL + cpu64[0]},
+            "fwd_rel_run_to_run": (outs[0] - outs[1]).abs().max().item()
+            / scale,
+            "grad_rel_run_to_run": _grad_rel(runs[0][1], runs[1][1])[0],
+            "cpu_reference_s": cpu_s, "card_s": card_s,
+            "launches": launches[f"dimenet_{cell}"], **mem}
+    emit(line)
+    finite = all(math.isfinite(x) for x in losses + norms) and bool(
+        torch.isfinite(outs[0]).all())
+    if not (finite and line["fwd_rel_vs_cpu"] <= DIMENET_FWD_REL
+            and line["loss_rel_vs_cpu"] <= DIMENET_LOSS_REL
+            and rel64[0] <= DIMENET_GRAD_REL
+            and rel_cpu[0] <= DIMENET_GRAD_REL + cpu64[0]
+            and line["loss_last_mean"] < line["loss_first_mean"]):
+        raise AssertionError(f"dimenet_{cell}: {line}")
+    p, opt = state
+    profile_run(torch, name, f"dimenet_{cell}_step",
+                lambda: gnn_train_step(p, opt, cfg, opt_cfg, b))
+    return p_cpu, b_cpu, cfg, out_cpu
+
+
+def dimenet_phases(torch, name, launches):
+    """DimeNet at DIMENET_CELLS, then ``dimenet_bf16``: Cora's forward at
+    bf16 compute on the card, within twice the CPU port's own bf16 vs
+    float32 distance on the same inputs; then ``dimenet_wall``."""
+    import dataclasses
+
+    from repro_torch.device import to_device
+    from repro_torch.models.gnn import dimenet as D
+
+    wall = {}
+    for cell in DIMENET_CELLS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cpu_run = dimenet_cell(torch, name, launches, cell)
+        if cell == "full_graph_sm":
+            p_cpu, b_cpu, cfg, out32 = cpu_run
+        wall[cell] = time.perf_counter() - t0
+    del cpu_run
+    t0 = time.perf_counter()
+    cfg16 = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        cpu16 = _dimenet_forward(D, p_cpu, cfg16, b_cpu).float()
+        params, b = to_device(p_cpu, "cuda"), to_device(b_cpu, "cuda")
+        fwd = lambda: _dimenet_forward(D, params, cfg16, b)
+        card16, launches["dimenet_bf16"] = counted(fwd)
+        ms = time_ms(fwd)
+    scale = out32.abs().max().item()
+    rounding = (cpu16 - out32).abs().max().item() / scale
+    line = {"phase": "dimenet_bf16", "device": name, "cell": "full_graph_sm",
+            "forward_ms": ms,
+            "max_abs_out_f32": scale,
+            "card_bf16_vs_cpu_f32_rel": (card16.float().cpu() - out32).abs()
+            .max().item() / scale,
+            "cpu_bf16_vs_cpu_f32_rel": rounding, "limit_rel": 2 * rounding,
+            "card_bf16_vs_cpu_bf16_rel": (card16.float().cpu() - cpu16).abs()
+            .max().item() / scale,
+            "launches": launches["dimenet_bf16"]}
+    emit(line)
+    if not (bool(torch.isfinite(card16).all())
+            and line["card_bf16_vs_cpu_f32_rel"] <= line["limit_rel"]):
+        raise AssertionError(f"dimenet_bf16: {line}")
+    wall["bf16"] = time.perf_counter() - t0
+    del p_cpu, b_cpu, params, b
+    torch.cuda.empty_cache()
+    emit({"phase": "dimenet_wall", "device": name, "seconds": wall,
+          "total_s": sum(wall.values())})
+
+
 def main():
     # cuBLAS's workspace made explicit (the size PyTorch picks on Hopper),
     # so the checkpoint phase may run under use_deterministic_algorithms
@@ -3452,7 +3773,10 @@ def main():
     emit({"phase": "sharded_and_bert4rec_wall", "device": name,
           "seconds": added_s, "total_s": sum(added_s.values())})
 
-    # 9. kernels line: `launches` counts the main paths (the index builds,
+    # 9. DimeNet: three GNN cells, forward and training, no kernel
+    dimenet_phases(torch, name, launches)
+
+    # 10. kernels line: `launches` counts the main paths (the index builds,
     #    the bf16 drains, the LMs' bf16 prefill and decode and the recsys
     #    paths of MAIN_PATHS, the later LMs' under their shapes' rows);
     #    `launches_by_path` each counted path alone

@@ -1,8 +1,8 @@
 """Weight bridge: the JAX package's params pytrees (PreTTR's, the
-transformer LM's, BERT4Rec's and the recsys models') -> the port's
-params.
+transformer LM's, BERT4Rec's, the recsys models' and DimeNet's) -> the
+port's params.
 
-The JAX tree comes in as nested dicts of numpy arrays (for example
+The JAX tree comes in as nested dicts and lists of numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``, or :func:`read_jax_checkpoint` of a
 checkpoint the JAX store wrote); this module needs neither JAX nor the
 JAX package.  Layer leaves are stacked on a leading ``[L]`` axis there
@@ -18,10 +18,12 @@ import torch
 from repro_torch.checkpoint import store
 from repro_torch.core.prettr import PreTTRConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.gnn.dimenet import (DimeNetConfig, map_shapes,
+                                           param_shapes)
 from repro_torch.models.recsys.deepfm import DeepFMConfig
 from repro_torch.models.recsys.dlrm import DLRMConfig
 from repro_torch.models.transformer import TransformerConfig
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 
 def _tensor(a, device):
@@ -29,8 +31,12 @@ def _tensor(a, device):
 
 
 def _tree(t, device):
+    """Nested dicts and lists of arrays -> the same structure of tensors
+    (a tuple becomes a list)."""
     if isinstance(t, dict):
         return {k: _tree(v, device) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [_tree(v, device) for v in t]
     return _tensor(t, device)
 
 
@@ -98,6 +104,28 @@ def recsys_params_from_jax(tree: dict, cfg, device=None,
     if table_dtype is not None:
         out["table"] = out["table"].to(table_dtype)
     return out
+
+
+def dimenet_params_from_jax(tree: dict, cfg: DimeNetConfig,
+                            device=None) -> dict:
+    """JAX ``init_dimenet`` params (numpy leaves; ``msg_init``, ``blocks``,
+    ``head`` and each block's ``update`` are lists) -> the port's on
+    ``device`` (``None`` means the card).  A tree whose structure, block
+    count or leaf shapes differ from ``cfg``'s raises, naming the
+    leaf."""
+    dev = resolve_device(device)
+    n_blocks = len(tree.get("blocks", ()))
+    if n_blocks != cfg.n_blocks:
+        raise ValueError(f"params hold {n_blocks} blocks, {cfg.name} has "
+                         f"n_blocks={cfg.n_blocks}")
+    want = {}
+    map_shapes(want.setdefault, param_shapes(cfg))
+    got = {k: np.shape(a) for k, a in leaves_with_paths(tree)}
+    for key in sorted(set(want) | set(got)):
+        if got.get(key) != want.get(key):
+            raise ValueError(f"params leaf {key!r}: shape {got.get(key)}, "
+                             f"{cfg.name} wants {want.get(key)}")
+    return _tree(tree, dev)
 
 
 def read_jax_checkpoint(ckpt_dir: str):

@@ -3,11 +3,9 @@ ten assigned architectures and the paper's own model.
 
 ``get_arch(name)`` -> :class:`ArchSpec` with the published full config, a
 reduced smoke config of the same family and the architecture's shape-cell
-table, for the ten configs the port has (``prettr-bert``, the five LMs,
-``dlrm-mlperf``, ``deepfm``, ``xdeepfm``, ``bert4rec``).  A name the JAX
-registry knows whose model the port has not ported yet (``dimenet``)
-raises ``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item
-that ports it.
+table, for every name the JAX registry knows: ``prettr-bert``, the five
+LMs, ``dimenet``, ``dlrm-mlperf``, ``deepfm``, ``xdeepfm`` and
+``bert4rec``.
 """
 from __future__ import annotations
 
@@ -72,12 +70,6 @@ _ARCH_MODULES = {
     "prettr-bert": "prettr_bert",
 }
 
-#: architectures the port has no model for yet, with the ROADMAP.md
-#: Queue 1 item that ports each
-NOT_PORTED = {
-    "dimenet": "item 6 (DimeNet)",
-}
-
 ALL_ARCHS = tuple(_ARCH_MODULES)
 ASSIGNED_ARCHS = tuple(a for a in ALL_ARCHS if a != "prettr-bert")
 
@@ -86,10 +78,6 @@ def get_arch(name: str) -> ArchSpec:
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: "
                        f"{sorted(_ARCH_MODULES)}")
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP.md Queue 1 "
-            f"{NOT_PORTED[name]}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.spec()

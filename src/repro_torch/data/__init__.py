@@ -1,2 +1,2 @@
 """Synthetic data generators of the port (numpy; copies of ``repro.data``'s
-recsys, tokenizer and synthetic IR modules)."""
+recsys, tokenizer, synthetic IR and graph modules)."""

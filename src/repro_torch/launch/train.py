@@ -167,10 +167,7 @@ def train_lm(args) -> dict:
     from repro_torch.optim import (OptimizerConfig, adam_update,
                                    init_opt_state, value_and_grad)
 
-    try:
-        spec = get_arch(args.arch)
-    except NotImplementedError as e:      # an architecture not ported yet
-        raise SystemExit(str(e)) from e
+    spec = get_arch(args.arch)
     if spec.family != "lm":
         raise SystemExit(f"--arch {args.arch}: this driver trains the "
                          f"PreTTR ranker and causal LMs, not {spec.family} "

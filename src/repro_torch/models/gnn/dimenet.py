@@ -1,0 +1,315 @@
+"""DimeNet (Klicpera et al., arXiv:2003.03123), the port of
+``repro.models.gnn.dimenet``.
+
+Directional message passing: messages live on *directed edges* m_{ji};
+interaction blocks aggregate over *triplets* (k->j->i) with a joint
+radial x angular basis of the (d_kj, angle_kji) geometry.  The triplets
+come from host-enumerated index lists with a fanout cap
+(``repro_torch.data.graphs``), gathered, then summed onto edges and from
+edges onto nodes.
+
+The interaction block is the reference's DimeNet++ form (Hadamard basis
+gating with a down / up projection, arXiv:2011.14115); ``n_bilinear``
+sizes the down-projection.  Citation-graph cells carry node *features*:
+a linear input projection replaces the atom embedding, and synthetic 3D
+positions supply the geometry.
+
+No Pallas kernel computes any of it in the reference, and the port runs
+no hand-written kernel here: gathers, ``index_add``, a reshape-sum and
+small dense products (``@``).  Gathers that carry gradients are
+``index_select``, whose backward is an ``index_add``: indexing's backward
+sorts the indices instead, which took 45.7 of a Cora training step's
+52.1 busy ms on an H100 (``chip_smoke.py``'s profile).  On the card
+``index_add`` accumulates in a nondeterministic order, so two runs there
+differ at float32 rounding.
+
+Where parity hangs on detail, as the reference does it:
+
+- distances, unit vectors, angles and both bases are float32, cast to
+  ``compute_dtype`` only then; ``sbf`` is masked by ``trip_valid`` after
+  the cast;
+- the envelope divides by ``max(d, 1e-9)`` and *selects* (``where``)
+  below the cutoff: ``u`` is huge where ``d`` is tiny, so a multiply by
+  a mask would not do; the cosine is clipped at +-(1 - 1e-7) in float32
+  before ``arccos``;
+- triplet -> edge aggregation is a local reshape-sum when
+  ``cfg.blocked_triplets`` and ``T % E == 0`` (``build_triplets``' blocked
+  layout), else an ``index_add`` over ``trip_ji``;
+- each block projects ``[E, d] -> [E, n_bilinear]`` *before* the gather
+  by ``trip_kj`` (the same math as gathering first, 16x less traffic);
+- each interaction block is recomputed in the backward
+  (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)
+  whenever grad is enabled, so only the ``[E, d]`` carry stays live
+  between blocks.
+
+The reference's ``maybe_shard`` hints are the identity without a mesh and
+are dropped; the edge-sharded layout waits for the port's distribution
+slice (ROADMAP Queue 1 item 7), as does the sharding axes tree, which
+:func:`init_dimenet` does not return.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class DimeNetConfig:
+    name: str = "dimenet"
+    n_blocks: int = 6
+    d_hidden: int = 128
+    n_bilinear: int = 8
+    n_spherical: int = 7
+    n_radial: int = 6
+    cutoff: float = 5.0
+    envelope_p: int = 6
+    d_feat: int = 0            # >0: feature input projection (citation graphs)
+    n_atom_types: int = 16
+    n_classes: int = 16        # node-classification head
+    task: str = "node_cls"     # "node_cls" | "energy"
+    # build_triplets' lists are blocked (trip_ji[t] == t // fanout_cap), so
+    # triplet -> edge aggregation is a local reshape-sum; False sums by
+    # index for arbitrary layouts
+    blocked_triplets: bool = True
+    compute_dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Geometry bases (float32)
+# ---------------------------------------------------------------------------
+
+
+def envelope(d_scaled, p: int):
+    """Smooth polynomial cutoff envelope u(d) (DimeNet Eq. 8)."""
+    a = -(p + 1) * (p + 2) / 2.0
+    b = p * (p + 2.0)
+    c = -p * (p + 1) / 2.0
+    u = 1.0 / torch.clamp(d_scaled, min=1e-9) + a * d_scaled ** (p - 1) \
+        + b * d_scaled ** p + c * d_scaled ** (p + 1)
+    return torch.where(d_scaled < 1.0, u, 0.0)
+
+
+def radial_basis(d, n_radial: int, cutoff: float, p: int):
+    """e_RBF: [E, n_radial] — spherical Bessel j_0 roots (Eq. 7)."""
+    ds = d / cutoff
+    n = torch.arange(1, n_radial + 1, dtype=torch.float32, device=d.device)
+    env = envelope(ds, p)
+    return (env[:, None] * math.sqrt(2.0 / cutoff)
+            * torch.sin(n[None, :] * math.pi * ds[:, None]))
+
+
+def spherical_basis(d_kj, angle, n_spherical: int, n_radial: int,
+                    cutoff: float, p: int):
+    """a_SBF: [T, n_spherical * n_radial] — radial Bessel x Chebyshev
+    angular polynomials (the reference's cos(l theta) expansion in place
+    of the Legendre / Bessel product)."""
+    ds = d_kj / cutoff
+    n = torch.arange(1, n_radial + 1, dtype=torch.float32, device=d_kj.device)
+    env = envelope(ds, p)
+    rad = env[:, None] * torch.sin(n[None, :] * math.pi * ds[:, None])
+    l = torch.arange(n_spherical, dtype=torch.float32, device=d_kj.device)
+    ang = torch.cos(l[None, :] * angle[:, None])                     # [T, S]
+    return (rad[:, None, :] * ang[:, :, None]).reshape(d_kj.shape[0], -1)
+
+
+def edge_geometry(positions, src, dst):
+    """distances d_ji and unit vectors for directed edges j->i."""
+    vec = positions[dst] - positions[src]
+    d = torch.sqrt(torch.sum(vec * vec, dim=-1) + 1e-12)
+    return d, vec / d[:, None]
+
+
+def triplet_angles(unit_vec, trip_kj, trip_ji):
+    """angle at j between edges (k->j) and (j->i)."""
+    # k->j points toward j; j->i points away from j: angle between -v_kj, v_ji
+    cos = torch.sum((-unit_vec[trip_kj]) * unit_vec[trip_ji], dim=-1)
+    return torch.arccos(torch.clamp(cos, -1 + 1e-7, 1 - 1e-7))
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def _mlp_shapes(dims):
+    return [{"w": (dims[i], dims[i + 1]), "b": (dims[i + 1],)}
+            for i in range(len(dims) - 1)]
+
+
+def param_shapes(cfg: DimeNetConfig) -> dict:
+    """The shape of every leaf of the params tree, as nested dicts and
+    lists of tuples."""
+    d, nb, r = cfg.d_hidden, cfg.n_bilinear, cfg.n_radial
+    block = {"w_src": (d, d),                        # m_kj transform
+             "w_rbf": (r, d),
+             "w_sbf": (cfg.n_spherical * r, nb),     # basis -> bilinear dim
+             "w_down": (d, nb),                      # DimeNet++ projection
+             "w_up": (nb, d),
+             "update": _mlp_shapes([2 * d, d, d])}
+    return {"embed": (cfg.d_feat or cfg.n_atom_types, d),
+            "rbf_proj": (r, d),
+            "msg_init": _mlp_shapes([3 * d, d]),
+            "blocks": [dict(block) for _ in range(cfg.n_blocks)],
+            "out_rbf": (r, d),
+            "head": _mlp_shapes([d, d, cfg.n_classes
+                                 if cfg.task == "node_cls" else 1])}
+
+
+def init_dimenet(cfg: DimeNetConfig, generator: torch.Generator,
+                 device=None) -> dict:
+    """Random params with the JAX ``init_dimenet`` tree (``embed``,
+    ``rbf_proj``, ``msg_init``, ``blocks``, ``out_rbf``, ``head``; the
+    layer stacks as lists of ``{w, b}``) in ``cfg.param_dtype``: dense
+    weights ``N(0, 1/d_in)``, biases 0, the atom-type embedding ``N(0, 1)
+    x 0.5``, all drawn in float32 on ``generator``'s device and placed on
+    ``device`` (``None`` means the card)."""
+    dev = resolve_device(device)
+
+    def draw(key, shape):
+        if key.endswith("/b"):
+            return torch.zeros(shape, dtype=cfg.param_dtype, device=dev)
+        x = torch.randn(shape, generator=generator, device=generator.device)
+        scale = 0.5 if key == "embed" and not cfg.d_feat \
+            else 1.0 / math.sqrt(shape[0])
+        return (x * scale).to(device=dev, dtype=cfg.param_dtype)
+
+    return map_shapes(draw, param_shapes(cfg))
+
+
+def map_shapes(fn, shapes, prefix: str = ""):
+    """``fn(key, shape)`` over the tuple leaves of a :func:`param_shapes`
+    tree, keyed as ``tree.leaves_with_paths`` keys the params; the result
+    has the tree's structure."""
+    if isinstance(shapes, dict):
+        return {k: map_shapes(fn, v, f"{prefix}/{k}" if prefix else k)
+                for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [map_shapes(fn, v, f"{prefix}/{i}")
+                for i, v in enumerate(shapes)]
+    return fn(prefix, shapes)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _mlp(layers, x, last_act=False):
+    for i, lyr in enumerate(layers):
+        x = x @ lyr["w"] + lyr["b"]
+        if i < len(layers) - 1 or last_act:
+            x = F.silu(x)
+    return x
+
+
+def _segment_sum(x, ids, n: int):
+    """``jax.ops.segment_sum(x, ids, num_segments=n)``: ``index_add`` onto
+    float32 zeros (in a nondeterministic order on the card), rounded to
+    ``x``'s dtype once; a bf16 sum would round at every add."""
+    return torch.zeros((n, *x.shape[1:]), dtype=torch.float32,
+                       device=x.device).index_add(0, ids, x.float()) \
+        .to(x.dtype)
+
+
+def dimenet_forward(params, cfg: DimeNetConfig, *, node_feat, positions,
+                    edge_src, edge_dst, edge_valid, trip_kj, trip_ji,
+                    trip_valid, graph_ids=None, n_graphs: int = 0):
+    """Returns per-node logits [N, n_classes] or per-graph energy [G], in
+    ``cfg.compute_dtype``.  Index tensors are int64."""
+    cd = cfg.compute_dtype
+    cast = lambda t: tree_map(lambda a: a.to(cd), t)
+    n_nodes = node_feat.shape[0] if node_feat.ndim else positions.shape[0]
+    d_ji, unit = edge_geometry(positions.float(), edge_src, edge_dst)
+    rbf = radial_basis(d_ji, cfg.n_radial, cfg.cutoff,
+                       cfg.envelope_p).to(cd)
+    angle = triplet_angles(unit, trip_kj, trip_ji)
+    sbf = spherical_basis(d_ji[trip_kj], angle, cfg.n_spherical,
+                          cfg.n_radial, cfg.cutoff, cfg.envelope_p).to(cd)
+    sbf = sbf * trip_valid[:, None].to(cd)
+    e_valid = edge_valid[:, None].to(cd)
+
+    # node embedding
+    if cfg.d_feat:
+        h = node_feat.to(cd) @ params["embed"].to(cd)
+    else:
+        h = params["embed"].to(cd).index_select(0, node_feat)
+    rbf_e = rbf @ params["rbf_proj"].to(cd)
+    m = _mlp(cast(params["msg_init"]),
+             torch.cat([h.index_select(0, edge_src),
+                        h.index_select(0, edge_dst), rbf_e], dim=-1),
+             last_act=True)
+    m = m * e_valid
+
+    n_edges = edge_src.shape[0]
+    n_trip = trip_kj.shape[0]
+
+    def interaction_block(m, bp):
+        # down-project per edge before the triplet gather: the gathered
+        # operand is [T, n_bilinear], not [T, d_hidden]
+        down = (F.silu(m @ bp["w_src"]) * (rbf @ bp["w_rbf"])) \
+            @ bp["w_down"]                                     # [E, nb]
+        gated = down.index_select(0, trip_kj) * (sbf @ bp["w_sbf"])
+        if cfg.blocked_triplets and n_trip % n_edges == 0:
+            agg = gated.reshape(n_edges, n_trip // n_edges, -1).sum(dim=1)
+        else:
+            agg = _segment_sum(gated, trip_ji, n_edges)
+        inc = agg @ bp["w_up"]                                 # [E, d]
+        m = m + _mlp(bp["update"], torch.cat([m, inc], dim=-1),
+                     last_act=True)
+        return m * e_valid
+
+    for blk in params["blocks"]:
+        bp = cast(blk)
+        if torch.is_grad_enabled():
+            # remat: only the [E, d] carry survives between blocks
+            m = checkpoint(interaction_block, m, bp, use_reentrant=False)
+        else:
+            m = interaction_block(m, bp)
+
+    # edges -> nodes
+    node_out = _segment_sum(m * (rbf @ params["out_rbf"].to(cd)), edge_dst,
+                            n_nodes)
+    out = _mlp(cast(params["head"]), node_out)
+    if cfg.task == "energy":
+        if graph_ids is None or n_graphs <= 0:
+            raise ValueError("the energy task needs graph_ids and "
+                             "n_graphs > 0")
+        return _segment_sum(out[:, 0], graph_ids, n_graphs)
+    return out
+
+
+def _forward_batch(params, cfg, batch, **kw):
+    return dimenet_forward(
+        params, cfg, node_feat=batch["node_feat"],
+        positions=batch["positions"], edge_src=batch["edge_src"],
+        edge_dst=batch["edge_dst"], edge_valid=batch["edge_valid"],
+        trip_kj=batch["trip_kj"], trip_ji=batch["trip_ji"],
+        trip_valid=batch["trip_valid"], **kw)
+
+
+def node_cls_loss(params, cfg, batch):
+    """Mean cross-entropy of the node logits (log-softmax in float32)
+    over the nodes of ``batch.get("label_mask")`` (all nodes without
+    one), divided by ``max(sum(mask), 1)``."""
+    logits = _forward_batch(params, cfg, batch)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    gold = torch.gather(logp, -1, batch["labels"][:, None])[:, 0]
+    mask = batch.get("label_mask")
+    mask = torch.ones_like(gold) if mask is None else mask.to(gold.dtype)
+    return -torch.sum(gold * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def energy_loss(params, cfg, batch):
+    """Mean squared error of the per-graph energies."""
+    pred = _forward_batch(params, cfg, batch, graph_ids=batch["graph_ids"],
+                          n_graphs=batch["labels"].shape[0])
+    return torch.mean(torch.square(pred - batch["labels"]))

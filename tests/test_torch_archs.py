@@ -17,7 +17,7 @@ from repro_torch.launch import build_index, eval_quality, train
 
 PORTED = ("prettr-bert", "gemma3-4b", "granite-moe-3b-a800m",
           "qwen3-moe-235b-a22b", "chatglm3-6b", "mistral-large-123b",
-          "dlrm-mlperf", "deepfm", "xdeepfm", "bert4rec")
+          "dimenet", "dlrm-mlperf", "deepfm", "xdeepfm", "bert4rec")
 # the backend knobs name each package's own implementations
 IMPL_FIELDS = {"attn_impl", "compress_impl", "bag_impl"}
 
@@ -27,8 +27,7 @@ def test_registry_names_and_shape_tables_match_jax():
     assert T.ASSIGNED_ARCHS == J.ASSIGNED_ARCHS
     assert (T.LM_SHAPES, T.GNN_SHAPES, T.RECSYS_SHAPES) == \
         (J.LM_SHAPES, J.GNN_SHAPES, J.RECSYS_SHAPES)
-    assert set(PORTED) | set(T.NOT_PORTED) == set(T.ALL_ARCHS)
-    assert not set(PORTED) & set(T.NOT_PORTED)
+    assert set(PORTED) == set(T.ALL_ARCHS)
 
 
 def _same_fields(got, want, path):
@@ -56,14 +55,6 @@ def test_ported_specs_match_jax(name):
     assert T.arch_cells(name) == J.arch_cells(name)
     _same_fields(got.config, want.config, f"{name}.config")
     _same_fields(got.smoke, want.smoke, f"{name}.smoke")
-
-
-@pytest.mark.parametrize("name", sorted(T.NOT_PORTED))
-def test_unported_arch_raises_naming_its_roadmap_item(name):
-    J.get_arch(name)                       # the JAX registry has it
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md Queue 1 item [456]"):
-        T.get_arch(name)
 
 
 def test_unknown_arch_raises():

@@ -1742,3 +1742,46 @@ def test_bert4rec_split_kernels_match_plain(dev):
     with pytest.raises(ValueError, match="uniform split-flag"):
         TB.forward_hidden(params, cfg, seq, valid)
     assert split_flash_attention.launches == before
+
+
+def test_dimenet_cora_card_matches_cpu(dev):
+    """DimeNet's full config at Cora's shape (the full_graph_sm cell:
+    2708 nodes, 10556 edges, 1433 features) on the card against the port
+    on the CPU, same inputs and weights, float32: the logits within 1e-4
+    of max|cpu|, the loss within 1e-5 relative, each gradient leaf within
+    1e-4 of its max (the card's index_add and gather backwards sum in
+    another order); no kernel of the port is launched."""
+    from repro_torch.configs import dimenet as DC
+    from repro_torch.data import graphs as G
+    from repro_torch.device import to_device
+    from repro_torch.launch.steps import gnn_cell_config
+    from repro_torch.models.gnn import dimenet as D
+    from repro_torch.optim import value_and_grad
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = gnn_cell_config(DC.spec(), "full_graph_sm").cfg
+    b_cpu = G.graph_batch_tensors(G.make_graph_batch(
+        2708, 10556, d_feat=1433, fanout_cap=8, n_classes=16), device="cpu")
+    p_cpu = D.init_dimenet(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    b, p = to_device(b_cpu, dev), to_device(p_cpu, dev)
+    fwd = lambda params, batch: D.dimenet_forward(
+        params, cfg, **{k: v for k, v in batch.items() if k != "labels"})
+    counters = [(split_flash_attention, "launches"),
+                (join_flash_attention, "launches"),
+                (flash_decode_attention, "launches"),
+                (fused_compress, "launches"), (fused_decompress, "launches"),
+                (embedding_bag_op, "launches")]
+    before = [getattr(w, a) for w, a in counters]
+    with torch.no_grad():
+        want, got = fwd(p_cpu, b_cpu), fwd(p, b).cpu()
+    scale = want.abs().max()
+    assert (got - want).abs().max() <= 1e-4 * scale
+    loss_w, g_w = value_and_grad(lambda q: D.node_cls_loss(q, cfg, b_cpu),
+                                 p_cpu)
+    loss_g, g_g = value_and_grad(lambda q: D.node_cls_loss(q, cfg, b), p)
+    assert abs(loss_g.item() - loss_w.item()) <= 1e-5 * abs(loss_w.item())
+    g_w = dict(leaves_with_paths(g_w))
+    for k, g in leaves_with_paths(g_g):
+        assert (g.cpu() - g_w[k]).abs().max() <= 1e-4 * g_w[k].abs().max(), k
+    assert [getattr(w, a) for w, a in counters] == before

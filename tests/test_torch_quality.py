@@ -424,13 +424,21 @@ def test_build_index_and_serve_clis_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cli,argv,item", [
-    ("train", ["--arch", "dimenet"], "item 6"),
     ("build_index", ["--data-parallel"], "item 7")])
 def test_unported_cli_options_name_their_roadmap_item(cli, argv, item):
     import importlib
     mod = importlib.import_module(f"repro_torch.launch.{cli}")
     with pytest.raises(SystemExit, match=item):
         mod.main(argv + ["--device", "cpu"])
+
+
+def test_train_cli_refuses_the_gnn_family():
+    """launch.train trains the ranker and causal LMs, as the JAX
+    package's launch.train does: dimenet resolves in the registry and is
+    refused by family."""
+    from repro_torch.launch import train
+    with pytest.raises(SystemExit, match="not gnn models"):
+        train.main(["--arch", "dimenet", "--device", "cpu"])
 
 
 def test_serve_cli_serves_through_the_router(tmp_path, capsys):
