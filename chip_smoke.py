@@ -92,6 +92,16 @@ and DimeNet at three of its cells:
    a stall past ``SHARD_TIMEOUT_S`` marking shard 1 dead with the
    fallback serving its rows within the timeout plus one fault-free
    2-worker drain, all bit-equal;
+4g. mesh -- (a) each of the fp16 and the int8 + K/V indexes built again
+   data-parallel (``IndexBuilder(mesh=)`` over a ``("data",)`` mesh of
+   every visible card): ``mesh_build`` gives its docs/s beside the
+   one-device build's, whether its stream files equal the one-device
+   index's byte for byte, and its float32 service's distance from the
+   one-device index's (0.0 where the bytes are equal, else within 1e-3);
+   (b) ``RankingRouter(mesh=)`` over a ``("shard",)`` mesh of every
+   visible card, and the same router on ``devices=``, over the fp16 and
+   int8 + K/V indexes and the zipf stream through the doc cache, each
+   pass bit-equal to the single-process service (``mesh_router``);
 4d. cascade -- ``run_cascade`` over a seeded ``SyntheticIRWorld`` at the
    config's vocabulary (2048 docs of 479 tokens, 64 queries, 64
    candidates, metrics at depth 10) for fp16, int8, PQ and pruned
@@ -143,10 +153,11 @@ and DimeNet at three of its cells:
    over 2049 tokens, float32 through the kernels; then a profile of one
    prefill and 4 decode steps; then the same phases, their paths
    suffixed ``_<key>``, for each model of ``LM_MORE``: granite-moe-3b-a800m
-   (``_granite``, 32 layers, uncut: the slice's main path) and chatglm3-6b
-   (``_chatglm3``, 28, uncut), qwen3-moe-235b-a22b (``_qwen3``) and
-   mistral-large-123b (``_mistral``) at full width with 2 of their 94 and
-   88 layers (``lm_model`` gives ``reduced``); prefill runs split
+   (``_granite``) at full width with 16 of its 32 layers (cut from 32 to
+   keep the script inside its time limit beside the mesh phase),
+   chatglm3-6b (``_chatglm3``, 28, uncut), qwen3-moe-235b-a22b
+   (``_qwen3``) and mistral-large-123b (``_mistral``) with 2 of their 94
+   and 88 layers (``lm_model`` gives ``reduced``); prefill runs split
    attention's causal form, decode flash decode and its merge.  An MoE
    model's agreement line reports its routing: the share of prompt
    tokens whose top-k experts differ between two runs, layer by layer,
@@ -211,6 +222,20 @@ and DimeNet at three of its cells:
    launch no kernel of the port: ``PATH_KERNELS`` gives them none, and a
    launch fails the run.
 
+9b. spmd -- one rank a visible card over NCCL
+   (``launch.mesh.run_spmd``, a ``("data", "model")`` mesh; one card is
+   a world of 1, where every collective is the identity; every line
+   gives ``world``): ``spmd_lookup``, the row-sharded lookup of a bf16
+   table of MESH_LOOKUP_ROWS x 128 (DLRM's width) over serve_bulk's
+   262,144 x 26 ids, uniform at capacity factor 4 and Zipf at 1, equal to
+   ``take * keep`` bit for bit, its owner-local gather on the
+   embedding-bag kernel; ``spmd_moe``, the MoE FFN at granite-moe's and
+   qwen3-moe's layer widths over 4 x 2048 tokens in float32 under rules
+   against ``n_groups=G`` in one process (MESH_MOE_REL of the largest
+   output, the aux loss within 1e-5); ``spmd_psum``,
+   ``compressed_psum`` over PreTTR-BERT's full gradient tree; each with
+   its ms a call (``repro_torch.tools.mesh_check``).
+
 Kernel launches are counted per path: every counter is set to 0 just
 before each index build, each timed serving run, the training steps, the
 validation and distillation runs, the soundness check, each LM run,
@@ -229,8 +254,9 @@ The ``kernels`` line's ``launches`` sums the main paths (``MAIN_PATHS``:
 the index builds, the bf16 kernel runs of each serving form, the
 cascades, the training paths, the LMs' bf16 prefill and decode, the
 recsys serve_bulk forwards, retrieval runs and towers, the router's bf16
-drains, BERT4Rec's bf16 history and join and the DimeNet cells), each
-launch under one
+drains, BERT4Rec's bf16 history and join, the DimeNet cells, the
+data-parallel builds, the router's bf16 drains on a mesh and the SPMD
+checks), each launch under one
 row: the later LMs' under the rows that hold their shapes;
 ``launches_by_path`` gives each path's own.
 
@@ -240,6 +266,10 @@ card's name and power limit as ``nvidia-smi`` gives them; the second to
 last is the ``kernels`` line, the last ``{"ok": true, "device": ...}``.  Run from the repository root::
 
     python3 chip_smoke.py
+
+``--mesh-only`` runs phase 1 and the mesh phase alone (the fp16 and int8
++ K/V indexes and the services they are compared with, 4g and 9b, the
+kernels of their paths checked), for a machine of several cards.
 """
 import contextlib
 import functools
@@ -272,6 +302,13 @@ PQ_CACHED_DOCS = 200
 # the stall injected past it
 SHARD_COUNTS = {"fp16": (1, 2, 4), "int8_kv": (2, 4), "pq": (2, 4)}
 SHARD_TIMEOUT_S, SHARD_STALL_S = 2.0, 4.0
+# the mesh phase's SPMD checks (one rank a card over NCCL): the
+# row-sharded lookup's bf16 table rows (4.3 GB), the MoE FFN's tokens (4 x
+# 2048), its float32 limit over the largest output (the expert products'
+# batch count changes with the groups a rank runs, and with it cuBLAS's
+# blocking), the ranks' time limit
+MESH_LOOKUP_ROWS, MESH_TOKENS, MESH_MOE_REL = 1 << 24, 4 * 2048, 1e-4
+MESH_TIMEOUT_S = 420
 # BERT4Rec's paths: (history precompute, online join) of each run
 BERT4REC_PATHS = {
     "cuda_bf16": ("bert4rec_history", "bert4rec_join"),
@@ -343,7 +380,7 @@ LM_SOUND_TOL = 1e-3
 # depth, None keeping all).  qwen3-moe (94 layers, ~470 GB in bf16) and
 # mistral-large (88, ~246 GB) cannot live on one card: they keep 2
 # layers, every width as published
-LM_MORE = (("granite", "granite_moe_3b", None),
+LM_MORE = (("granite", "granite_moe_3b", 16),
            ("chatglm3", "chatglm3_6b", None),
            ("qwen3", "qwen3_moe_235b", 2),
            ("mistral", "mistral_large_123b", 2))
@@ -351,7 +388,8 @@ LM_MOE = ("granite", "qwen3")
 # an MoE soundness run's forward over 2049 tokens at its own routing
 # against the prefill + decode step's: the share of its tokens a layer
 # whose experts may differ.  Float32 sums in another order tip only exact
-# near-ties: 0 of 8196 a layer over granite-moe's 32 layers, 1 and 2 over
+# near-ties: 0 of 8196 a layer over granite-moe's 32 layers (measured
+# uncut), 1 and 2 over
 # qwen3-moe's 2 (H100, 700 W), where bf16 rounding alone tips 2-21 % a
 # layer.  1e-3 (8 tokens a layer) is 4x the most float32 tipped and far
 # below what a path that routes apart would move.  A tipped token moves
@@ -1324,6 +1362,9 @@ _INDEX_F16 = ("split_attention", "compress", *_SPLIT_TC, *_COMPRESS_TC)
 _INDEX_F32 = ("split_attention", "compress_f32", *_SPLIT_TC, *_COMPRESS_TC)
 # a pruned build scores salience on the decompressed fp16 store
 _INDEX_PRUNED = _INDEX_F16 + ("decompress", *_DECOMPRESS_TC)
+# int8 reps with int8 K/V: the K/V come from the decompressed int8 store
+_INDEX_INT8 = ("split_attention", "compress_f32", "decompress_f32",
+               *_SPLIT_TC, *_COMPRESS_TC, *_DECOMPRESS_TC)
 PATH_KERNELS = {
     "index": _INDEX_F16, "index_pq": _INDEX_F32, "index_pruned": _INDEX_PRUNED,
     "serve_pq": _PQ_SERVE + _JOIN_TC, "serve_pq_f32": _PQ_SERVE + _JOIN_CC,
@@ -1364,8 +1405,7 @@ PATH_KERNELS = {
                   "join_attention_row_merge", "decode_attention",
                   "decode_attention_merge", "compress", "decompress",
                   *_JOIN_CC, *_COMPRESS_TC, *_DECOMPRESS_TC),
-    "index_int8": ("split_attention", "compress_f32", "decompress_f32",
-                   *_SPLIT_TC, *_COMPRESS_TC, *_DECOMPRESS_TC),
+    "index_int8": _INDEX_INT8,
     "serve_int8_kv": _INT8_SERVE + _JOIN_TC,
     "serve_int8_kv_f32": _INT8_SERVE + _JOIN_CC,
     "serve_int8_kv_zipf_f32": _INT8_SERVE + _JOIN_CC,
@@ -1384,6 +1424,22 @@ PATH_KERNELS = {
        for n in SHARD_COUNTS["pq"]},
     "serve_sharded_cached": _CACHED_SERVE + _JOIN_TC
     + ("join_attention_paged_tensor_core",),
+    # the mesh: the data-parallel builds encode as the one-device ones do,
+    # their float32 services serve as the uncached ones; the router on a
+    # mesh (and on its devices) as the router does
+    "index_dp": _INDEX_F16, "index_dp_int8": _INDEX_INT8,
+    "serve_index_dp_f32": _FP16_SERVE + _JOIN_CC,
+    "serve_index_dp_int8_f32": _INT8_SERVE + _JOIN_CC,
+    **{p: _FP16_SERVE + _JOIN_TC for p in ("serve_mesh_fp16",
+                                           "serve_mesh_fp16_devices")},
+    "serve_mesh_int8_kv": _INT8_SERVE + _JOIN_TC,
+    "serve_mesh_cached": _CACHED_SERVE + _JOIN_TC
+    + ("join_attention_paged_tensor_core",),
+    # the SPMD checks: the owner-local gather is a bag of one a row, on
+    # the wide kernel (256-byte bf16 rows); the MoE FFN and the gradient
+    # all-reduce run no kernel of the port
+    "spmd_lookup": ("embedding_bag", "embedding_bag_wide"),
+    "spmd_moe": (), "spmd_psum": (),
     # BERT4Rec: head dim 32, so every split call takes the CUDA-core
     # kernel (the tensor-core one takes 64, 128 and 256), bf16 and float32
     **{p: ("split_attention", "split_attention_cuda_core",
@@ -1462,7 +1518,10 @@ MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               *(f"serve_sharded_{i}_{n}" for i, ns in SHARD_COUNTS.items()
                 for n in ns), "serve_sharded_cached",
               *BERT4REC_PATHS["cuda_bf16"],
-              *(f"dimenet_{c}" for c in DIMENET_CELLS))
+              *(f"dimenet_{c}" for c in DIMENET_CELLS),
+              "index_dp", "index_dp_int8", "serve_mesh_fp16",
+              "serve_mesh_int8_kv", "serve_mesh_cached", "spmd_lookup",
+              "spmd_moe", "spmd_psum")
 
 
 def _scores(resps):
@@ -1781,6 +1840,175 @@ def sharded_phases(torch, params, cfg, index, requests, name, launches,
           "device": name, "service_qps": [before, service("service_after")],
           "router_qps": qps})
     return lines
+
+
+def _same_streams(a, b):
+    """Whether two single-shard index directories hold the same stream
+    files, byte for byte."""
+    import filecmp
+    sa, sb = (os.path.join(p, "shard-00000") for p in (a, b))
+    names = sorted(n for n in os.listdir(sa) if n.endswith(".bin"))
+    return names == sorted(n for n in os.listdir(sb) if n.endswith(".bin")) \
+        and all(filecmp.cmp(os.path.join(sa, n), os.path.join(sb, n),
+                            shallow=False) for n in names)
+
+
+def mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
+                     requests, one_dir, one_line, want_f32, label, **kw):
+    """(a) The same documents built data-parallel over a ``("data",)``
+    mesh of every visible card (``IndexBuilder(mesh=)``): docs/s beside
+    the one-device build's, the stream files against the one-device
+    index's, and the float32 service over both (bit-equal where the bytes
+    are equal, else within the float32 score limit)."""
+    from repro_torch.index import IndexBuilder, TermRepIndex
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_device_mesh
+    mesh = make_device_mesh("data")
+    svc_kw = {"use_layer_kv": True} if kw.get("store_layer_kv") else {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
+        report, launches[label] = counted(
+            lambda: IndexBuilder(tmp, cfg, params, batch_size=INDEX_BATCH,
+                                 mesh=mesh, **kw).build(docs))
+        # one CRC-32C pass, with its count (open(verify=True) runs the same)
+        index = TermRepIndex.open(tmp, verify=False)
+        verified = index.verify_integrity()
+        same = _same_streams(one_dir, tmp)
+        runs, launches[f"serve_{label}_f32"], _ = serve(
+            torch, params, cfg32, index, requests, f"cuda_{label}_f32", name,
+            **svc_kw)
+        line = {"phase": "mesh_build", "index": label, "device": name,
+                "world": mesh.size, "devices": [str(d) for d in
+                                                mesh.devices.reshape(-1)],
+                "n_docs": len(index), "codec": report.codec,
+                "encode_batch": index.encode_batch,
+                "verified_chunks": verified,
+                "docs_per_s": report.n_docs / report.wall_s,
+                "docs_per_s_one_device": one_line["docs_per_s"],
+                "encode_s": report.encode_s, "wall_s": report.wall_s,
+                "bytes_equal_one_device": same,
+                "f32_max_abs_diff_vs_one_device": max_diff(runs[0],
+                                                           want_f32),
+                "f32_tol": 1e-3, "launches": launches[label]}
+        emit(line)
+        del index
+    if line["verified_chunks"] <= 0 or len(runs[0]) != len(want_f32) \
+            or line["f32_max_abs_diff_vs_one_device"] > (0.0 if same
+                                                         else 1e-3):
+        raise AssertionError(f"mesh_build {label}: {line}")
+    return line
+
+
+def mesh_router_phase(torch, name, launches, params, cfg, index, requests,
+                      want, label, passes=1, devices_too=False, **kw):
+    """(b) ``RankingRouter(mesh=)`` over a ``("shard",)`` mesh of every
+    visible card, every pass bit-equal to the single-process run
+    ``want`` and no task retried or failed over; with ``devices_too``
+    the same router on ``devices=`` as well (so the two are
+    bit-equal)."""
+    from repro_torch.dist import serving_shard_devices
+    from repro_torch.launch.mesh import make_device_mesh
+    mesh = make_device_mesh("shard")
+    path = f"serve_mesh_{label}"
+    runs, launches[path], line = serve_router(
+        torch, params, cfg, index, requests, f"mesh_{label}", name,
+        mesh.size, want, passes=passes, mesh=mesh, **kw)
+    out = {"phase": "mesh_router", "run": label, "device": name,
+           "world": mesh.size,
+           "workers": [str(d) for d in serving_shard_devices(mesh)],
+           "unequal_vs_service": line["unequal_vs_service"],
+           "n_retries": line["merged"]["n_retries"],
+           "n_failovers": line["merged"]["n_failovers"],
+           "worker_rows": [w["n_rows"] for w in line["workers"]],
+           "qps": line["qps"], "launches": launches[path]}
+    if devices_too:
+        dev_runs, launches[f"{path}_devices"], _ = serve_router(
+            torch, params, cfg, index, requests, f"devices_{label}", name,
+            mesh.size, want, passes=passes,
+            devices=serving_shard_devices(mesh), **kw)
+        out["unequal_mesh_vs_devices"] = [sum(a[k] != b[k] for k in a)
+                                          for a, b in zip(runs, dev_runs)]
+    emit(out)
+    # a worker that fails on its card is failed over to the fallback
+    # engine, bit-equal: only the counts show it
+    if out["n_retries"] or out["n_failovers"]:
+        raise AssertionError(f"mesh_router {label}: workers failed on "
+                             f"their cards: {out}")
+    return runs
+
+
+def spmd_rank(mesh, spec):
+    """One rank of the mesh phase's SPMD checks, its launches counted."""
+    from repro_torch.tools.mesh_check import spmd_checks
+    return spmd_checks(mesh, spec, count=counted)
+
+
+def mesh_spec():
+    """The SPMD checks' sizes: DLRM's width (bf16) over serve_bulk's ids,
+    granite-moe's and qwen3-moe's MoE layer widths at 4 x 2048 tokens,
+    PreTTR-BERT's gradient tree."""
+    from repro_torch.configs import dlrm_mlperf, granite_moe_3b, \
+        qwen3_moe_235b
+    from repro_torch.configs import RECSYS_SHAPES
+    dlrm = dlrm_mlperf.full_config()
+    moe = {}
+    for key, mod in (("granite", granite_moe_3b), ("qwen3", qwen3_moe_235b)):
+        c = mod.full_config()
+        moe[key] = {"n_experts": c.n_experts, "d_model": c.d_model,
+                    "d_ff": c.d_ff, "top_k": c.top_k,
+                    "capacity_factor": c.capacity_factor,
+                    "n_tokens": MESH_TOKENS}
+    return {"lookup": {"rows": MESH_LOOKUP_ROWS, "dim": dlrm.embed_dim,
+                       "n_ids": RECSYS_SHAPES["serve_bulk"]["batch"]
+                       * dlrm.n_sparse},
+            "moe": moe, "psum": {"axis": ("data", "model")}}
+
+
+def spmd_phase(torch, name, launches):
+    """(c) One rank a visible card over NCCL (``run_spmd``) on a
+    ``("data", "model")`` mesh: the row-sharded lookup, the MoE FFN and
+    ``compressed_psum`` (``repro_torch.tools.mesh_check``), each rank's
+    results and launches; one card is a world of 1, where the
+    collectives are the identity."""
+    from repro_torch.launch.mesh import run_spmd
+    world = torch.cuda.device_count()
+    shape = (world // 2, 2) if world > 1 and world % 2 == 0 else (world, 1)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = run_spmd(spmd_rank, shape, ("data", "model"),
+                       args=(mesh_spec(),), timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    bad = []
+    for key in ("lookup", "moe_granite", "moe_qwen3", "psum"):
+        path = "spmd_moe" if key.startswith("moe") else f"spmd_{key}"
+        per_rank = [r[key] for r in results]
+        counts = {}
+        for r in per_rank:
+            for sub in ([r[c] for c in ("uniform_cf4", "zipf_cf1")]
+                        if key == "lookup" else [r]):
+                for k, n in sub["launches"].items():
+                    counts[k] = counts.get(k, 0) + n
+        launches.setdefault(path, {})
+        for k, n in counts.items():
+            launches[path][k] = launches[path].get(k, 0) + n
+        emit({"phase": f"spmd_{key}", "device": name, "world": world,
+              "mesh": results[0]["mesh"], "ranks": per_rank})
+        for r in per_rank:
+            if key == "lookup":
+                bad += [f"lookup {c} rank {r}" for c in ("uniform_cf4",
+                                                         "zipf_cf1")
+                        if not r[c]["equal"]]
+            elif key == "psum":
+                if not r["finite"]:
+                    bad.append("psum: non-finite mean")
+            elif r["max_abs_diff"] > MESH_MOE_REL * r["max_abs"] or \
+                    abs(r["aux"] - r["aux_one_process"]) \
+                    > 1e-5 * abs(r["aux_one_process"]):
+                bad.append(f"{key}: {r['max_abs_diff']} / {r['max_abs']}, "
+                           f"aux {r['aux']} vs {r['aux_one_process']}")
+    emit({"phase": "spmd_wall", "device": name, "world": world,
+          "seconds": wall})
+    if bad:
+        raise AssertionError(f"spmd checks: {bad}")
 
 
 def _stage_diff(a, b, stage):
@@ -3383,6 +3611,62 @@ def dimenet_phases(torch, name, launches):
           "total_s": sum(wall.values())})
 
 
+def mesh_only_run(torch, name, launches, build, params, cfg, cfg32, docs,
+                  requests, rng):
+    """``--mesh-only``: the mesh phase alone (the builds, services and
+    router runs it compares with, then the SPMD checks), its paths'
+    kernels checked; the run of the phase on a machine of several cards
+    without the rest of the script."""
+    from repro_torch.kernels import _build
+    zipf = make_zipf_requests(rng, cfg)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
+        index, line = build(tmp, "index", codec="fp16")
+        bf16, launches["serve"], _ = serve(torch, params, cfg, index,
+                                           requests, "cuda_bf16", name)
+        f32, launches["serve_f32"], _ = serve(torch, params, cfg32, index,
+                                              requests, "cuda_f32", name)
+        mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
+                         requests, tmp, line, f32[0], "index_dp",
+                         codec="fp16")
+        mesh_router_phase(torch, name, launches, params, cfg, index,
+                          requests, bf16, "fp16", devices_too=True)
+        del index
+    kv = {"use_layer_kv": True}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
+        index, line = build(tmp, "index_int8", codec="int8",
+                            store_layer_kv=True, kv_codec="int8")
+        bf16, launches["serve_int8_kv"], _ = serve(
+            torch, params, cfg, index, requests, "cuda_int8_kv_bf16", name,
+            **kv)
+        f32, launches["serve_int8_kv_f32"], _ = serve(
+            torch, params, cfg32, index, requests, "cuda_int8_kv_f32", name,
+            **kv)
+        cached, launches["serve_cached"], _ = serve(
+            torch, params, cfg, index, zipf, "cuda_cached_bf16", name,
+            passes=2, doc_cache_mb=CACHE_MB, page_tokens=PAGE_TOKENS, **kv)
+        mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
+                         requests, tmp, line, f32[0], "index_dp_int8",
+                         codec="int8", store_layer_kv=True, kv_codec="int8")
+        mesh_router_phase(torch, name, launches, params, cfg, index,
+                          requests, bf16, "int8_kv", **kv)
+        mesh_router_phase(torch, name, launches, params, cfg, index, zipf,
+                          cached, "cached", passes=2,
+                          doc_cache_mb=CACHE_MB, page_tokens=PAGE_TOKENS,
+                          **kv)
+        del index
+    spmd_phase(torch, name, launches)
+    missing = [f"{p}: {k}" for p in launches for k in PATH_KERNELS[p]
+               if launches[p][k] == 0]
+    stray = [f"{p}: {k}" for p, n in launches.items() for k in n
+             if n[k] and k not in PATH_KERNELS[p]]
+    if missing or stray:
+        raise AssertionError(f"kernels not launched: {missing}; launched "
+                             f"where none should be: {stray}")
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main():
     # cuBLAS's workspace made explicit (the size PyTorch picks on Hopper),
     # so the checkpoint phase may run under use_deterministic_algorithms
@@ -3425,8 +3709,14 @@ def main():
     cfg = full_config()
     cfg32 = full_config(compute_dtype=torch.float32)
 
+    mesh_only = sys.argv[1:] == ["--mesh-only"]
+    if sys.argv[1:] and not mesh_only:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the one "
+              f"option is --mesh-only", file=sys.stderr)
+        return 2
+
     # 2. kernels
-    rows = check_kernels(torch, cfg)
+    rows = [] if mesh_only else check_kernels(torch, cfg)
 
     params = P.init_prettr(cfg, torch.Generator(device="cuda")
                            .manual_seed(SEED))
@@ -3511,6 +3801,10 @@ def main():
                                  f"the plain impl")
         return runs
 
+    if mesh_only:
+        return mesh_only_run(torch, name, launches, build, params, cfg,
+                             cfg32, docs, requests, rng)
+
     # 3. index, fp16 streams
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
         index, fp16_line = build(tmp, "index", codec="fp16")
@@ -3569,6 +3863,17 @@ def main():
         sharded_faults(torch, params, cfg, index, requests, name,
                        fused_runs["serve"][0], router_lines[2]["wall_s"])
         added_s["serve_sharded_fp16"] = time.perf_counter() - t0
+        # 4g. the mesh: the same index built data-parallel over every
+        #     card, and the router on a ("shard",) mesh of them
+        t0 = time.perf_counter()
+        mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
+                         requests, tmp, fp16_line,
+                         fused_runs["serve_f32"][0], "index_dp",
+                         codec="fp16")
+        mesh_router_phase(torch, name, launches, params, cfg, index,
+                          requests, [fused_runs["serve"][0]], "fp16",
+                          devices_too=True)
+        added_s["mesh_fp16"] = time.perf_counter() - t0
         del index
 
     # 4b. int8 reps with int8 layer-l K/V: the index, then the service
@@ -3576,8 +3881,8 @@ def main():
     #     over a hot-document stream, cold then warm
     zipf = make_zipf_requests(rng, cfg)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
-        index, _ = build(tmp, "index_int8", codec="int8",
-                         store_layer_kv=True, kv_codec="int8")
+        index, int8_line = build(tmp, "index_int8", codec="int8",
+                                 store_layer_kv=True, kv_codec="int8")
         int8_runs = serve_both(index, requests,
                    ("serve_int8_kv", "plain_int8_kv_bf16",
                     "serve_int8_kv_f32", "plain_int8_kv_f32"),
@@ -3622,6 +3927,19 @@ def main():
                         and sh_cached["doc_cache_miss"]):
             raise AssertionError(f"serve_sharded_cached: {sh_cached}")
         added_s["serve_sharded_cached"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
+                         requests, tmp, int8_line,
+                         int8_runs["serve_int8_kv_f32"][0], "index_dp_int8",
+                         codec="int8", store_layer_kv=True, kv_codec="int8")
+        mesh_router_phase(torch, name, launches, params, cfg, index,
+                          requests, [int8_runs["serve_int8_kv"][0]],
+                          "int8_kv", use_layer_kv=True)
+        mesh_router_phase(torch, name, launches, params, cfg, index, zipf,
+                          runs["serve_cached"], "cached", passes=2,
+                          use_layer_kv=True, doc_cache_mb=CACHE_MB,
+                          page_tokens=PAGE_TOKENS)
+        added_s["mesh_int8_kv"] = time.perf_counter() - t0
         del index
     cold_warm = {p: max_diff(runs[p][0], runs[p][1]) for p in paths}
     cached = {"phase": "serve_cached_checks", "device": name,
@@ -3775,6 +4093,9 @@ def main():
 
     # 9. DimeNet: three GNN cells, forward and training, no kernel
     dimenet_phases(torch, name, launches)
+
+    # 9b. the SPMD checks, one rank a card over NCCL
+    spmd_phase(torch, name, launches)
 
     # 10. kernels line: `launches` counts the main paths (the index builds,
     #    the bf16 drains, the LMs' bf16 prefill and decode and the recsys

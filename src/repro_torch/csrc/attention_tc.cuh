@@ -56,6 +56,8 @@
 //    .to(compute_dtype) does to those pools.
 #pragma once
 
+#include <atomic>
+
 #include "attention_common.cuh"
 
 namespace rt {
@@ -473,14 +475,19 @@ __host__ __forceinline__ bool aligned16(const void* p, int elt, long long s0, lo
   return ((uintptr_t)p & 15) == 0 && s0 % e == 0 && s1 % e == 0 && s2 % e == 0;
 }
 
-// Set a kernel's dynamic shared memory limit once per process.
+// Raise a kernel's dynamic shared memory limit once per (kernel, device):
+// the attribute belongs to the current device, so every card a process
+// launches on needs its own call (one bit a device in `raised`).
 template <typename K>
-inline int allow_smem(K kernel, int bytes, bool& done) {
-  if (!done) {
+inline int allow_smem(K kernel, int bytes, std::atomic<unsigned>& raised) {
+  int dev = 0;
+  if (int err = cudaGetDevice(&dev)) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (!(raised.load() & bit)) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
-    done = true;
+    raised.fetch_or(bit);
   }
   return 0;
 }

@@ -329,8 +329,8 @@ __global__ void __launch_bounds__(128, JoinTc<T, KD, D>::kMinBlocks) join_tc_ker
 template <typename T, typename KD, bool PAGED, int D>
 int launch_join_tc_d(const JoinArgs& a, cudaStream_t s) {
   using G = JoinTc<T, KD, D>;
-  static bool ready = false;
-  if (int e = tc::allow_smem(join_tc_kernel<T, KD, PAGED, D>, G::kSmem, ready)) return e;
+  static std::atomic<unsigned> raised{0};   // a bit a device
+  if (int e = tc::allow_smem(join_tc_kernel<T, KD, PAGED, D>, G::kSmem, raised)) return e;
   const dim3 grid(a.Hq, a.B, (a.Sq + G::BM - 1) / G::BM);
   join_tc_kernel<T, KD, PAGED, D><<<grid, G::kThreads, G::kSmem, s>>>(a);
   return (int)cudaGetLastError();

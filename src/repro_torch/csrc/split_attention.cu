@@ -258,8 +258,8 @@ int launch_d(const SplitArgs& a, cudaStream_t s) {
 template <typename T, typename KT, int D>
 int launch_tc_d(const SplitArgs& a, cudaStream_t s) {
   using G = SplitTc<T, KT, D>;
-  static bool ready = false;
-  if (int e = rt::tc::allow_smem(split_attention_tc_kernel<T, KT, D>, G::kSmem, ready)) return e;
+  static std::atomic<unsigned> raised{0};   // a bit a device
+  if (int e = rt::tc::allow_smem(split_attention_tc_kernel<T, KT, D>, G::kSmem, raised)) return e;
   const dim3 grid(a.Hq, a.B, (a.Sq + G::BM - 1) / G::BM);
   split_attention_tc_kernel<T, KT, D><<<grid, G::kThreads, G::kSmem, s>>>(a);
   return (int)cudaGetLastError();

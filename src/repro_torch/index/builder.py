@@ -27,6 +27,11 @@ per shard with one file per stream, and a v2 manifest.
   before pruning (``orig_lengths``) and the pruned cap as
   ``max_doc_len``.  Refused on RoPE backbones: dropping rows would shift
   every survivor's rotary phase.
+* **Data-parallel encode** -- ``mesh`` (a placement mesh with a
+  ``"data"`` axis, ``repro_torch.dist.compat.Mesh``) rounds the batch up
+  to a multiple of its devices; each device encodes its rows with its
+  own copy of the params (made once), and the parts are gathered in row
+  order on the host before the codec and the writer thread.
 * **Checksums** -- each stream file gets one CRC-32C per
   ``checksum_chunk_bytes`` chunk (0 writes none), computed after the
   fsync, which both packages' readers verify on open.
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prettr as P
-from repro_torch.device import resolve_device, to_device
+from repro_torch.device import device_scope, resolve_device, to_device
 from repro_torch.index import _msgpack
 from repro_torch.index.codecs import StorageCodec, get_codec
 from repro_torch.index.integrity import file_chunk_checksums
@@ -169,8 +174,10 @@ class IndexBuilder:
         index = TermRepIndex.open(out_dir)
 
     ``device`` (``None`` means the card) is where the encode runs; params
-    are moved there once.  ``codec`` / ``kv_codec`` take a name or a codec
-    instance (a fitted ``pq`` codec is not fitted again)."""
+    are moved there once.  ``mesh`` spreads each batch over the mesh's
+    devices instead (module docstring).  ``codec`` / ``kv_codec`` take a
+    name or a codec instance (a fitted ``pq`` codec is not fitted
+    again)."""
 
     def __init__(self, out_dir: str | None, cfg: P.PreTTRConfig, params, *,
                  codec: str | StorageCodec = "fp16", n_shards: int = 1,
@@ -179,8 +186,15 @@ class IndexBuilder:
                  kv_codec: str | StorageCodec | None = None,
                  keep_frac: float = 1.0, max_kept_tokens: int = 0,
                  fit_sample: int = 256, fit_seed: int = 0,
-                 checksum_chunk_bytes: int = 1 << 16, device=None):
-        self.device = resolve_device(device)
+                 checksum_chunk_bytes: int = 1 << 16, device=None,
+                 mesh=None):
+        if mesh is not None and "data" not in mesh.axis_names:
+            raise ValueError(f"a data-parallel build needs a mesh with a "
+                             f"'data' axis; got axes {mesh.axis_names}")
+        # the devices a batch is split over, in row order
+        self.devices = [resolve_device(d) for d in mesh.devices.reshape(-1)] \
+            if mesh is not None else [resolve_device(device)]
+        self.device = self.devices[0]
         self.codec = get_codec(codec) if isinstance(codec, str) else codec
         if not 0.0 < keep_frac <= 1.0:
             raise ValueError(f"keep_frac must be in (0, 1], got {keep_frac}")
@@ -226,9 +240,16 @@ class IndexBuilder:
             np.dtype(self.codec.encode_dtype), torch.float32)
         self.cfg = dataclasses.replace(cfg, store_dtype=store_dtype)
         self.params = to_device(params, self.device)
+        # one copy of the params a device (a device may repeat)
+        self._device_params = {self.device: self.params}
+        for dev in self.devices:
+            if dev not in self._device_params:
+                self._device_params[dev] = to_device(params, dev)
         self.out_dir = out_dir
         self.n_shards = max(1, int(n_shards))
-        self.batch_size = max(1, int(batch_size))
+        ndev = len(self.devices)
+        # fixed batch shape, divisible by the data-parallel mesh
+        self.batch_size = -(-max(1, int(batch_size)) // ndev) * ndev
         self.writer_depth = max(0, int(writer_depth))
         self.rep_dim = cfg.compress_dim or cfg.backbone.d_model
         self.kv_dim = cfg.backbone.n_kv_heads * cfg.backbone.dh
@@ -252,46 +273,60 @@ class IndexBuilder:
 
     # -- device side -----------------------------------------------------------
     def _device_batch(self, tokens: np.ndarray, valid: np.ndarray):
-        """One batch, padded with empty rows to the fixed shape -> device
-        ``(reps, kv, salience)``: ``kv`` the ``(k, v)`` pair with
-        ``store_layer_kv`` and ``salience`` [batch, Ld] when pruning, else
-        None.  Synchronises the card, so the caller's clock holds the
-        encode."""
+        """One batch, padded with empty rows to the fixed shape -> one
+        ``(reps, kv, salience)`` a device, in row order (one without a
+        mesh): ``kv`` the ``(k, v)`` pair with ``store_layer_kv`` and
+        ``salience`` [rows, Ld] when pruning, else None.  Synchronises the
+        cards, so the caller's clock holds the encode."""
         pad = self.batch_size - len(tokens)
         if pad:
             tokens = np.concatenate([tokens, np.zeros((pad, tokens.shape[1]),
                                                       tokens.dtype)])
             valid = np.concatenate([valid, np.zeros((pad, valid.shape[1]),
                                                     bool)])
-        with torch.inference_mode():
-            valid_dev = torch.from_numpy(valid).to(self.device)
+        per = self.batch_size // len(self.devices)
+        parts = []
+        # each device's encode is queued before the cards are waited for
+        # (a quantising codec's stored K/V waits for its reps on the host)
+        for i, dev in enumerate(self.devices):
+            rows = slice(i * per, (i + 1) * per)
+            parts.append(self._encode_rows(dev, tokens[rows], valid[rows]))
+        for dev in set(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return parts
+
+    def _encode_rows(self, dev, tokens, valid):
+        params = self._device_params[dev]
+        with torch.inference_mode(), device_scope(dev):
+            valid_dev = torch.from_numpy(valid).to(dev)
             reps = P.precompute_docs(
-                self.params, self.cfg,
-                torch.from_numpy(tokens.astype(np.int64)).to(self.device),
-                valid_dev)
-            sal = (P.doc_salience(self.params, self.cfg, reps, valid_dev)
+                params, self.cfg,
+                torch.from_numpy(tokens.astype(np.int64)).to(dev), valid_dev)
+            sal = (P.doc_salience(params, self.cfg, reps, valid_dev)
                    if self.prune else None)
-            kv = self._batch_kv(reps) if self.store_layer_kv else None
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            kv = self._batch_kv(params, reps) if self.store_layer_kv \
+                else None
         return reps, kv, sal
 
-    def _batch_kv(self, reps):
+    def _batch_kv(self, params, reps):
         """Layer-l K/V of one batch from the codec-round-tripped reps: a
         quantising codec encodes on the host, then decodes on the device
         (what the query-time join reads)."""
         if not self.codec.decode_is_identity:
             parts = self.codec.encode(reps.cpu().numpy())
-            reps = self.codec.decode({k: torch.from_numpy(v).to(self.device)
+            reps = self.codec.decode({k: torch.from_numpy(v).to(reps.device)
                                       for k, v in parts.items()})
-        return P.precompute_doc_kv(self.params, self.cfg, reps)
+        return P.precompute_doc_kv(params, self.cfg, reps)
 
-    def _host_batch(self, reps_dev, kv_dev, sal_dev):
-        """Device batch -> numpy ``(reps, kv, salience)``."""
-        kv = None if kv_dev is None else [
-            t.cpu().numpy().astype(self._kv_dtype) for t in kv_dev]
-        sal = None if sal_dev is None else sal_dev.cpu().numpy()
-        return reps_dev.cpu().numpy(), kv, sal
+    def _host_batch(self, parts):
+        """The devices' parts -> numpy ``(reps, kv, salience)`` in row
+        order."""
+        cat = lambda xs: np.concatenate([x.cpu().numpy() for x in xs])
+        reps, kv, sal = zip(*parts)
+        kv = None if kv[0] is None else [
+            cat(t).astype(self._kv_dtype) for t in zip(*kv)]
+        return cat(reps), kv, None if sal[0] is None else cat(sal)
 
     def _doc_parts(self, reps, kv, sal, i: int, n: int):
         """The stored streams of row ``i`` (``n`` packed tokens) -> (parts,
@@ -318,7 +353,7 @@ class IndexBuilder:
                         self.batch_size):
             tokens, lengths, valid = pack_doc_batch(
                 docs[lo: lo + self.batch_size], self.cfg.max_doc_len)
-            reps = self._device_batch(tokens, valid)[0].cpu().numpy()
+            reps = self._host_batch(self._device_batch(tokens, valid))[0]
             buf += [np.asarray(reps[i, : int(n)], np.float32)
                     for i, n in enumerate(lengths)]
         if not buf:
@@ -327,12 +362,12 @@ class IndexBuilder:
         self.codec.fit(np.concatenate(buf), seed=self._fit_seed)
 
     # -- host side -------------------------------------------------------------
-    def _write_batch(self, reps_dev, kv_dev, sal_dev, lengths, doc_lo,
-                     writers, boundaries, write_s):
+    def _write_batch(self, parts, lengths, doc_lo, writers, boundaries,
+                     write_s):
         """Copy one device batch to the host and append its docs to their
         shards (the writer thread's work, overlapping the next encode)."""
         t0 = time.perf_counter()
-        reps, kv, sal = self._host_batch(reps_dev, kv_dev, sal_dev)
+        reps, kv, sal = self._host_batch(parts)
         for i, n in enumerate(lengths):
             shard = int(np.searchsorted(boundaries, doc_lo + i,
                                         side="right") - 1)
@@ -392,7 +427,7 @@ class IndexBuilder:
                 tokens, lengths, valid = pack_doc_batch(
                     docs[lo: lo + self.batch_size], self.cfg.max_doc_len)
                 t0 = time.perf_counter()
-                item = (*self._device_batch(tokens, valid), lengths, lo)
+                item = (self._device_batch(tokens, valid), lengths, lo)
                 encode_s += time.perf_counter() - t0
                 if worker is None:
                     self._write_batch(*item, writers, boundaries, write_s)
@@ -437,8 +472,9 @@ class IndexBuilder:
                     else self.cfg.max_doc_len,
                     "n_docs": n_docs,
                     # results differ at the ulp across batch shapes, so a
-                    # byte-exact re-verification replays this one
-                    "encode_batch": self.batch_size,
+                    # byte-exact re-verification replays the one a device
+                    # encoded
+                    "encode_batch": self.batch_size // len(self.devices),
                     "shards": [w.manifest_row(with_orig=self.prune)
                                for w in writers]}
         if self.checksum_chunk_bytes > 0:
@@ -495,7 +531,7 @@ def verify_index(index, cfg: P.PreTTRConfig, params,
         chunk = ids[lo: lo + enc.batch_size]
         tokens, lengths, valid = pack_doc_batch([docs[i] for i in chunk],
                                                 cfg.max_doc_len)
-        reps, kv, sal = enc._host_batch(*enc._device_batch(tokens, valid))
+        reps, kv, sal = enc._host_batch(enc._device_batch(tokens, valid))
         for i, n_tok in enumerate(lengths):
             row, doc = lo + i, int(chunk[i])
             assert orig_lens[doc] == n_tok, (

@@ -15,9 +15,8 @@ an index built here matches the one ``serve`` builds inline (pass the
 same ``--l`` / ``--compress-dim`` / ``--n-docs``).  ``--distill-steps``
 pre-trains the compressor with the paper's attention-MSE loss (Eq. 2) on
 CAR-style heading / paragraph pairs before encoding
-(:func:`distill_compressor`).  Not ported: the data-parallel build
-(``--data-parallel``; ROADMAP.md Queue 1 item 7, device meshes): it
-raises.
+(:func:`distill_compressor`).  ``--data-parallel`` splits each encode
+batch over a ``("data",)`` mesh of every visible card.
 """
 from __future__ import annotations
 
@@ -69,6 +68,7 @@ def main(argv=None) -> None:
     from repro_torch.data.synthetic_ir import SyntheticIRWorld
     from repro_torch.index import (IndexBuilder, TermRepIndex,
                                    available_codecs, verify_index)
+    from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.models.backend import BACKENDS, impls_for
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -99,7 +99,7 @@ def main(argv=None) -> None:
                     help="attention-MSE compressor distillation steps "
                          "before encoding (0 = keep the init compressor)")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="data-parallel encode (not ported)")
+                    help="split encode batches over every visible card")
     ap.add_argument("--writer-depth", type=int, default=2,
                     help="encoded batches the writer thread may lag (0: "
                          "synchronous writes)")
@@ -108,9 +108,6 @@ def main(argv=None) -> None:
                          "streams byte for byte")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data-parallel is not ported (ROADMAP.md Queue 1 "
-                         "item 7, device meshes)")
 
     attn_impl, compress_impl = impls_for(args.backend)
     cfg = smoke_config(l=args.l, compress_dim=args.compress_dim,
@@ -123,13 +120,22 @@ def main(argv=None) -> None:
     if args.distill_steps and cfg.compress_dim:
         params["compressor"], _ = distill_compressor(
             params, cfg, world, args.distill_steps, seed=args.seed)
+    mesh = None
+    if args.data_parallel:
+        ndev = torch.cuda.device_count()
+        if ndev > 1:
+            mesh = make_device_mesh("data")
+            print(f"[build_index] data-parallel over {ndev} devices")
+        else:
+            print("[build_index] --data-parallel: one device visible, "
+                  "running single-host")
     builder = IndexBuilder(args.out, cfg, params, codec=args.codec,
                            n_shards=args.shards, batch_size=args.batch,
                            writer_depth=args.writer_depth,
                            store_layer_kv=args.store_layer_kv,
                            kv_codec=args.kv_codec, keep_frac=args.keep_frac,
                            max_kept_tokens=args.max_kept_tokens,
-                           device=args.device)
+                           device=args.device, mesh=mesh)
     report = builder.build(list(world.docs))
     prune_note = ""
     if builder.prune:

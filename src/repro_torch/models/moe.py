@@ -9,10 +9,27 @@ are plain batched products over the buffer, the combine sums each
 token's ``k`` slots in float32.  The JAX package has no Pallas kernel
 here, and neither has the port.
 
-The JAX package sizes ``G`` from its device mesh and pins the buffer's
-layout with sharding constraints; the port has no mesh yet (ROADMAP.md
-Queue 1 item 7), so ``n_groups`` defaults to 1 and nothing is sharded.
-Gradients are autograd's.
+``G`` comes from the installed sharding rules (``repro_torch.dist``),
+as the JAX package sizes it from its mesh: with ``E`` divisible by the
+``model`` axis (expert parallelism) one group a data group, else one a
+device; one group without rules.  Under rules over an SPMD mesh
+(``repro_torch.dist.compat.SpmdMesh``) each rank holds its data group's
+tokens and runs its part, JAX's GSPMD layout written out:
+
+* expert parallelism: every ``model`` rank of a data group routes the
+  group's tokens, keeps its ``E/m`` slice of the dispatch buffer and of
+  the (whole, replicated) expert weights, a free slice, runs those
+  experts, and all-gathers the expert outputs over ``model`` before the
+  float32 combine;
+* otherwise each ``model`` rank routes its own share of the group's
+  tokens through every expert, and the outputs are gathered over
+  ``model``.
+
+The aux loss is a mean over every token of the mesh: the routing sums
+are all-reduced over the axes that split the tokens.  Gradients are
+autograd's on one device; under an SPMD mesh the FFN runs forward only
+(its collectives carry no gradient: sharded training comes with the
+sharded transformer, ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -22,6 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.compat import SpmdMesh, axis_index
+from repro_torch.dist.context import current_rules
 
 
 def init_moe(d: int, d_ff: int, n_experts: int, dtype,
@@ -77,33 +96,107 @@ def _dispatch_group(x_g, experts_g, capacity: int, n_experts: int):
     return buf[:n_experts], safe_rank, keep
 
 
+def _mesh_info():
+    """``(mesh, data groups, model size)`` of the installed rules, or
+    ``(None, 1, 1)``."""
+    rules = current_rules()
+    if rules is None:
+        return None, 1, 1
+    mesh = rules.mesh
+    g = math.prod(mesh.shape[a] for a in ("pod", "data") if a in mesh.shape)
+    return mesh, g, mesh.shape.get("model", 1)
+
+
+def _group_axes(mesh, include_model: bool):
+    """The mesh axes the dispatch groups run along."""
+    fs = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    if include_model and "model" in mesh.axis_names:
+        fs = fs + ("model",)
+    return fs if fs else None
+
+
+def _all_reduce(x, mesh, axes):
+    import torch.distributed as dist
+
+    if axes is not None:
+        dist.all_reduce(x, group=mesh.group(axes))
+    return x
+
+
+def _all_gather(x, mesh, dim):
+    import torch.distributed as dist
+
+    if "model" not in mesh.axis_names:
+        return x
+    group = mesh.group("model")
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
 def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
             activation=F.silu, n_groups: int | None = None):
-    """x: [T, d] flat tokens -> (out [T, d] in x's dtype, aux_loss float32
+    """x: [T, d] tokens -> (out [T, d] in x's dtype, aux_loss float32
     scalar).  ``params`` already in x's dtype (the block casts them).
 
     The router runs in float32 (``x.float() @ router.float()``); each
     token takes its ``top_k`` experts, weighted by their renormalised
     probabilities.  Capacity ``int(max(4, cf * Tg * k / E))``, rounded up
-    to a multiple of 128 above 128, else of 4.  ``n_groups`` (default 1)
-    splits the tokens into groups that dispatch alone; a T it does not
-    divide falls back to one group, as the JAX package does.  The aux
-    loss is Switch's load balance, ``E * sum(density * mean_probs)`` over
-    the first choices."""
+    to a multiple of 128 above 128, else of 4.  ``G`` groups (module
+    docstring; ``n_groups`` overrides it) dispatch alone; a T that ``G``
+    does not divide falls back to one group, as the JAX package does.
+    The aux loss is Switch's load balance, ``E * sum(density *
+    mean_probs)`` over the first choices.
+
+    Under an SPMD mesh ``x`` is this rank's data group's tokens, the
+    groups are counted over the whole mesh, and each data group must hold
+    whole groups (a T the groups do not divide raises: a single global
+    group would need every token on every rank)."""
     t, d = x.shape
     n_experts = params["router"].shape[-1]
-    g = n_groups or 1
-    if t % g:
+    mesh, g_mesh, n_model = _mesh_info()
+    use_ep = n_model > 1 and n_experts % n_model == 0
+    g = n_groups or (g_mesh if use_ep else g_mesh * n_model)
+    spmd = isinstance(mesh, SpmdMesh)
+    e_lo, n_local = 0, n_experts
+    if spmd:
+        if torch.is_grad_enabled() and any(
+                p.requires_grad for p in (x, *params.values())):
+            raise RuntimeError("moe_ffn under an SPMD mesh runs forward "
+                               "only: its collectives carry no gradient")
+        # the groups of this data group, then this rank's share of them
+        local = g // g_mesh
+        if g % g_mesh or t % local or (not use_ep and local % n_model):
+            raise ValueError(
+                f"moe_ffn: {g} dispatch groups over {g_mesh} data groups "
+                f"of {t} tokens and {n_model} model ranks do not split "
+                f"evenly")
+        j = axis_index(mesh, "model") if "model" in mesh.shape else 0
+        if use_ep:
+            n_local = n_experts // n_model
+            e_lo = j * n_local
+        else:
+            x = x.reshape(n_model, t // n_model, d)[j]
+            local //= n_model
+        g, t_all = local, t * g_mesh
+        token_axes = _group_axes(mesh, not use_ep)
+    elif t % g:
         g = 1
-    tg = t // g
+    tg = x.shape[0] // g
 
     router_logits = x.float() @ params["router"].float()
     probs = torch.softmax(router_logits, dim=-1)                  # [T, E]
     weights, experts = torch.topk(probs, top_k, dim=-1)           # [T, k]
     weights = weights / weights.sum(dim=-1, keepdim=True)
 
-    density = F.one_hot(experts[:, 0], n_experts).float().mean(0)
-    aux_loss = n_experts * torch.sum(density * probs.mean(0))
+    first = F.one_hot(experts[:, 0], n_experts).float()
+    if spmd:
+        # means over every token of the mesh
+        density = _all_reduce(first.sum(0), mesh, token_axes) / t_all
+        mean_probs = _all_reduce(probs.sum(0), mesh, token_axes) / t_all
+    else:
+        density, mean_probs = first.mean(0), probs.mean(0)
+    aux_loss = n_experts * torch.sum(density * mean_probs)
 
     capacity = int(max(4, capacity_factor * tg * top_k / n_experts))
     lane = 128 if capacity > 128 else 4
@@ -117,11 +210,17 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
                             for z in zip(*parts))
     del parts
 
-    h = activation(torch.einsum("gecd,edf->gecf", buf, params["w_gate"])) \
-        * torch.einsum("gecd,edf->gecf", buf, params["w_up"])
+    # expert parallelism: this rank's free slice of the experts
+    w = {k: params[k][e_lo:e_lo + n_local]
+         for k in ("w_gate", "w_up", "w_down")}
+    buf = buf[:, e_lo:e_lo + n_local]
+    h = activation(torch.einsum("gecd,edf->gecf", buf, w["w_gate"])) \
+        * torch.einsum("gecd,edf->gecf", buf, w["w_up"])
     del buf
-    out_buf = torch.einsum("gecf,efd->gecd", h, params["w_down"])
+    out_buf = torch.einsum("gecf,efd->gecd", h, w["w_down"])
     del h
+    if spmd and use_ep:
+        out_buf = _all_gather(out_buf, mesh, dim=1)      # [G, E, C, d]
 
     # combine: the k slots in order, in float32; a dropped slot gathers 0
     w_g = (weights.reshape(g, tg, top_k) * keep).float()
@@ -133,4 +232,7 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
                        torch.where(kept, safe_rank[:, :, kk], 0)]
         gath = torch.where(kept[..., None], gath, 0)
         out = out + gath.float() * w_g[:, :, kk, None]
-    return out.reshape(t, d).to(x.dtype), aux_loss
+    out = out.reshape(g * tg, d).to(x.dtype)
+    if spmd and not use_ep:
+        out = _all_gather(out, mesh, dim=0)
+    return out, aux_loss

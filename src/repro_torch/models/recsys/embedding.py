@@ -13,9 +13,16 @@ plain ``index_add_``.
 
 ``impl`` picks the gather-reduce: ``"cuda"`` calls the kernel wrapper
 (the kernel on CUDA tensors, its plain version on CPU ones), ``"plain"``
-the plain version everywhere.  The row sharding of the JAX package
-(``sharded_lookup``) waits for the port's device meshes (ROADMAP.md
-Queue 1 item 7).
+the plain version everywhere.
+
+**Row sharding.**  Under rules installed over an SPMD mesh of more than
+one rank (``repro_torch.dist``), the table is row-sharded over every
+mesh axis: rank ``r`` at mesh coordinate ``c`` (over ``pod``, ``data``,
+``model``) holds rows ``[c R/S, (c+1) R/S)`` as its local ``[R/S, D]``
+table, and :func:`lookup_single` / :func:`take_rows` route through
+:func:`sharded_lookup`, the DLRM all-to-all exchange: ids to their
+owners, an owner-local gather (bags of one through the kernel), the
+vectors back.
 """
 from __future__ import annotations
 
@@ -76,21 +83,125 @@ def field_ids(ids, offsets):
     return ids + torch.as_tensor(offsets, dtype=ids.dtype).to(ids.device)
 
 
+def _row_sharding_mesh():
+    """The SPMD mesh tables are row-sharded over, or None: rules installed
+    over an SPMD mesh of more than one rank.  (JAX also asks that the
+    rank count divide the global rows; a rank's ``[R/S, D]`` makes the
+    global count ``S`` times the local one, so it always does.)"""
+    from repro_torch.dist.compat import SpmdMesh
+    from repro_torch.dist.context import current_rules
+
+    rules = current_rules()
+    if rules is None or not isinstance(rules.mesh, SpmdMesh) \
+            or rules.mesh.size <= 1:
+        return None
+    return rules.mesh
+
+
 def lookup_single(table, offsets, ids, *, out_dtype=None,
                   impl: str = "cuda"):
-    """Single-hot lookup. ids: [B, F] per-field indices -> [B, F, dim]."""
-    b, f = ids.shape
-    flat = field_ids(ids, offsets).reshape(b * f, 1)
-    return padded_bag(table, flat, out_dtype=out_dtype, impl=impl) \
-        .reshape(b, f, -1)
+    """Single-hot lookup. ids: [B, F] per-field indices -> [B, F, dim];
+    row-sharded under an SPMD mesh (module docstring)."""
+    return take_rows(table, field_ids(ids, offsets), out_dtype=out_dtype,
+                     impl=impl)
 
 
 def take_rows(table, flat_ids, *, out_dtype=None, impl: str = "cuda"):
-    """Row gather of fused-table rows ``flat_ids [...]`` -> ``[..., dim]``."""
+    """Row gather of fused-table rows ``flat_ids [...]`` -> ``[..., dim]``;
+    row-sharded under an SPMD mesh (module docstring)."""
     shape = flat_ids.shape
-    out = padded_bag(table, flat_ids.reshape(-1, 1), out_dtype=out_dtype,
-                     impl=impl)
+    mesh = _row_sharding_mesh()
+    if mesh is not None:
+        out = sharded_lookup(table, flat_ids.reshape(-1), mesh, impl=impl)
+        if out_dtype is not None:
+            out = out.to(out_dtype)
+    else:
+        out = padded_bag(table, flat_ids.reshape(-1, 1), out_dtype=out_dtype,
+                         impl=impl)
     return out.reshape(*shape, table.shape[1])
+
+
+def _bucket_group(flat_ids, n_shards: int, rows_per: int, capacity: int):
+    """Bucket one group's ids by owner shard -> (bucket_ids [S, C],
+    owner [N], slot [N], keep [N]).  An id's slot is its rank among its
+    owner's ids in id order (a stable sort); ids past ``capacity`` are
+    not kept (slot ``C``, bucket untouched)."""
+    n = flat_ids.shape[0]
+    owner = flat_ids // rows_per
+    sort_idx = torch.argsort(owner, stable=True)
+    sorted_o = owner[sort_idx]
+    counts = torch.zeros(n_shards, dtype=owner.dtype,
+                         device=owner.device).scatter_add_(
+        0, owner, torch.ones_like(owner))
+    starts = torch.cumsum(counts, 0) - counts
+    rank_sorted = torch.arange(n, device=owner.device) - starts[sorted_o]
+    rank = torch.empty_like(rank_sorted)
+    rank[sort_idx] = rank_sorted
+    keep = rank < capacity
+    slot = torch.where(keep, rank, capacity)
+    # dropped ids write to a spare column that is sliced off
+    bucket = flat_ids.new_zeros((n_shards, capacity + 1))
+    bucket[owner, slot] = flat_ids
+    return bucket[:, :capacity], owner, slot, keep
+
+
+def lookup_capacity(n_ids: int, n_shards: int,
+                    capacity_factor: float = 4.0) -> int:
+    """A group's bucket width: ``max(4, cf * N / S)`` rounded up to 8."""
+    capacity = int(max(4, capacity_factor * n_ids / n_shards))
+    return -(-capacity // 8) * 8
+
+
+def sharded_lookup(table, flat_ids, mesh, *, capacity_factor: float = 4.0,
+                   impl: str = "cuda"):
+    """The row-sharded lookup of every rank of ``mesh`` (an
+    ``SpmdMesh``), the DLRM all-to-all pattern (``repro.models.recsys.
+    embedding.sharded_lookup``).
+
+    ``table``: this rank's rows ``[R/S, D]`` (module docstring);
+    ``flat_ids``: ``[Ng]`` global row ids of this rank's data group (the
+    ranks of a group along ``model`` pass the same ids, as an id array
+    sharded over the data axes is replicated over ``model``).  Returns
+    ``[Ng, D]`` in the table's dtype:
+
+    1. *bucket*: the group's ids sorted by owner into ``[S, C]`` buckets,
+       ``C`` from :func:`lookup_capacity`;
+    2. *exchange + gather*: an all-to-all sends bucket ``o`` to owner
+       ``o``, which gathers its rows (bags of one through
+       :func:`padded_bag`, the kernel on the card);
+    3. *return + combine*: a second all-to-all sends the vectors back,
+       and each id takes ``vecs[owner, slot] * keep``.
+
+    Ids past an owner's capacity (Zipf skew) come back as zero rows."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.compat import axis_index
+
+    axes = tuple(a for a in ("pod", "data", "model") if a in mesh.axis_names)
+    if len(axes) != len(mesh.axis_names):
+        raise ValueError(f"sharded_lookup: mesh axes {mesh.axis_names} are "
+                         f"not of ('pod', 'data', 'model')")
+    n_shards = mesh.size
+    rows_per, d = table.shape
+    capacity = lookup_capacity(flat_ids.shape[0], n_shards, capacity_factor)
+    bucket, owner, slot, keep = _bucket_group(flat_ids, n_shards, rows_per,
+                                              capacity)
+    # owner coordinate of each rank (the all-to-all's chunks go by rank)
+    coord_of_rank = mesh.ranks.transpose(
+        [mesh.axis_names.index(a) for a in axes]).reshape(-1).argsort()
+    coord_of_rank = torch.as_tensor(coord_of_rank, device=flat_ids.device)
+    recv = torch.empty_like(bucket)
+    dist.all_to_all_single(recv, bucket[coord_of_rank].contiguous())
+    local = torch.clamp(recv - axis_index(mesh, axes) * rows_per, 0,
+                        rows_per - 1)
+    rows = padded_bag(table, local.reshape(-1, 1), impl=impl)
+    vecs = torch.empty_like(rows)
+    dist.all_to_all_single(vecs, rows)
+    vecs = vecs.reshape(n_shards, capacity, d)
+    by_owner = torch.empty_like(vecs)
+    by_owner[coord_of_rank] = vecs
+    out = by_owner[owner, torch.where(keep, slot, 0)]
+    return out * keep[:, None].to(out.dtype)
 
 
 def embedding_bag(table, offsets, ids, bag_field, *, n_bags, mode="sum",

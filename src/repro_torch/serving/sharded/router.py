@@ -34,11 +34,12 @@ fault like any other: it walks this ladder, never a plain fallback.
 each row is scored from the same stored bytes in a micro-batch of the
 same fixed shape, and rows do not depend on their batch.
 
-**Placement.**  ``devices`` (one torch device a worker) pins worker ``i``
-to ``devices[i]``; without it every worker shares ``device`` (``None``
-means the card).  On one card the workers add threads, not chips.  A
-device mesh (``mesh=``) waits for the port's sharding item (ROADMAP.md
-Queue 1 item 7) and raises.
+**Placement.**  ``mesh`` (a placement mesh with a ``"shard"`` axis,
+``repro_torch.dist.compat.Mesh``) pins worker ``i`` to the ``i``-th
+device of :func:`~repro_torch.dist.serving_shard_devices`; ``devices``
+(one torch device a worker) pins worker ``i`` to ``devices[i]``; with
+neither every worker shares ``device`` (``None`` means the card).  On
+one card the workers add threads, not chips.
 """
 from __future__ import annotations
 
@@ -157,13 +158,20 @@ class RankingRouter:
                  retry_backoff_s: float = 0.05, dead_after: int = 3,
                  drain_timeout_s: float | None = None,
                  max_queue: int | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "RankingRouter(mesh=...) is not ported (ROADMAP.md Queue 1 "
-                "item 7, the port's device meshes); pass devices=[...]")
         if backend is not None:
             from repro_torch.models.backend import apply_backend
             cfg = apply_backend(cfg, backend)
+        if mesh is not None:
+            from repro_torch.dist import serving_shard_devices
+            mesh_devs = serving_shard_devices(mesh)
+            if devices is None:
+                devices = mesh_devs
+            if n_shards is None:
+                n_shards = len(devices)
+            if n_shards != len(devices):
+                raise ValueError(
+                    f"n_shards={n_shards} but the mesh's shard axis has "
+                    f"{len(mesh_devs)} positions")
         if n_shards is None:
             n_shards = len(devices) if devices else 1
         if n_shards < 1:

@@ -1785,3 +1785,133 @@ def test_dimenet_cora_card_matches_cpu(dev):
     for k, g in leaves_with_paths(g_g):
         assert (g.cpu() - g_w[k]).abs().max() <= 1e-4 * g_w[k].abs().max(), k
     assert [getattr(w, a) for w, a in counters] == before
+
+
+# ---------------------------------------------------------------------------
+# The mesh: SPMD ranks over NCCL, the data-parallel build, the router on a
+# mesh of the cards
+# ---------------------------------------------------------------------------
+
+SPMD_SPEC = {"lookup": {"rows": 1 << 16, "dim": 128, "n_ids": 1 << 18},
+             "moe": {"ep": {"n_experts": 8, "d_model": 64, "d_ff": 32,
+                            "top_k": 2, "n_tokens": 512},
+                     "no_ep": {"n_experts": 5, "d_model": 48, "d_ff": 32,
+                               "top_k": 2, "n_tokens": 480}},
+             "psum": {"axis": ("data", "model")}}
+
+
+def _spmd_held(results, world):
+    for r in results:
+        assert r["world"] == world
+        for case in ("uniform_cf4", "zipf_cf1"):
+            assert r["lookup"][case]["equal"], (r["rank"], case)
+        for key in ("moe_ep", "moe_no_ep"):
+            m = r[key]
+            assert m["max_abs_diff"] <= 1e-4 * m["max_abs"], (key, m)
+            assert m["aux"] == pytest.approx(m["aux_one_process"],
+                                             rel=1e-5)
+        assert r["psum"]["finite"]
+
+
+def test_spmd_checks_on_one_card_over_nccl(dev, tmp_path):
+    """A world of 1 over NCCL: the row-sharded lookup (its gather on the
+    embedding-bag kernel) equal to take * keep, the MoE FFN under rules
+    within float32 of one process, compressed_psum finite; the
+    collectives are the identity."""
+    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.tools.mesh_check import spmd_checks
+    results = run_spmd(spmd_checks, (1, 1), ("data", "model"),
+                       args=(SPMD_SPEC,), timeout_s=300,
+                       store_dir=str(tmp_path))
+    _spmd_held(results, 1)
+    assert results[0]["psum"]["rel_err_vs_f32_mean"] < 0.01
+
+
+def test_spmd_checks_over_every_card(dev, tmp_path):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 or more cards for a mesh of several ranks; "
+                    f"{n} visible (the world of 1 runs in "
+                    f"test_spmd_checks_on_one_card_over_nccl)")
+    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.tools.mesh_check import spmd_checks
+    shape = (n // 2, 2) if n % 2 == 0 else (n, 1)
+    results = run_spmd(spmd_checks, shape, ("data", "model"),
+                       args=(SPMD_SPEC,), timeout_s=300,
+                       store_dir=str(tmp_path))
+    _spmd_held(results, n)
+
+
+def _mesh_smoke(dev):
+    from repro_torch.configs.prettr_bert import smoke_config
+    from repro_torch.core.prettr import init_prettr
+
+    cfg = smoke_config(compute_dtype=torch.bfloat16)
+    params = init_prettr(cfg, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(6)
+    docs = [rng.integers(4, 512, rng.integers(3, 60)) for _ in range(40)]
+    return cfg, params, docs, rng
+
+
+def test_data_parallel_build_on_the_cards_matches_one_device(dev, tmp_path):
+    """IndexBuilder(mesh=) over every card: the same stream bytes as the
+    one-device build on one card (each card's rows are the one-device
+    batch's on several), verified by verify_index's replay."""
+    from repro_torch.index import IndexBuilder, TermRepIndex, verify_index
+    from repro_torch.launch.mesh import make_device_mesh
+
+    cfg, params, docs, _ = _mesh_smoke(dev)
+    mesh = make_device_mesh("data")
+    kw = dict(codec="int8", store_layer_kv=True, kv_codec="int8")
+    IndexBuilder(str(tmp_path / "one"), cfg, params, batch_size=8,
+                 **kw).build(docs)
+    IndexBuilder(str(tmp_path / "dp"), cfg, params, batch_size=8,
+                 mesh=mesh, **kw).build(docs)
+    a, b = (TermRepIndex.open(str(tmp_path / k)) for k in ("one", "dp"))
+    assert b.encode_batch == -(-8 // mesh.size)      # rows a card encodes
+    assert verify_index(b, cfg, params, docs, sample=16) == 16
+    if mesh.size == 1:
+        pa, _ = a.gather_raw(list(range(len(docs))))
+        pb, _ = b.gather_raw(list(range(len(docs))))
+        for name in pa:
+            np.testing.assert_array_equal(pb[name], pa[name])
+
+
+def test_router_on_a_mesh_of_the_cards_bit_equals_the_service(dev,
+                                                              tmp_path):
+    from repro_torch.index import IndexBuilder, TermRepIndex
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.serving import (RankingRouter, RankingService,
+                                     RankRequest)
+
+    cfg, params, docs, rng = _mesh_smoke(dev)
+    IndexBuilder(str(tmp_path), cfg, params, batch_size=8, codec="int8",
+                 store_layer_kv=True, kv_codec="int8").build(docs)
+    idx = TermRepIndex.open(str(tmp_path))
+    reqs = []
+    for i in range(4):
+        q = np.zeros(8, np.int64)
+        q[:5] = [1, *rng.integers(4, 512, 3), 2]
+        reqs.append(RankRequest(q, q != 0, [int(d) for d in
+                                            rng.integers(0, 40, 16)],
+                                request_id=f"r{i}"))
+
+    def drain(svc):
+        for r in reqs:
+            svc.submit(r)
+        return {r.request_id: (r.doc_ids, r.scores) for r in svc.drain()}
+
+    kw = dict(micro_batch=8, use_layer_kv=True)
+    want = drain(RankingService(params, cfg, idx, **kw))
+    mesh = make_device_mesh("shard")
+    router = RankingRouter(params, cfg, idx, mesh=mesh, **kw)
+    assert [w.device for w in router.workers] == \
+        [torch.device("cuda", i) for i in range(mesh.size)]
+    got = drain(router)
+    for rid in want:
+        assert got[rid][0] == want[rid][0]
+        np.testing.assert_array_equal(got[rid][1], want[rid][1])
+    # every worker scored on its own card: a kernel that fails there is
+    # failed over, bit-equal, and only these counts show it
+    st = router.stats
+    assert (st.n_retries, st.n_failovers, st.n_degraded) == (0, 0, 0)

@@ -13,8 +13,9 @@ tests/test_sharded_serving.py holds the JAX package's.
   ``RankingRouter`` over a JAX-built index with bridged weights.
 * ``ServiceStats.merge``, the router's merged stats, ``gather`` /
   ``load_docs`` / ``projected_storage_bytes`` against JAX's, workers
-  pinned by ``devices=``, the service's engine proxies, ``mesh=``
-  refused.
+  pinned by ``devices=``, the service's engine proxies, a ``mesh=``
+  without a ``"shard"`` axis refused with JAX's error
+  (``test_torch_mesh_placement.py`` serves on meshes).
 
 Small sizes, float32 compute on the CPU (the kernel wrappers' plain
 versions); weights from the JAX ``init_prettr`` through the bridge,
@@ -449,10 +450,14 @@ def test_devices_pin_each_workers_engine(indexes, n_shards):
 
 
 def test_router_refuses_a_mesh_naming_its_roadmap_item(indexes):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """The mesh refusal of ROADMAP item 7 is gone (the port has meshes);
+    what is refused now is what JAX refuses, a mesh with no "shard"
+    axis."""
+    from repro_torch.dist.compat import Mesh
+    with pytest.raises(ValueError, match="needs a mesh with a 'shard' axis"):
         RankingRouter(_tparams(), _configs()[1],
-                      TermRepIndex.open(indexes["fp16"]), mesh=object(),
-                      device="cpu")
+                      TermRepIndex.open(indexes["fp16"]),
+                      mesh=Mesh(["cpu"] * 2, ("data",)), device="cpu")
     with pytest.raises(ValueError, match="n_shards"):
         _router(TermRepIndex.open(indexes["fp16"]), 0)
 
