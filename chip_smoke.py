@@ -92,16 +92,17 @@ and DimeNet at three of its cells:
    a stall past ``SHARD_TIMEOUT_S`` marking shard 1 dead with the
    fallback serving its rows within the timeout plus one fault-free
    2-worker drain, all bit-equal;
-4g. mesh -- (a) each of the fp16 and the int8 + K/V indexes built again
-   data-parallel (``IndexBuilder(mesh=)`` over a ``("data",)`` mesh of
-   every visible card): ``mesh_build`` gives its docs/s beside the
+4g. mesh -- (a) the fp16 index built again data-parallel
+   (``IndexBuilder(mesh=)`` over a ``("data",)`` mesh of every visible
+   card): ``mesh_build`` gives its docs/s beside the
    one-device build's, whether its stream files equal the one-device
    index's byte for byte, and its float32 service's distance from the
    one-device index's (0.0 where the bytes are equal, else within 1e-3);
    (b) ``RankingRouter(mesh=)`` over a ``("shard",)`` mesh of every
-   visible card, and the same router on ``devices=``, over the fp16 and
-   int8 + K/V indexes and the zipf stream through the doc cache, each
-   pass bit-equal to the single-process service (``mesh_router``);
+   visible card (its workers where ``devices=serving_shard_devices(mesh)``
+   puts them) over the fp16 and int8 + K/V indexes and the zipf stream
+   through the doc cache, each pass bit-equal to the single-process
+   service, as 4f holds the router on ``devices=`` (``mesh_router``);
 4d. cascade -- ``run_cascade`` over a seeded ``SyntheticIRWorld`` at the
    config's vocabulary (2048 docs of 479 tokens, 64 queries, 64
    candidates, metrics at depth 10) for fp16, int8, PQ and pruned
@@ -153,11 +154,10 @@ and DimeNet at three of its cells:
    over 2049 tokens, float32 through the kernels; then a profile of one
    prefill and 4 decode steps; then the same phases, their paths
    suffixed ``_<key>``, for each model of ``LM_MORE``: granite-moe-3b-a800m
-   (``_granite``) at full width with 16 of its 32 layers (cut from 32 to
-   keep the script inside its time limit beside the mesh phase),
-   chatglm3-6b (``_chatglm3``, 28, uncut), qwen3-moe-235b-a22b
-   (``_qwen3``) and mistral-large-123b (``_mistral``) with 2 of their 94
-   and 88 layers (``lm_model`` gives ``reduced``); prefill runs split
+   (``_granite``, 32 layers, uncut: the slice's main path) and chatglm3-6b
+   (``_chatglm3``, 28, uncut), qwen3-moe-235b-a22b (``_qwen3``) and
+   mistral-large-123b (``_mistral``) at full width with 2 of their 94 and
+   88 layers (``lm_model`` gives ``reduced``); prefill runs split
    attention's causal form, decode flash decode and its merge.  An MoE
    model's agreement line reports its routing: the share of prompt
    tokens whose top-k experts differ between two runs, layer by layer,
@@ -233,7 +233,10 @@ and DimeNet at three of its cells:
    qwen3-moe's layer widths over 4 x 2048 tokens in float32 under rules
    against ``n_groups=G`` in one process (MESH_MOE_REL of the largest
    output, the aux loss within 1e-5); ``spmd_psum``,
-   ``compressed_psum`` over PreTTR-BERT's full gradient tree; each with
+   ``compressed_psum`` over PreTTR-BERT's full gradient tree, its mean
+   within its int8 bound of the float32 all-reduce mean
+   (``err_over_bound`` at most 1: each rank's rounding and the ranks'
+   mean scale, ``mesh_check.psum_error``); each with
    its ms a call (``repro_torch.tools.mesh_check``).
 
 Kernel launches are counted per path: every counter is set to 0 just
@@ -255,7 +258,7 @@ the index builds, the bf16 kernel runs of each serving form, the
 cascades, the training paths, the LMs' bf16 prefill and decode, the
 recsys serve_bulk forwards, retrieval runs and towers, the router's bf16
 drains, BERT4Rec's bf16 history and join, the DimeNet cells, the
-data-parallel builds, the router's bf16 drains on a mesh and the SPMD
+data-parallel build, the router's bf16 drains on a mesh and the SPMD
 checks), each launch under one
 row: the later LMs' under the rows that hold their shapes;
 ``launches_by_path`` gives each path's own.
@@ -266,10 +269,6 @@ card's name and power limit as ``nvidia-smi`` gives them; the second to
 last is the ``kernels`` line, the last ``{"ok": true, "device": ...}``.  Run from the repository root::
 
     python3 chip_smoke.py
-
-``--mesh-only`` runs phase 1 and the mesh phase alone (the fp16 and int8
-+ K/V indexes and the services they are compared with, 4g and 9b, the
-kernels of their paths checked), for a machine of several cards.
 """
 import contextlib
 import functools
@@ -380,7 +379,7 @@ LM_SOUND_TOL = 1e-3
 # depth, None keeping all).  qwen3-moe (94 layers, ~470 GB in bf16) and
 # mistral-large (88, ~246 GB) cannot live on one card: they keep 2
 # layers, every width as published
-LM_MORE = (("granite", "granite_moe_3b", 16),
+LM_MORE = (("granite", "granite_moe_3b", None),
            ("chatglm3", "chatglm3_6b", None),
            ("qwen3", "qwen3_moe_235b", 2),
            ("mistral", "mistral_large_123b", 2))
@@ -388,8 +387,7 @@ LM_MOE = ("granite", "qwen3")
 # an MoE soundness run's forward over 2049 tokens at its own routing
 # against the prefill + decode step's: the share of its tokens a layer
 # whose experts may differ.  Float32 sums in another order tip only exact
-# near-ties: 0 of 8196 a layer over granite-moe's 32 layers (measured
-# uncut), 1 and 2 over
+# near-ties: 0 of 8196 a layer over granite-moe's 32 layers, 1 and 2 over
 # qwen3-moe's 2 (H100, 700 W), where bf16 rounding alone tips 2-21 % a
 # layer.  1e-3 (8 tokens a layer) is 4x the most float32 tipped and far
 # below what a path that routes apart would move.  A tipped token moves
@@ -1362,9 +1360,6 @@ _INDEX_F16 = ("split_attention", "compress", *_SPLIT_TC, *_COMPRESS_TC)
 _INDEX_F32 = ("split_attention", "compress_f32", *_SPLIT_TC, *_COMPRESS_TC)
 # a pruned build scores salience on the decompressed fp16 store
 _INDEX_PRUNED = _INDEX_F16 + ("decompress", *_DECOMPRESS_TC)
-# int8 reps with int8 K/V: the K/V come from the decompressed int8 store
-_INDEX_INT8 = ("split_attention", "compress_f32", "decompress_f32",
-               *_SPLIT_TC, *_COMPRESS_TC, *_DECOMPRESS_TC)
 PATH_KERNELS = {
     "index": _INDEX_F16, "index_pq": _INDEX_F32, "index_pruned": _INDEX_PRUNED,
     "serve_pq": _PQ_SERVE + _JOIN_TC, "serve_pq_f32": _PQ_SERVE + _JOIN_CC,
@@ -1405,7 +1400,8 @@ PATH_KERNELS = {
                   "join_attention_row_merge", "decode_attention",
                   "decode_attention_merge", "compress", "decompress",
                   *_JOIN_CC, *_COMPRESS_TC, *_DECOMPRESS_TC),
-    "index_int8": _INDEX_INT8,
+    "index_int8": ("split_attention", "compress_f32", "decompress_f32",
+                   *_SPLIT_TC, *_COMPRESS_TC, *_DECOMPRESS_TC),
     "serve_int8_kv": _INT8_SERVE + _JOIN_TC,
     "serve_int8_kv_f32": _INT8_SERVE + _JOIN_CC,
     "serve_int8_kv_zipf_f32": _INT8_SERVE + _JOIN_CC,
@@ -1424,14 +1420,11 @@ PATH_KERNELS = {
        for n in SHARD_COUNTS["pq"]},
     "serve_sharded_cached": _CACHED_SERVE + _JOIN_TC
     + ("join_attention_paged_tensor_core",),
-    # the mesh: the data-parallel builds encode as the one-device ones do,
-    # their float32 services serve as the uncached ones; the router on a
-    # mesh (and on its devices) as the router does
-    "index_dp": _INDEX_F16, "index_dp_int8": _INDEX_INT8,
-    "serve_index_dp_f32": _FP16_SERVE + _JOIN_CC,
-    "serve_index_dp_int8_f32": _INT8_SERVE + _JOIN_CC,
-    **{p: _FP16_SERVE + _JOIN_TC for p in ("serve_mesh_fp16",
-                                           "serve_mesh_fp16_devices")},
+    # the mesh: the data-parallel build encodes as the one-device one does,
+    # its float32 service serves as the uncached one; the router on a
+    # mesh as the router does
+    "index_dp": _INDEX_F16, "serve_index_dp_f32": _FP16_SERVE + _JOIN_CC,
+    "serve_mesh_fp16": _FP16_SERVE + _JOIN_TC,
     "serve_mesh_int8_kv": _INT8_SERVE + _JOIN_TC,
     "serve_mesh_cached": _CACHED_SERVE + _JOIN_TC
     + ("join_attention_paged_tensor_core",),
@@ -1519,7 +1512,7 @@ MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
                 for n in ns), "serve_sharded_cached",
               *BERT4REC_PATHS["cuda_bf16"],
               *(f"dimenet_{c}" for c in DIMENET_CELLS),
-              "index_dp", "index_dp_int8", "serve_mesh_fp16",
+              "index_dp", "serve_mesh_fp16",
               "serve_mesh_int8_kv", "serve_mesh_cached", "spmd_lookup",
               "spmd_moe", "spmd_psum")
 
@@ -1864,7 +1857,6 @@ def mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_device_mesh
     mesh = make_device_mesh("data")
-    svc_kw = {"use_layer_kv": True} if kw.get("store_layer_kv") else {}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
         report, launches[label] = counted(
             lambda: IndexBuilder(tmp, cfg, params, batch_size=INDEX_BATCH,
@@ -1874,8 +1866,7 @@ def mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
         verified = index.verify_integrity()
         same = _same_streams(one_dir, tmp)
         runs, launches[f"serve_{label}_f32"], _ = serve(
-            torch, params, cfg32, index, requests, f"cuda_{label}_f32", name,
-            **svc_kw)
+            torch, params, cfg32, index, requests, f"cuda_{label}_f32", name)
         line = {"phase": "mesh_build", "index": label, "device": name,
                 "world": mesh.size, "devices": [str(d) for d in
                                                 mesh.devices.reshape(-1)],
@@ -1899,12 +1890,10 @@ def mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
 
 
 def mesh_router_phase(torch, name, launches, params, cfg, index, requests,
-                      want, label, passes=1, devices_too=False, **kw):
+                      want, label, passes=1, **kw):
     """(b) ``RankingRouter(mesh=)`` over a ``("shard",)`` mesh of every
     visible card, every pass bit-equal to the single-process run
-    ``want`` and no task retried or failed over; with ``devices_too``
-    the same router on ``devices=`` as well (so the two are
-    bit-equal)."""
+    ``want`` and no task retried or failed over."""
     from repro_torch.dist import serving_shard_devices
     from repro_torch.launch.mesh import make_device_mesh
     mesh = make_device_mesh("shard")
@@ -1920,13 +1909,6 @@ def mesh_router_phase(torch, name, launches, params, cfg, index, requests,
            "n_failovers": line["merged"]["n_failovers"],
            "worker_rows": [w["n_rows"] for w in line["workers"]],
            "qps": line["qps"], "launches": launches[path]}
-    if devices_too:
-        dev_runs, launches[f"{path}_devices"], _ = serve_router(
-            torch, params, cfg, index, requests, f"devices_{label}", name,
-            mesh.size, want, passes=passes,
-            devices=serving_shard_devices(mesh), **kw)
-        out["unequal_mesh_vs_devices"] = [sum(a[k] != b[k] for k in a)
-                                          for a, b in zip(runs, dev_runs)]
     emit(out)
     # a worker that fails on its card is failed over to the fallback
     # engine, bit-equal: only the counts show it
@@ -1998,8 +1980,9 @@ def spmd_phase(torch, name, launches):
                                                          "zipf_cf1")
                         if not r[c]["equal"]]
             elif key == "psum":
-                if not r["finite"]:
-                    bad.append("psum: non-finite mean")
+                if not r["finite"] or not r["err_over_bound"] <= 1.0:
+                    bad.append(f"psum: finite {r['finite']}, error "
+                               f"{r['err_over_bound']} of its int8 bound")
             elif r["max_abs_diff"] > MESH_MOE_REL * r["max_abs"] or \
                     abs(r["aux"] - r["aux_one_process"]) \
                     > 1e-5 * abs(r["aux_one_process"]):
@@ -3611,62 +3594,6 @@ def dimenet_phases(torch, name, launches):
           "total_s": sum(wall.values())})
 
 
-def mesh_only_run(torch, name, launches, build, params, cfg, cfg32, docs,
-                  requests, rng):
-    """``--mesh-only``: the mesh phase alone (the builds, services and
-    router runs it compares with, then the SPMD checks), its paths'
-    kernels checked; the run of the phase on a machine of several cards
-    without the rest of the script."""
-    from repro_torch.kernels import _build
-    zipf = make_zipf_requests(rng, cfg)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
-        index, line = build(tmp, "index", codec="fp16")
-        bf16, launches["serve"], _ = serve(torch, params, cfg, index,
-                                           requests, "cuda_bf16", name)
-        f32, launches["serve_f32"], _ = serve(torch, params, cfg32, index,
-                                              requests, "cuda_f32", name)
-        mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
-                         requests, tmp, line, f32[0], "index_dp",
-                         codec="fp16")
-        mesh_router_phase(torch, name, launches, params, cfg, index,
-                          requests, bf16, "fp16", devices_too=True)
-        del index
-    kv = {"use_layer_kv": True}
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
-        index, line = build(tmp, "index_int8", codec="int8",
-                            store_layer_kv=True, kv_codec="int8")
-        bf16, launches["serve_int8_kv"], _ = serve(
-            torch, params, cfg, index, requests, "cuda_int8_kv_bf16", name,
-            **kv)
-        f32, launches["serve_int8_kv_f32"], _ = serve(
-            torch, params, cfg32, index, requests, "cuda_int8_kv_f32", name,
-            **kv)
-        cached, launches["serve_cached"], _ = serve(
-            torch, params, cfg, index, zipf, "cuda_cached_bf16", name,
-            passes=2, doc_cache_mb=CACHE_MB, page_tokens=PAGE_TOKENS, **kv)
-        mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
-                         requests, tmp, line, f32[0], "index_dp_int8",
-                         codec="int8", store_layer_kv=True, kv_codec="int8")
-        mesh_router_phase(torch, name, launches, params, cfg, index,
-                          requests, bf16, "int8_kv", **kv)
-        mesh_router_phase(torch, name, launches, params, cfg, index, zipf,
-                          cached, "cached", passes=2,
-                          doc_cache_mb=CACHE_MB, page_tokens=PAGE_TOKENS,
-                          **kv)
-        del index
-    spmd_phase(torch, name, launches)
-    missing = [f"{p}: {k}" for p in launches for k in PATH_KERNELS[p]
-               if launches[p][k] == 0]
-    stray = [f"{p}: {k}" for p, n in launches.items() for k in n
-             if n[k] and k not in PATH_KERNELS[p]]
-    if missing or stray:
-        raise AssertionError(f"kernels not launched: {missing}; launched "
-                             f"where none should be: {stray}")
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                 "count": torch.cuda.device_count()}})
-    return 0
-
-
 def main():
     # cuBLAS's workspace made explicit (the size PyTorch picks on Hopper),
     # so the checkpoint phase may run under use_deterministic_algorithms
@@ -3709,14 +3636,8 @@ def main():
     cfg = full_config()
     cfg32 = full_config(compute_dtype=torch.float32)
 
-    mesh_only = sys.argv[1:] == ["--mesh-only"]
-    if sys.argv[1:] and not mesh_only:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the one "
-              f"option is --mesh-only", file=sys.stderr)
-        return 2
-
     # 2. kernels
-    rows = [] if mesh_only else check_kernels(torch, cfg)
+    rows = check_kernels(torch, cfg)
 
     params = P.init_prettr(cfg, torch.Generator(device="cuda")
                            .manual_seed(SEED))
@@ -3801,10 +3722,6 @@ def main():
                                  f"the plain impl")
         return runs
 
-    if mesh_only:
-        return mesh_only_run(torch, name, launches, build, params, cfg,
-                             cfg32, docs, requests, rng)
-
     # 3. index, fp16 streams
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
         index, fp16_line = build(tmp, "index", codec="fp16")
@@ -3871,8 +3788,7 @@ def main():
                          fused_runs["serve_f32"][0], "index_dp",
                          codec="fp16")
         mesh_router_phase(torch, name, launches, params, cfg, index,
-                          requests, [fused_runs["serve"][0]], "fp16",
-                          devices_too=True)
+                          requests, [fused_runs["serve"][0]], "fp16")
         added_s["mesh_fp16"] = time.perf_counter() - t0
         del index
 
@@ -3881,8 +3797,8 @@ def main():
     #     over a hot-document stream, cold then warm
     zipf = make_zipf_requests(rng, cfg)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
-        index, int8_line = build(tmp, "index_int8", codec="int8",
-                                 store_layer_kv=True, kv_codec="int8")
+        index, _ = build(tmp, "index_int8", codec="int8",
+                         store_layer_kv=True, kv_codec="int8")
         int8_runs = serve_both(index, requests,
                    ("serve_int8_kv", "plain_int8_kv_bf16",
                     "serve_int8_kv_f32", "plain_int8_kv_f32"),
@@ -3928,10 +3844,6 @@ def main():
             raise AssertionError(f"serve_sharded_cached: {sh_cached}")
         added_s["serve_sharded_cached"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        mesh_build_phase(torch, name, launches, params, cfg, cfg32, docs,
-                         requests, tmp, int8_line,
-                         int8_runs["serve_int8_kv_f32"][0], "index_dp_int8",
-                         codec="int8", store_layer_kv=True, kv_codec="int8")
         mesh_router_phase(torch, name, launches, params, cfg, index,
                           requests, [int8_runs["serve_int8_kv"][0]],
                           "int8_kv", use_layer_kv=True)

@@ -321,8 +321,12 @@ class IndexBuilder:
 
     def _host_batch(self, parts):
         """The devices' parts -> numpy ``(reps, kv, salience)`` in row
-        order."""
-        cat = lambda xs: np.concatenate([x.cpu().numpy() for x in xs])
+        order; one device's part as it is, with no copy."""
+        def cat(xs):
+            if len(xs) == 1:
+                return xs[0].cpu().numpy()
+            return np.concatenate([x.cpu().numpy() for x in xs])
+
         reps, kv, sal = zip(*parts)
         kv = None if kv[0] is None else [
             cat(t).astype(self._kv_dtype) for t in zip(*kv)]

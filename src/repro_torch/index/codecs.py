@@ -266,11 +266,13 @@ class PQCodec(StorageCodec):
         init = [rng.choice(t, size=k, replace=t < k) for _ in range(m)]
 
         def train(s):
-            x = sample[:, s * self.sub_dim:(s + 1) * self.sub_dim]
+            x = np.ascontiguousarray(
+                sample[:, s * self.sub_dim:(s + 1) * self.sub_dim])
             cent = x[init[s]].copy()
             for _ in range(max(1, int(iters))):
                 assign = self._nearest(x, cent)
-                order = np.argsort(assign, kind="stable")
+                # k <= 256: a stable sort of uint8 keys is a radix sort
+                order = np.argsort(assign.astype(np.uint8), kind="stable")
                 members = x[order]
                 bounds = np.searchsorted(assign[order], np.arange(k + 1))
                 for c in range(k):
@@ -284,8 +286,11 @@ class PQCodec(StorageCodec):
 
     @staticmethod
     def _nearest(x: np.ndarray, cent: np.ndarray) -> np.ndarray:
-        # ||x - c||^2 up to the x^2 term; argmin takes the first of ties
-        d = (cent * cent).sum(-1)[None, :] - 2.0 * (x @ cent.T)
+        # ||x - c||^2 up to the x^2 term; argmin takes the first of ties.
+        # In place: c^2 + (-2 x.c) is c^2 - 2 x.c to the bit
+        d = x @ cent.T
+        d *= -2.0
+        d += (cent * cent).sum(-1)[None, :]
         return np.argmin(d, axis=1)
 
     # -- state ---------------------------------------------------------------

@@ -137,12 +137,50 @@ def moe_check(mesh, *, n_experts: int, d_model: int, d_ff: int,
             "one_process_ms": one_ms}
 
 
+def psum_error(mean, x, mesh, axis) -> tuple[float, float]:
+    """``compressed_psum``'s ``mean`` of ``x`` (the gradients plus the
+    residual it was given) against the plain float32 all-reduce mean over
+    ``axis`` -> (the largest error over its leaf's largest mean value, the
+    largest error over its leaf's int8 bound).
+
+    The bound: a rank's value, rounded to its own scale ``s_r``, is at
+    most ``s_r / 2`` off, and is then scaled by the ranks' mean scale
+    ``s_bar`` (``|q| <= 127``: at most ``127 |s_bar - s_r|`` more), so a
+    leaf's mean is at most ``mean_r(s_r / 2 + 127 |s_bar - s_r|)`` off;
+    ``2**-16`` of the largest ``|x|`` covers float32's own rounding.  A
+    wrong scale or a wrong ``/ n`` lands far above it."""
+    import torch.distributed as dist
+
+    from repro_torch.tree import leaves
+
+    group, n = mesh.group(axis), mesh.axis_size(axis)
+    xs, means = leaves(x), leaves(mean)
+    s = torch.stack([v.abs().max() for v in xs]).float() / 127
+    s_bar = s.clone()
+    dist.all_reduce(s_bar, group=group)
+    s_bar /= n
+    bound = s / 2 + 127 * (s_bar - s).abs()
+    dist.all_reduce(bound, group=group)
+    bound /= n
+    top = s.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    bound += 127 * top * 2.0 ** -16
+    rel = over = 0.0
+    for i, (got, v) in enumerate(zip(means, xs)):
+        ref = v.float().clone()
+        dist.all_reduce(ref, group=group)
+        ref /= n
+        err = float((got.float() - ref).abs().max())
+        rel = max(rel, err / max(float(ref.abs().max()), 1e-30))
+        over = max(over, err / float(bound[i]))
+    return rel, over
+
+
 def psum_check(mesh, *, axis, seed: int = 0, count=_uncounted) -> dict:
     """``compressed_psum`` over PreTTR-BERT's full gradient tree (float32
     leaves of ``prettr_bert.full_config()``'s parameter shapes): ms a
-    call, and the mean against the plain float32 all-reduce mean."""
-    import torch.distributed as dist
-
+    call, and the mean against the plain float32 all-reduce mean and
+    against its int8 bound (:func:`psum_error`)."""
     from repro_torch.configs.prettr_bert import full_config
     from repro_torch.core.prettr import init_prettr
     from repro_torch.dist import default_rules, install_rules
@@ -161,15 +199,10 @@ def psum_check(mesh, *, axis, seed: int = 0, count=_uncounted) -> dict:
         (mean, _), launches = count(
             lambda: compressed_psum(grads, fb, axis))
         ms = _time_ms(lambda: compressed_psum(grads, fb, axis))
-    group = mesh.group(axis)
-    rel = 0.0
-    for got, g in zip(leaves(mean), leaves(grads)):
-        ref = g.clone()
-        dist.all_reduce(ref, group=group)
-        ref /= mesh.axis_size(axis)
-        rel = max(rel, float((got - ref).abs().max() / ref.abs().max()))
+    rel, over = psum_error(mean, grads, mesh, axis)
     return {"params": n, "leaves": len(leaves(grads)),
             "int32_bytes": 4 * n, "rel_err_vs_f32_mean": rel,
+            "err_over_bound": over,
             "finite": all(bool(torch.isfinite(x).all())
                           for x in leaves(mean)),
             "launches": launches, "ms": ms}

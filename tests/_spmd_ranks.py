@@ -7,6 +7,7 @@ from repro_torch.dist.compat import axis_index, spmd_mesh
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.recsys.embedding import sharded_lookup
 from repro_torch.optim import compressed_psum, init_error_feedback
+from repro_torch.tools.mesh_check import psum_error
 
 LOOKUP_MESHES = {"2x2": ((2, 2), ("data", "model")),
                  "4_data": ((4,), ("data",)),
@@ -75,20 +76,23 @@ def psum_steps(mesh, grads_by_step, axis):
     """``compressed_psum`` over ``axis`` for each step's gradient tree
     (this rank's row of each leaf), the residual carried: ->
     ([(mean, residual)] as numpy trees, this rank's coordinates on a
-    (2, 2, 2) pod x data x model mesh of the same ranks)."""
+    (2, 2, 2) pod x data x model mesh of the same ranks, each step's
+    error over its int8 bound: ``mesh_check.psum_error``)."""
     r = mesh.rank
     fb = None
-    out = []
+    out, over = [], []
     for grads in grads_by_step:
         g = {k: torch.from_numpy(v[r:r + 1]) for k, v in grads.items()}
         if fb is None:
             fb = init_error_feedback(g)
+        x = {k: g[k].float() + fb[k] for k in g}
         with install_rules(default_rules(mesh)):
             mean, fb = compressed_psum(g, fb, axis)
+        over.append(psum_error(mean, x, mesh, axis)[1])
         out.append(({k: v.numpy() for k, v in mean.items()},
                     {k: v.numpy() for k, v in fb.items()}))
     return out, coordinates(spmd_mesh((2, 2, 2), ("pod", "data", "model"),
-                                      "cpu"))
+                                      "cpu")), over
 
 
 def fails(mesh):

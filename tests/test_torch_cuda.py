@@ -1811,13 +1811,14 @@ def _spmd_held(results, world):
             assert m["aux"] == pytest.approx(m["aux_one_process"],
                                              rel=1e-5)
         assert r["psum"]["finite"]
+        assert r["psum"]["err_over_bound"] <= 1.0, r["psum"]
 
 
 def test_spmd_checks_on_one_card_over_nccl(dev, tmp_path):
     """A world of 1 over NCCL: the row-sharded lookup (its gather on the
     embedding-bag kernel) equal to take * keep, the MoE FFN under rules
-    within float32 of one process, compressed_psum finite; the
-    collectives are the identity."""
+    within float32 of one process, compressed_psum finite and within its
+    int8 bound of the float32 mean; the collectives are the identity."""
     from repro_torch.launch.mesh import run_spmd
     from repro_torch.tools.mesh_check import spmd_checks
     results = run_spmd(spmd_checks, (1, 1), ("data", "model"),
@@ -1879,6 +1880,7 @@ def test_data_parallel_build_on_the_cards_matches_one_device(dev, tmp_path):
 
 def test_router_on_a_mesh_of_the_cards_bit_equals_the_service(dev,
                                                               tmp_path):
+    from repro_torch.dist import serving_shard_devices
     from repro_torch.index import IndexBuilder, TermRepIndex
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.serving import (RankingRouter, RankingService,
@@ -1908,9 +1910,13 @@ def test_router_on_a_mesh_of_the_cards_bit_equals_the_service(dev,
     assert [w.device for w in router.workers] == \
         [torch.device("cuda", i) for i in range(mesh.size)]
     got = drain(router)
+    by_devices = drain(RankingRouter(params, cfg, idx,
+                                     devices=serving_shard_devices(mesh),
+                                     **kw))
     for rid in want:
-        assert got[rid][0] == want[rid][0]
-        np.testing.assert_array_equal(got[rid][1], want[rid][1])
+        for run in (got, by_devices):
+            assert run[rid][0] == want[rid][0]
+            np.testing.assert_array_equal(run[rid][1], want[rid][1])
     # every worker scored on its own card: a kernel that fails there is
     # failed over, bit-equal, and only these counts show it
     st = router.stats

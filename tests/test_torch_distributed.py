@@ -174,7 +174,7 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("step", range(STEPS))
 def test_compressed_psum_matches_jax_on_8_ranks(runs, step):
     want = runs["jax"]
-    for rank, (steps, _) in enumerate(runs["psum"]):
+    for rank, (steps, _, _) in enumerate(runs["psum"]):
         mean, fb = steps[step]
         for k in ("w", "b"):
             ref = want[f"psum/{step}/mean/{k}"][rank:rank + 1]
@@ -189,9 +189,19 @@ def test_compressed_psum_mean_is_the_same_on_every_rank(runs):
     first = runs["psum"][0][0]
     for step in range(STEPS):
         for k in ("w", "b"):
-            for steps, _ in runs["psum"][1:]:
+            for steps, _, _ in runs["psum"][1:]:
                 np.testing.assert_array_equal(steps[step][0][k],
                                               first[step][0][k])
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_compressed_psum_within_its_int8_bound(runs, step):
+    """Against the plain float32 mean of what each rank sent (its
+    gradient plus its residual): at most each rank's rounding to its own
+    scale and the ranks' mean scale in its place (the bound of
+    ``mesh_check.psum_error``), the bound the card's checks hold."""
+    for rank, (_, _, over) in enumerate(runs["psum"]):
+        assert over[step] <= 1.0, (rank, step, over)
 
 
 def test_compressed_psum_needs_rules_over_an_spmd_mesh():
@@ -348,7 +358,7 @@ def test_spmd_mesh_groups_and_coordinates(runs, tmp_path):
         assert coords["model"] == (m, [2 * d, 2 * d + 1])
         assert coords[("data", "model")] == (rank, [0, 1, 2, 3])
     # (2, 2, 2): the groups of two axes of three are made at build
-    for rank, (_, coords) in enumerate(runs["psum"]):
+    for rank, (_, coords, _) in enumerate(runs["psum"]):
         p, d, m = rank // 4, rank // 2 % 2, rank % 2
         assert coords["pod"] == (p, [d * 2 + m, 4 + d * 2 + m])
         assert coords[("pod", "data")] == (
