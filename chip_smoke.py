@@ -8,7 +8,8 @@ PreTTR at the paper's (``repro_torch.configs.prettr_bert.full_config``:
 mistral-large-123b), then the recsys models at their published configs
 and DimeNet at three of its cells:
 
-1. device  -- the card's name and power limit, the kernel build time;
+1. device  -- the card's name and power limit, the kernel build time and
+   each source's ``nvcc`` seconds (``nvcc_s``, all started together);
 2. kernels -- each hand-written kernel form at its main-path shape against
    its plain PyTorch version on the same inputs, with times (CUDA events,
    median of 20 after warm-up) beside the plain version, one library call
@@ -236,8 +237,19 @@ and DimeNet at three of its cells:
    ``compressed_psum`` over PreTTR-BERT's full gradient tree, its mean
    within its int8 bound of the float32 all-reduce mean
    (``err_over_bound`` at most 1: each rank's rounding and the ranks'
-   mean scale, ``mesh_check.psum_error``); each with
-   its ms a call (``repro_torch.tools.mesh_check``).
+   mean scale, ``mesh_check.psum_error``); ``spmd_lm_gemma3`` and
+   ``spmd_lm_granite``, the sharded transformer (FSDP over ``data``,
+   tensor parallelism over ``model``: ``models/transformer_spmd.py``)
+   at full width under ``default_rules`` over 2 x 2048 tokens against
+   one process on the same card: gemma3-4b's ``causal_lm_loss`` in
+   float32 through the kernels (the split kernel's causal and window
+   forms on each rank's local heads; rtol LM_SPMD_RTOL), its loss and
+   every gradient leaf through the plain impl (rtol = atol =
+   LM_SPMD_RTOL, element by element) and the bf16 loss, timed (rtol
+   LM_SPMD_BF16_RTOL); granite-moe's float32 loss through the kernels
+   (MoE at capacity factor E / k); each line gives its tolerance and
+   the split kernel's launches, and the phase fails unless they launched;
+   each with its ms a call (``repro_torch.tools.mesh_check``).
 
 Kernel launches are counted per path: every counter is set to 0 just
 before each index build, each timed serving run, the training steps, the
@@ -307,7 +319,11 @@ SHARD_TIMEOUT_S, SHARD_STALL_S = 2.0, 4.0
 # batch count changes with the groups a rank runs, and with it cuBLAS's
 # blocking), the ranks' time limit
 MESH_LOOKUP_ROWS, MESH_TOKENS, MESH_MOE_REL = 1 << 24, 4 * 2048, 1e-4
-MESH_TIMEOUT_S = 420
+MESH_TIMEOUT_S = 600
+# the sharded transformer's checks: [batch, seq] tokens, its float32 and
+# bf16 limits against one process (losses relative, gradients over each
+# leaf's largest value)
+LM_SPMD_TOKENS, LM_SPMD_RTOL, LM_SPMD_BF16_RTOL = (2, 2048), 1e-5, 2e-2
 # BERT4Rec's paths: (history precompute, online join) of each run
 BERT4REC_PATHS = {
     "cuda_bf16": ("bert4rec_history", "bert4rec_join"),
@@ -772,7 +788,7 @@ def check_kernels(torch, cfg):
     #    three prefills.  The last shape of each row, in bf16, is timed
     for name, ldh, groups, paths in (
             ("split_attention_causal_d64", 64, ((24, 8),),
-             ("lm_prefill_granite",)),
+             ("lm_prefill_granite", "spmd_lm_granite")),
             ("split_attention_causal_d128", 128,
              ((64, 4), (96, 8), (32, 2)),
              ("lm_prefill_chatglm3", "lm_prefill_qwen3",
@@ -1433,6 +1449,13 @@ PATH_KERNELS = {
     # all-reduce run no kernel of the port
     "spmd_lookup": ("embedding_bag", "embedding_bag_wide"),
     "spmd_moe": (), "spmd_psum": (),
+    # the sharded transformer: float32 on the CUDA-core split kernel,
+    # gemma3's bf16 loss on the tensor-core one
+    "spmd_lm_gemma3": ("split_attention_causal", "split_attention_window",
+                       "split_attention_cuda_core",
+                       "split_attention_tensor_core"),
+    "spmd_lm_granite": ("split_attention_causal",
+                        "split_attention_cuda_core"),
     # BERT4Rec: head dim 32, so every split call takes the CUDA-core
     # kernel (the tensor-core one takes 64, 128 and 256), bf16 and float32
     **{p: ("split_attention", "split_attention_cuda_core",
@@ -1486,11 +1509,12 @@ PATH_KERNELS = {
         "dlrm_item_tower", "deepfm_serve_p99", "deepfm_serve_bulk",
         "deepfm_item_vectors", "deepfm_retrieval", "xdeepfm_serve_p99")},
 }
-# the later LMs' bf16 prefill and decode: their launches count under the
-# rows that hold their shapes (each row's ``paths``), every other row's
-# under the main paths but these, so a launch counts under one row
+# the later LMs' bf16 prefill and decode and granite-moe's sharded loss:
+# their launches count under the rows that hold their shapes (each row's
+# ``paths``), every other row's under the main paths but these, so a
+# launch counts under one row
 LM_MORE_MAIN = tuple(f"lm_{kind}_{key}" for key, *_ in LM_MORE
-                     for kind in ("prefill", "decode"))
+                     for kind in ("prefill", "decode")) + ("spmd_lm_granite",)
 # the paths whose launches make the kernels line's `launches`: the index
 # builds, the bf16 drains of each serving form, the cascade's bf16 runs
 # (untrained and trained), the training paths,
@@ -1514,7 +1538,7 @@ MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               *(f"dimenet_{c}" for c in DIMENET_CELLS),
               "index_dp", "serve_mesh_fp16",
               "serve_mesh_int8_kv", "serve_mesh_cached", "spmd_lookup",
-              "spmd_moe", "spmd_psum")
+              "spmd_moe", "spmd_psum", "spmd_lm_gemma3")
 
 
 def _scores(resps):
@@ -1927,8 +1951,9 @@ def spmd_rank(mesh, spec):
 def mesh_spec():
     """The SPMD checks' sizes: DLRM's width (bf16) over serve_bulk's ids,
     granite-moe's and qwen3-moe's MoE layer widths at 4 x 2048 tokens,
-    PreTTR-BERT's gradient tree."""
-    from repro_torch.configs import dlrm_mlperf, granite_moe_3b, \
+    PreTTR-BERT's gradient tree, gemma3-4b and granite-moe at full width
+    over LM_SPMD_TOKENS."""
+    from repro_torch.configs import dlrm_mlperf, gemma3_4b, granite_moe_3b, \
         qwen3_moe_235b
     from repro_torch.configs import RECSYS_SHAPES
     dlrm = dlrm_mlperf.full_config()
@@ -1939,10 +1964,17 @@ def mesh_spec():
                     "d_ff": c.d_ff, "top_k": c.top_k,
                     "capacity_factor": c.capacity_factor,
                     "n_tokens": MESH_TOKENS}
+    b, s = LM_SPMD_TOKENS
     return {"lookup": {"rows": MESH_LOOKUP_ROWS, "dim": dlrm.embed_dim,
                        "n_ids": RECSYS_SHAPES["serve_bulk"]["batch"]
                        * dlrm.n_sparse},
-            "moe": moe, "psum": {"axis": ("data", "model")}}
+            "moe": moe, "psum": {"axis": ("data", "model")},
+            "lm": {"gemma3": {"config": gemma3_4b.full_config(),
+                              "batch": b, "seq": s, "grad": True,
+                              "bf16": True},
+                   "granite": {"config": granite_moe_3b.full_config(),
+                               "batch": b, "seq": s, "grad": False,
+                               "bf16": False}}}
 
 
 def spmd_phase(torch, name, launches):
@@ -1988,6 +2020,32 @@ def spmd_phase(torch, name, launches):
                     > 1e-5 * abs(r["aux_one_process"]):
                 bad.append(f"{key}: {r['max_abs_diff']} / {r['max_abs']}, "
                            f"aux {r['aux']} vs {r['aux_one_process']}")
+    for key in ("lm_gemma3", "lm_granite"):
+        path = f"spmd_{key}"
+        per_rank = [r[key] for r in results]
+        launches.setdefault(path, {})
+        for r in per_rank:
+            for sub in ("loss", "bf16"):
+                for k, n in r.get(sub, {}).get("launches", {}).items():
+                    launches[path][k] = launches[path].get(k, 0) + n
+        row3 = sum(launches[path].get(k, 0) for k in
+                   ("split_attention_causal", "split_attention_window"))
+        emit({"phase": path, "device": name, "world": world,
+              "mesh": results[0]["mesh"], "row3_launches": row3,
+              "loss_rtol": LM_SPMD_RTOL, "grad_rtol": LM_SPMD_RTOL,
+              "bf16_rtol": LM_SPMD_BF16_RTOL, "ranks": per_rank})
+        if not row3:
+            bad.append(f"{key}: the split-attention kernel never launched")
+        for r in per_rank:
+            if not r["loss"]["rel"] <= LM_SPMD_RTOL:
+                bad.append(f"{key} loss: {r['loss']}")
+            g = r.get("grad")
+            if g is not None and not (g["loss_rel"] <= LM_SPMD_RTOL and
+                                      g["leaves_apart"] == 0):
+                bad.append(f"{key} grad: {g}")
+            h = r.get("bf16")
+            if h is not None and not h["rel"] <= LM_SPMD_BF16_RTOL:
+                bad.append(f"{key} bf16: {h}")
     emit({"phase": "spmd_wall", "device": name, "world": world,
           "seconds": wall})
     if bad:
@@ -3631,7 +3689,8 @@ def main():
     _build.library()
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": time.perf_counter() - t0})
+          "kernel_build_s": time.perf_counter() - t0,
+          "nvcc_s": dict(_build.NVCC_SECONDS)})
 
     cfg = full_config()
     cfg32 = full_config(compute_dtype=torch.float32)

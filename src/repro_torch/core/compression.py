@@ -34,6 +34,13 @@ def init_compressor(d: int, e: int, generator: torch.Generator, device,
                    "bias": zeros(d)}}
 
 
+def compressor_axes() -> dict:
+    """The logical axes of :func:`init_compressor`'s tree."""
+    return {"w_comp": ("embed", None), "b_comp": (None,),
+            "w_decomp": (None, "embed"), "b_decomp": ("embed",),
+            "ln": {"scale": ("embed",), "bias": ("embed",)}}
+
+
 def compress_plain(params: dict, s_l, *, store_dtype=torch.float16):
     """[..., d] -> [..., e] in ``s_l``'s dtype, stored as ``store_dtype``:
     the "plain" backend (``repro.core.compression.compress_jnp``)."""

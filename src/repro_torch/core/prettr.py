@@ -102,6 +102,18 @@ def init_prettr(cfg: PreTTRConfig, generator: torch.Generator,
     return params
 
 
+def prettr_axes(cfg: PreTTRConfig) -> dict:
+    """The logical-axes tree of :func:`init_prettr`'s params: the JAX
+    ``init_prettr``'s second return, less the backbone's ``lm_head`` (the
+    port's tree has none)."""
+    backbone = T.param_axes(cfg.backbone)
+    backbone.pop("lm_head", None)
+    axes = {"backbone": backbone, "score_head": ("embed", None)}
+    if cfg.compress_dim:
+        axes["compressor"] = C.compressor_axes()
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # Shared pieces
 # ---------------------------------------------------------------------------

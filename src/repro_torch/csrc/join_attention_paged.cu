@@ -19,22 +19,14 @@
 // float32 pools under a 16-bit q run on join_tiled_kernel (CUDA cores).
 // The page-table indirection costs one integer division and one
 // page-table load per key per tile (join_attention.cuh).
-#include "join_attention.cuh"
+//
+// The pool-type dispatch of each q type is compiled in a translation unit
+// of its own (this file: float32; join_attention_paged_bf16.cu,
+// join_attention_paged_f16.cu), so the parallel build compiles the three
+// sets of instantiations at once (join_attention_paged.cuh).
+#include "join_attention_paged.cuh"
 
-namespace {
-
-template <typename T>
-int dispatch_pool(int kd_dtype, const rt::JoinArgs& a, cudaStream_t s, int* kernel) {
-  switch (kd_dtype) {
-    case rt::kF32: return rt::launch_join<T, float, true>(a, s, kernel);
-    case rt::kBF16: return rt::launch_join<T, __nv_bfloat16, true>(a, s, kernel);
-    case rt::kF16: return rt::launch_join<T, __half, true>(a, s, kernel);
-    case rt::kI8: return rt::launch_join<T, int8_t, true>(a, s, kernel);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+template int rt::dispatch_paged_pool<float>(int, const rt::JoinArgs&, cudaStream_t, int*);
 
 // q, kq, vq, out as the dense entry; k_pool / v_pool [P, page, Hkv, D]
 // contiguous; page_table [B, n_pages] int32; dval_pool [P, page] bytes;
@@ -65,9 +57,9 @@ extern "C" int rt_join_attention_paged(const void* q, const void* kq, const void
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case rt::kF32: return dispatch_pool<float>(kd_dtype, a, s, kernel);
-    case rt::kBF16: return dispatch_pool<__nv_bfloat16>(kd_dtype, a, s, kernel);
-    case rt::kF16: return dispatch_pool<__half>(kd_dtype, a, s, kernel);
+    case rt::kF32: return rt::dispatch_paged_pool<float>(kd_dtype, a, s, kernel);
+    case rt::kBF16: return rt::dispatch_paged_pool<__nv_bfloat16>(kd_dtype, a, s, kernel);
+    case rt::kF16: return rt::dispatch_paged_pool<__half>(kd_dtype, a, s, kernel);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -178,8 +178,6 @@ class Int8Codec(StorageCodec):
         return _widen(parts[group]) * parts[self.scale_stream(group)][..., None]
 
 
-
-
 def _only_reps(group: str) -> None:
     if group != "reps":
         raise ValueError("pq codec encodes only the 'reps' stream group; "
@@ -228,6 +226,8 @@ class PQCodec(StorageCodec):
                              f"{self.sub_dim}], got {cb.shape}")
         self.codebooks = np.ascontiguousarray(cb, np.float32)
         self._on_device = {}
+        # per subspace: the encode's -2 cent.T [sub_dim, k] and c^2 [1, k]
+        self._operands = [self._scaled(c) for c in self.codebooks]
 
     def _n_sub(self, rep_dim: int) -> int:
         if rep_dim % self.sub_dim:
@@ -270,7 +270,7 @@ class PQCodec(StorageCodec):
                 sample[:, s * self.sub_dim:(s + 1) * self.sub_dim])
             cent = x[init[s]].copy()
             for _ in range(max(1, int(iters))):
-                assign = self._nearest(x, cent)
+                assign = self._nearest(x, *self._scaled(cent))
                 # k <= 256: a stable sort of uint8 keys is a radix sort
                 order = np.argsort(assign.astype(np.uint8), kind="stable")
                 members = x[order]
@@ -285,12 +285,21 @@ class PQCodec(StorageCodec):
             self._set_codebooks(np.stack(list(pool.map(train, range(m)))))
 
     @staticmethod
-    def _nearest(x: np.ndarray, cent: np.ndarray) -> np.ndarray:
+    def _scaled(cent: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """``(-2 cent.T, c^2)`` of a codebook, :meth:`_nearest`'s
+        operands."""
+        return np.ascontiguousarray(-2.0 * cent.T), \
+            (cent * cent).sum(-1)[None, :]
+
+    @staticmethod
+    def _nearest(x: np.ndarray, neg2_t: np.ndarray,
+                 c2: np.ndarray) -> np.ndarray:
         # ||x - c||^2 up to the x^2 term; argmin takes the first of ties.
-        # In place: c^2 + (-2 x.c) is c^2 - 2 x.c to the bit
-        d = x @ cent.T
-        d *= -2.0
-        d += (cent * cent).sum(-1)[None, :]
+        # x @ (-2 c).T is -2 (x @ c.T) to the bit (a power of two scales
+        # every product and sum exactly), and c^2 + (-2 x.c) is
+        # c^2 - 2 x.c to the bit
+        d = x @ neg2_t
+        d += c2
         return np.argmin(d, axis=1)
 
     # -- state ---------------------------------------------------------------
@@ -323,13 +332,11 @@ class PQCodec(StorageCodec):
             raise ValueError(f"pq codec fitted for rep_dim="
                              f"{cb.shape[0] * self.sub_dim} but encode got "
                              f"rep_dim={x.shape[-1]}")
-        sub = x.reshape(*x.shape[:-1], m, self.sub_dim)
-        codes = np.empty((*x.shape[:-1], m), np.uint8)
+        sub = x.reshape(-1, m, self.sub_dim)
+        codes = np.empty((sub.shape[0], m), np.uint8)
         for s in range(m):
-            codes[..., s] = self._nearest(
-                sub[..., s, :].reshape(-1, self.sub_dim),
-                cb[s]).reshape(x.shape[:-1]).astype(np.uint8)
-        return {group: codes}
+            codes[:, s] = self._nearest(sub[:, s], *self._operands[s])
+        return {group: codes.reshape(*x.shape[:-1], m)}
 
     def _flat_on(self, device) -> torch.Tensor:
         """The ``[m * k, sub_dim]`` codebook on ``device``, copied once."""

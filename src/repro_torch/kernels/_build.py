@@ -28,6 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -87,6 +88,11 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+#: seconds from the start of the last build in this process to the end
+#: of each source's ``nvcc -c`` (all start together), by file name, and
+#: to the end of the link (``"link"``); empty when the library was
+#: already built
+NVCC_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -124,14 +130,29 @@ def build() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), os.getpid()
     jobs = []
+    t0 = time.perf_counter()
     for src in _sources():
         obj = out_dir / f"{src.stem}-{tag}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for cmd, _, proc in jobs:
+    # one waiter a process, so each source's seconds are its own
+    results = [None] * len(jobs)
+
+    def wait(i, proc):
         out, err = proc.communicate()
+        results[i] = (out, err, time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(i, proc))
+               for i, (_, _, proc) in enumerate(jobs)]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    NVCC_SECONDS.clear()
+    failed = []
+    for (cmd, obj, proc), (out, err, secs) in zip(jobs, results):
+        NVCC_SECONDS[Path(cmd[-1]).name] = secs
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): "
                           f"{' '.join(cmd)}\n{out}\n{err}")
@@ -145,6 +166,7 @@ def build() -> Path:
         raise RuntimeError(
             f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}")
+    NVCC_SECONDS["link"] = time.perf_counter() - t0
     os.replace(tmp, lib)
     for _, obj, _ in jobs:
         obj.unlink()

@@ -1,13 +1,14 @@
-"""Cell builders of the port, the twin of ``repro.launch.steps``: its GNN
-part.  A cell is one (architecture x input shape) pair; here the DimeNet
-cells of ``GNN_SHAPES``, with their per-shape configuration, analytic
-model FLOPs and the training step the reference compiles for them.
+"""Cell builders of the port, the twin of ``repro.launch.steps``: the
+spec plumbing (each leaf's shape, dtype and partition spec under a
+mesh's rules, without allocating a parameter) and the GNN part.  A cell
+is one (architecture x input shape) pair; here the DimeNet cells of
+``GNN_SHAPES``, with their per-shape configuration, analytic model FLOPs
+and the training step the reference compiles for them.
 
 The reference builds each cell from abstract, sharded shapes for its
-compile dry-run.  Those shapes, the LM and recsys cells and the dry-run
-itself wait for the port's distribution and compile-tool slice (ROADMAP
-Queue 1 item 7); the port runs its GNN cells on real data instead
-(``chip_smoke.py``).
+compile dry-run.  The LM, PreTTR and recsys cells and the dry-run itself
+wait for ROADMAP Queue 1 items 7.2 and 7.3; the port runs its GNN cells
+on real data instead (``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -16,9 +17,97 @@ import dataclasses
 import torch
 
 from repro_torch.configs import ArchSpec
+from repro_torch.dist.compat import PartitionSpec
+from repro_torch.dist.sharding import ShardingRules, divisible_spec
 from repro_torch.models.gnn.dimenet import (DimeNetConfig, energy_loss,
                                             node_cls_loss)
-from repro_torch.optim import adam_update, value_and_grad
+from repro_torch.optim import (OptimizerConfig, adam_update, init_opt_state,
+                               opt_state_axes, value_and_grad)
+from repro_torch.tree import tree_map
+
+# ---------------------------------------------------------------------------
+# Spec plumbing
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """One leaf as the reference's sharded ``jax.ShapeDtypeStruct``: its
+    shape, dtype and ``PartitionSpec`` on the rules' mesh."""
+    shape: tuple
+    dtype: torch.dtype
+    spec: PartitionSpec
+
+
+def sds(shape, dtype, rules: ShardingRules, axes) -> TensorSpec:
+    """The spec of one ``shape`` / ``dtype`` leaf annotated ``axes``."""
+    shape = tuple(int(n) for n in shape)
+    return TensorSpec(shape, dtype, divisible_spec(rules, axes, shape))
+
+
+def attach_shardings(shapes_tree, axes_tree, rules: ShardingRules):
+    """``shapes_tree`` (leaves with ``shape`` and ``dtype``: tensors, meta
+    tensors, TensorSpecs) and ``axes_tree`` (the same structure, logical
+    axis tuples as leaves) -> a tree of :class:`TensorSpec`."""
+    return tree_map(lambda s, a: sds(s.shape, s.dtype, rules, a),
+                    shapes_tree, axes_tree)
+
+
+def eval_params(init_fn):
+    """``init_fn(generator, device) -> (params, axes)`` -> ``(meta params,
+    axes)``: the init runs under ``FakeTensorMode``, so no parameter is
+    allocated and each leaf comes back as a ``meta`` tensor of its shape
+    and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params, axes = init_fn(torch.Generator().manual_seed(0),
+                               torch.device("cpu"))
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params)
+    return meta, axes
+
+
+def state_specs(init_fn, opt_cfg: OptimizerConfig, rules: ShardingRules):
+    """Specs of ``{"params", "opt"}`` (the AdamW state of
+    ``init_opt_state``), as the reference's ``state_specs``."""
+    p_shapes, p_axes = eval_params(init_fn)
+    o_shapes = init_opt_state(p_shapes, opt_cfg)
+    return {"params": attach_shardings(p_shapes, p_axes, rules),
+            "opt": attach_shardings(o_shapes,
+                                    opt_state_axes(p_axes, opt_cfg), rules)}
+
+
+def param_init(spec: ArchSpec, config=None):
+    """``init_fn(generator, device) -> (params, axes)`` of a registry arch
+    at ``config`` (default its full config): the init and axes functions
+    of its model."""
+    cfg = spec.config if config is None else config
+    if spec.name == "prettr-bert":
+        from repro_torch.core.prettr import init_prettr, prettr_axes
+        init, axes = init_prettr, prettr_axes
+    elif spec.family == "lm":
+        from repro_torch.models.transformer import init_params, param_axes
+        init, axes = init_params, param_axes
+    elif spec.family == "gnn":
+        from repro_torch.models.gnn.dimenet import dimenet_axes, init_dimenet
+        init, axes = init_dimenet, dimenet_axes
+    elif spec.name == "dlrm-mlperf":
+        from repro_torch.models.recsys.dlrm import dlrm_axes, init_dlrm
+        init, axes = init_dlrm, dlrm_axes
+    elif spec.name == "bert4rec":
+        from repro_torch.models.recsys.bert4rec import (bert4rec_axes,
+                                                        init_bert4rec)
+        init, axes = init_bert4rec, bert4rec_axes
+    else:
+        from repro_torch.models.recsys.deepfm import deepfm_axes, init_deepfm
+        init, axes = init_deepfm, deepfm_axes
+    return lambda gen, device: (init(cfg, gen, device=device), axes(cfg))
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
 
 FANOUT_CAP = 8
 

@@ -164,6 +164,25 @@ def param_shapes(cfg: DimeNetConfig) -> dict:
                                  if cfg.task == "node_cls" else 1])}
 
 
+def _mlp_axes(dims):
+    return [{"w": ("embed", "mlp"), "b": ("mlp",)}
+            for _ in range(len(dims) - 1)]
+
+
+def dimenet_axes(cfg: DimeNetConfig) -> dict:
+    """The logical-axes tree of :func:`init_dimenet`'s params (the JAX
+    ``init_dimenet``'s second return; its head is annotated as a
+    ``[d, d, 1]`` MLP, two layers whatever the class count)."""
+    d = cfg.d_hidden
+    block = {"w_src": ("embed", "mlp"), "w_rbf": (None, "embed"),
+             "w_sbf": (None, None), "w_down": ("embed", None),
+             "w_up": (None, "embed"), "update": _mlp_axes([2 * d, d, d])}
+    return {"embed": (None, "embed"), "rbf_proj": (None, "embed"),
+            "msg_init": _mlp_axes([3 * d, d]),
+            "blocks": [dict(block) for _ in range(cfg.n_blocks)],
+            "out_rbf": (None, "embed"), "head": _mlp_axes([d, d, 1])}
+
+
 def init_dimenet(cfg: DimeNetConfig, generator: torch.Generator,
                  device=None) -> dict:
     """Random params with the JAX ``init_dimenet`` tree (``embed``,

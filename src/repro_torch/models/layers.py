@@ -44,6 +44,26 @@ def mm_f32(a, b):
     return a.float() @ b.float()
 
 
+def norm_axes(kind: str) -> dict:
+    """The logical axes of a norm's params (``repro.models.layers.
+    init_norm``'s second return)."""
+    if kind == "rmsnorm":
+        return {"scale": ("embed",)}
+    return {"scale": ("embed",), "bias": ("embed",)}
+
+
+def mlp_axes(*, gated: bool, bias: bool = False) -> dict:
+    """The logical axes of an MLP's params (``init_mlp``'s second
+    return)."""
+    if gated:
+        return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")}
+    ax = {"w_in": ("embed", "mlp"), "w_out": ("mlp", "embed")}
+    if bias:
+        ax.update(b_in=("mlp",), b_out=("embed",))
+    return ax
+
+
 def apply_norm(params: dict, x, kind: str):
     if kind == "rmsnorm":
         return rms_norm(x, params["scale"])

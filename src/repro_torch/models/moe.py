@@ -25,11 +25,16 @@ tokens and runs its part, JAX's GSPMD layout written out:
   tokens through every expert, and the outputs are gathered over
   ``model``.
 
+Under the sharded transformer (``transformer_spmd``) the expert weights
+are a rank's blocks (``model_cut``): its ``E/m`` experts, or, where
+``model`` cut ``d_ff`` instead (E does not divide it), ``d_ff/m`` of
+every expert's columns, whose partial outputs are all-reduced over
+``model``.
+
 The aux loss is a mean over every token of the mesh: the routing sums
 are all-reduced over the axes that split the tokens.  Gradients are
 autograd's on one device; under an SPMD mesh the FFN runs forward only
-(its collectives carry no gradient: sharded training comes with the
-sharded transformer, ROADMAP.md Queue 1 item 7).
+(its collectives carry no gradient: ROADMAP.md Queue 1 item 7.2).
 """
 from __future__ import annotations
 
@@ -59,6 +64,17 @@ def init_moe(d: int, d_ff: int, n_experts: int, dtype,
             "w_gate": normal((n_experts, d, d_ff), 1.0 / math.sqrt(d)),
             "w_up": normal((n_experts, d, d_ff), 1.0 / math.sqrt(d)),
             "w_down": normal((n_experts, d_ff, d), 1.0 / math.sqrt(d_ff))}
+
+
+def moe_axes() -> dict:
+    """The logical axes of :func:`init_moe`'s tree (the JAX ``init_moe``'s
+    second return): ``experts`` and ``mlp`` both annotate toward
+    ``model``, and ``divisible_spec`` keeps the first that divides (expert
+    parallelism where E divides it, else ``d_ff`` over ``model``)."""
+    return {"router": ("embed", None),
+            "w_gate": ("experts", "embed", "mlp"),
+            "w_up": ("experts", "embed", "mlp"),
+            "w_down": ("experts", "mlp", "embed")}
 
 
 def _dispatch_group(x_g, experts_g, capacity: int, n_experts: int):
@@ -135,7 +151,8 @@ def _all_gather(x, mesh, dim):
 
 
 def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
-            activation=F.silu, n_groups: int | None = None):
+            activation=F.silu, n_groups: int | None = None,
+            model_cut: str | None = None):
     """x: [T, d] tokens -> (out [T, d] in x's dtype, aux_loss float32
     scalar).  ``params`` already in x's dtype (the block casts them).
 
@@ -151,13 +168,26 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
     Under an SPMD mesh ``x`` is this rank's data group's tokens, the
     groups are counted over the whole mesh, and each data group must hold
     whole groups (a T the groups do not divide raises: a single global
-    group would need every token on every rank)."""
+    group would need every token on every rank).  ``model_cut`` says
+    which dim of the expert weights the rules cut over ``model`` when
+    they are this rank's blocks (their ``embed`` dim gathered, as the
+    sharded transformer passes them): ``"experts"``, this rank's ``E /
+    m`` experts; ``"ff"``, every expert's ``d_ff / m`` columns of
+    ``w_gate`` / ``w_up`` and rows of ``w_down``: each model rank then
+    runs all of its data group's tokens through its columns, and the
+    partial expert outputs are all-reduced over ``model`` in float32
+    before the combine.  ``None``: whole experts on every rank."""
     t, d = x.shape
     n_experts = params["router"].shape[-1]
     mesh, g_mesh, n_model = _mesh_info()
     use_ep = n_model > 1 and n_experts % n_model == 0
     g = n_groups or (g_mesh if use_ep else g_mesh * n_model)
     spmd = isinstance(mesh, SpmdMesh)
+    if model_cut not in (None, "experts", "ff") or (
+            model_cut and not (spmd and (model_cut == "experts") == use_ep)):
+        raise ValueError(f"moe_ffn: model_cut {model_cut!r} with {n_experts} "
+                         f"experts over {n_model} model ranks")
+    col_split = model_cut == "ff"
     e_lo, n_local = 0, n_experts
     if spmd:
         if torch.is_grad_enabled() and any(
@@ -175,11 +205,11 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
         if use_ep:
             n_local = n_experts // n_model
             e_lo = j * n_local
-        else:
+        elif not col_split:
             x = x.reshape(n_model, t // n_model, d)[j]
             local //= n_model
         g, t_all = local, t * g_mesh
-        token_axes = _group_axes(mesh, not use_ep)
+        token_axes = _group_axes(mesh, not (use_ep or col_split))
     elif t % g:
         g = 1
     tg = x.shape[0] // g
@@ -210,8 +240,9 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
                             for z in zip(*parts))
     del parts
 
-    # expert parallelism: this rank's free slice of the experts
-    w = {k: params[k][e_lo:e_lo + n_local]
+    # expert parallelism: this rank's free slice of the experts (already
+    # its own under ``model_cut``)
+    w = {k: params[k] if model_cut else params[k][e_lo:e_lo + n_local]
          for k in ("w_gate", "w_up", "w_down")}
     buf = buf[:, e_lo:e_lo + n_local]
     h = activation(torch.einsum("gecd,edf->gecf", buf, w["w_gate"])) \
@@ -221,6 +252,10 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
     del h
     if spmd and use_ep:
         out_buf = _all_gather(out_buf, mesh, dim=1)      # [G, E, C, d]
+    elif col_split:
+        # the d_ff blocks' partial products, summed in float32
+        out_buf = _all_reduce(out_buf.float(), mesh, "model") \
+            .to(out_buf.dtype)
 
     # combine: the k slots in order, in float32; a dropped slot gathers 0
     w_g = (weights.reshape(g, tg, top_k) * keep).float()
@@ -233,6 +268,6 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
         gath = torch.where(kept[..., None], gath, 0)
         out = out + gath.float() * w_g[:, :, kk, None]
     out = out.reshape(g * tg, d).to(x.dtype)
-    if spmd and not use_ep:
+    if spmd and not (use_ep or col_split):
         out = _all_gather(out, mesh, dim=0)
     return out, aux_loss

@@ -65,6 +65,12 @@ def init_bert4rec(cfg: Bert4RecConfig, generator: torch.Generator,
     return T.init_params(cfg.backbone(), generator, device=device)
 
 
+def bert4rec_axes(cfg: Bert4RecConfig) -> dict:
+    """The logical-axes tree of :func:`init_bert4rec`'s params: the
+    backbone's (``transformer.param_axes``)."""
+    return T.param_axes(cfg.backbone())
+
+
 def _mask_hidden(hidden, pos):
     """``hidden [B, S, d]`` at one position a row -> ``[B, 1, d]``."""
     idx = pos.long()[:, None, None].expand(-1, 1, hidden.shape[-1])

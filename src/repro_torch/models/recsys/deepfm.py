@@ -29,7 +29,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.recsys import embedding as E
 from repro_torch.models.recsys.dlrm import (_bce, _cast, _dense, _mlp,
-                                            _mlp_init)
+                                            _mlp_axes, _mlp_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +81,18 @@ def init_deepfm(cfg: DeepFMConfig, generator: torch.Generator,
         params["cin"] = cin
         params["cin_out"] = _dense(generator, sum(cfg.cin_layers), 1, pd, dev)
     return params
+
+
+def deepfm_axes(cfg: DeepFMConfig) -> dict:
+    """The logical-axes tree of :func:`init_deepfm`'s params (the JAX
+    ``init_deepfm``'s second return)."""
+    axes = {"table": E.FUSED_TABLE_AXES, "w1": ("table_rows", None),
+            "b0": (), "dnn": _mlp_axes((cfg.n_fields * cfg.embed_dim,
+                                        *cfg.mlp, 1))}
+    if cfg.interaction == "cin":
+        axes["cin"] = [{"w": (None, "mlp")} for _ in cfg.cin_layers]
+        axes["cin_out"] = ("mlp", None)
+    return axes
 
 
 def fm_second_order(emb):

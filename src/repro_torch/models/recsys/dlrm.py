@@ -78,6 +78,11 @@ def _cast(layers, dtype):
     return [{k: v.to(dtype) for k, v in lyr.items()} for lyr in layers]
 
 
+def _mlp_axes(dims):
+    return [{"w": ("embed", "mlp"), "b": ("mlp",)}
+            for _ in range(len(dims) - 1)]
+
+
 def _mlp(layers, x, final_act=False):
     for i, lyr in enumerate(layers):
         x = x @ lyr["w"] + lyr["b"]
@@ -103,6 +108,16 @@ def init_dlrm(cfg: DLRMConfig, generator: torch.Generator,
     top = _mlp_init(generator, (n_pairs + cfg.bot_mlp[-1], *cfg.top_mlp), pd,
                     dev)
     return {"table": table, "bot": bot, "top": top}
+
+
+def dlrm_axes(cfg: DLRMConfig) -> dict:
+    """The logical-axes tree of :func:`init_dlrm`'s params (the JAX
+    ``init_dlrm``'s second return)."""
+    n_vec = cfg.n_sparse + 1
+    n_pairs = n_vec * (n_vec - 1) // 2
+    return {"table": E.FUSED_TABLE_AXES,
+            "bot": _mlp_axes((cfg.n_dense, *cfg.bot_mlp)),
+            "top": _mlp_axes((n_pairs + cfg.bot_mlp[-1], *cfg.top_mlp))}
 
 
 def dot_interaction(vectors):

@@ -65,6 +65,10 @@ def init_fused_table(generator: torch.Generator, vocab_sizes, dim: int,
     return table
 
 
+#: logical axes of a fused table (rows sharded over the whole mesh)
+FUSED_TABLE_AXES = ("table_rows", None)
+
+
 def padded_bag(table, ids, weights=None, *, mode: str = "sum",
                out_dtype=None, impl: str = "cuda"):
     """The gather-reduce of every lookup: ids ``[n_bags, max_nnz]``

@@ -25,6 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import backend as B
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import transformer_spmd as spmd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +175,45 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(d, cfg.vocab_size)
     return params
+
+
+def layer_axes(cfg: TransformerConfig) -> dict:
+    """The logical axes of one layer's params: the JAX tree's layer axes
+    without their leading ``"layers"`` (the port keeps a list of layer
+    dicts where the JAX package stacks them)."""
+    attn = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        attn.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if cfg.use_qk_norm:
+        attn.update(q_norm=(None,), k_norm=(None,))
+    ax = {"attn": attn, "ln1": L.norm_axes(cfg.norm),
+          "ln2": L.norm_axes(cfg.norm)}
+    if cfg.use_post_norm:
+        ax.update(ln1_post=L.norm_axes(cfg.norm),
+                  ln2_post=L.norm_axes(cfg.norm))
+    if cfg.n_experts:
+        ax["moe"] = moe_lib.moe_axes()
+    else:
+        ax["mlp"] = L.mlp_axes(gated=cfg.gated_mlp, bias=cfg.mlp_bias)
+    return ax
+
+
+def param_axes(cfg: TransformerConfig) -> dict:
+    """The logical-axes tree of :func:`init_params`' params: JAX
+    ``init_params``' second return, with ``layers`` a list of
+    :func:`layer_axes` dicts."""
+    embed = {"tokens": ("vocab", "embed")}
+    if cfg.learned_pos:
+        embed["pos"] = (None, "embed")
+    if cfg.segment_vocab:
+        embed["segment"] = (None, "embed")
+    axes = {"embed": embed,
+            "layers": [layer_axes(cfg) for _ in range(cfg.n_layers)],
+            "final_norm": L.norm_axes(cfg.norm)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +434,18 @@ def forward(params, cfg: TransformerConfig, tokens, *, positions=None,
     """Full-sequence forward.  Returns ``(hidden [B, S, d], kv, aux)``:
     ``kv`` the per-layer K/V as a ``(k, v)`` pair of
     ``[L, B, S, Hkv, Dh]`` (``collect_cache``) or None; ``aux`` the MoE
-    load loss summed over layers (0 for a dense config)."""
+    load loss summed over layers (0 for a dense config).
+
+    Under rules over an SPMD mesh (``dist.install_rules(default_rules(
+    spmd_mesh))``) ``params`` are this rank's shards
+    (``dist.spmd.shard_tree`` over :func:`param_axes`) and ``tokens`` its
+    data group's rows: the FSDP / tensor-parallel route of
+    :mod:`repro_torch.models.transformer_spmd`."""
+    if spmd.active_mesh() is not None:
+        return spmd.forward(params, cfg, tokens, positions=positions,
+                            segs=segs, valid=valid,
+                            collect_cache=collect_cache,
+                            seg_boundary=seg_boundary)
     positions = _positions(tokens, positions)
     x = embed(params, cfg, tokens, positions, segs)
     x, kv, aux = _run_layers(params, cfg, x, 0, cfg.n_layers,
@@ -443,8 +494,14 @@ def causal_lm_loss(params, cfg: TransformerConfig, tokens, labels, *,
     recomputed in the backward pass (``torch.utils.checkpoint``, the
     reference's ``jax.checkpoint``).  Returns the mean over
     ``label_mask`` (float [B, S], default all ones) plus ``0.01 * aux /
-    n_layers`` (the MoE load loss, 0 for dense configs)."""
+    n_layers`` (the MoE load loss, 0 for dense configs).  Under rules over
+    an SPMD mesh it takes the sharded route (:func:`forward`), whose loss
+    is the mean over every rank's tokens."""
     from torch.utils.checkpoint import checkpoint
+
+    if spmd.active_mesh() is not None:
+        return spmd.causal_lm_loss(params, cfg, tokens, labels,
+                                   label_mask=label_mask)
 
     hidden, _, aux = forward(params, cfg, tokens)
     b, s, _ = hidden.shape
@@ -474,6 +531,11 @@ def init_decode_cache(cfg: TransformerConfig, batch: int, max_len: int,
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.dh)
     kw = dict(dtype=dtype or cfg.compute_dtype, device=resolve_device(device))
     return torch.zeros(shape, **kw), torch.zeros(shape, **kw)
+
+
+#: logical axes of each ``[L, B, S, Hkv, Dh]`` cache of
+#: :func:`init_decode_cache` (JAX's ``DECODE_CACHE_AXES``)
+DECODE_CACHE_AXES = ("layers", "batch", "kv_seq", None, None)
 
 
 def decode_step(params, cfg: TransformerConfig, tokens, cache,

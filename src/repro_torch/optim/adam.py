@@ -11,8 +11,8 @@ by the global norm first, ``t`` as float32, ``(m / bc1) / (sqrt(v / bc2)
 + eps)``, weight decay added to the update, then the float32 master cast
 back to each parameter's dtype.  ``torch.optim.AdamW`` rounds in another
 order, so it is not used.  Every function returns new tensors and
-mutates none of its arguments.  The sharding metadata of the reference
-(``opt_state_axes``) waits for the port's distribution slice.
+mutates none of its arguments.  :func:`opt_state_axes` gives the
+state's logical axes, as the reference's.
 """
 from __future__ import annotations
 
@@ -50,6 +50,15 @@ def init_opt_state(params, cfg: OptimizerConfig) -> dict:
     if cfg.keep_master:
         state["master"] = tree_map(
             lambda p: p.detach().to(cfg.master_dtype, copy=True), params)
+    return state
+
+
+def opt_state_axes(param_axes, cfg: OptimizerConfig) -> dict:
+    """Logical axes of :func:`init_opt_state`'s tree: the moments (and
+    the master) mirror the parameters', ``step`` is a scalar."""
+    state = {"step": (), "m": param_axes, "v": param_axes}
+    if cfg.keep_master:
+        state["master"] = param_axes
     return state
 
 

@@ -1,6 +1,7 @@
 """The SPMD checks of the port's collective consumers, one rank a card:
-the row-sharded lookup, the MoE FFN and ``compressed_psum``, each held to
-its one-process version on the same card and timed.
+the row-sharded lookup, the MoE FFN, ``compressed_psum`` and the sharded
+transformer's loss and gradient (``lm``), each held to its one-process
+version on the same card and timed.
 
 Run by ``chip_smoke.py`` (the mesh phase) and ``tests/test_torch_cuda.py``
 through :func:`repro_torch.launch.mesh.run_spmd`::
@@ -9,7 +10,8 @@ through :func:`repro_torch.launch.mesh.run_spmd`::
 
 ``spec`` sizes each check (see ``chip_smoke.py``: DLRM's width and
 serve_bulk's ids, granite-moe's and qwen3-moe's layer widths at 4 x 2048
-tokens, PreTTR-BERT's gradient tree).  Every rank makes the same seeded
+tokens, PreTTR-BERT's gradient tree, gemma3-4b and granite-moe at full
+width over 2 x 2048 tokens).  Every rank makes the same seeded
 inputs whole on its card and takes its part, so each check compares with
 the whole computation in one process.  ``count(fn) -> (fn(), launches)``
 counts the kernel launches of each check's one main call (the timing
@@ -208,16 +210,193 @@ def psum_check(mesh, *, axis, seed: int = 0, count=_uncounted) -> dict:
             "launches": launches, "ms": ms}
 
 
+def _rel(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def split_launches(fn):
+    """``(fn(), launches)``: the split-attention kernel's launches in
+    ``fn``, by form (a ``count`` for the checks)."""
+    from repro_torch.kernels.split_attention import split_flash_attention
+    attrs = {"split_attention": "launches",
+             "split_attention_causal": "causal_launches",
+             "split_attention_window": "window_launches"}
+    for a in attrs.values():
+        setattr(split_flash_attention, a, 0)
+    out = fn()
+    return out, {k: getattr(split_flash_attention, a)
+                 for k, a in attrs.items()}
+
+
+def lm_check(mesh, *, config, batch: int, seq: int, grad: bool,
+             bf16: bool, seed: int = 0, count=_uncounted) -> dict:
+    """The sharded transformer (``transformer_spmd``) at ``config`` (its
+    float32 form) under ``default_rules`` over the mesh, against one process on
+    the same card: each rank makes the whole seeded float32 params and
+    ``[batch, seq + 1]`` tokens, takes its shards and its data rows.
+
+    * ``loss``: ``causal_lm_loss`` in float32 (TF32 off) through the
+      kernels (``attn_impl="cuda"``, no grad), its launches counted,
+      against the one-process loss over the whole batch; ``ms`` of each;
+    * ``grad`` (with ``grad``): the loss and every gathered gradient leaf
+      through the plain impl (the kernel wrappers refuse grad) against
+      one process's, taken a batch row at a time (the whole batch's
+      activations do not fit on the card beside the params and their
+      gradient; every row but the last waits on the host) and averaged:
+      every label counts, so the batch mean is the mean of the rows'
+      means; each leaf held element
+      by element to ``|got - want| <= atol + rtol |want|`` (rtol = atol
+      = 1e-5, the gloo tests' limit against JAX), and its largest error
+      over its largest value reported;
+    * ``bf16`` (with ``bf16``): the loss at bf16 compute through the
+      kernels, its launches counted, timed, against one process's.
+
+    MoE configs run at capacity factor E / k, so no token is dropped
+    under the mesh's dispatch groups or one process's single group."""
+    import dataclasses
+
+    from repro_torch.dist import default_rules, install_rules
+    from repro_torch.dist import spmd as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import value_and_grad
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    dev = mesh.device
+    cfg = dataclasses.replace(config, attn_impl="cuda",
+                              compute_dtype=torch.float32)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                  / cfg.top_k)
+    plain = dataclasses.replace(cfg, attn_impl="plain")
+    c16 = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    whole = T.init_params(cfg, gen, device=dev)
+    whole_bytes = sum(t.numel() * t.element_size()
+                      for _, t in leaves_with_paths(whole))
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                         device=dev)
+
+    def one(c, p=whole):
+        return T.causal_lm_loss(p, c, toks[:, :-1], toks[:, 1:])
+
+    # one process first, before this rank's shards exist beside the whole
+    # params: its loss, and its gradient a row at a time, kept on the host
+    with torch.no_grad():
+        want = {"f32": float(one(cfg)), "ms": _time_ms(lambda: one(cfg), 3)}
+        if bf16:
+            want.update(bf16=float(one(c16)),
+                        bf16_ms=_time_ms(lambda: one(c16), 3))
+    if grad:
+        want_l, host_g = 0.0, None
+        for r in range(batch):
+            row = toks[r:r + 1]
+            lr, last_g = value_and_grad(lambda p: T.causal_lm_loss(
+                p, plain, row[:, :-1], row[:, 1:]), whole)
+            want_l += float(lr) / batch
+            if r < batch - 1:
+                on_host = tree_map(lambda t: t.to("cpu"), last_g)
+                host_g = on_host if host_g is None else tree_map(
+                    torch.add, host_g, on_host)
+                del last_g, on_host
+                torch.cuda.empty_cache()
+
+    rules = default_rules(mesh)
+    axes = T.param_axes(cfg)
+    local = S.shard_tree(whole, axes, rules)
+    mine = S.data_block(toks, mesh)
+
+    def sharded(c, p=local):
+        with install_rules(rules):
+            return T.causal_lm_loss(p, c, mine[:, :-1], mine[:, 1:])
+
+    # the whole leaves this rank holds only to compare (a leaf no dim of
+    # which is cut is its own shard)
+    compare_bytes = sum(
+        w.numel() * w.element_size() for (_, w), (_, l) in
+        zip(leaves_with_paths(whole), leaves_with_paths(local)) if l is not w)
+
+    def peak():
+        """This rank's peak bytes, less the whole params it holds only to
+        compare (its own shards counted)."""
+        return torch.cuda.max_memory_allocated(dev) - compare_bytes
+
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.dh, "vocab": cfg.vocab_size,
+           "n_experts": cfg.n_experts, "tokens": [batch, seq],
+           "tokens_a_rank": list(mine[:, 1:].shape),
+           "param_bytes": whole_bytes,
+           "param_bytes_a_rank": sum(t.numel() * t.element_size()
+                                     for _, t in leaves_with_paths(local)),
+           "loss_rtol": 1e-5}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        got, launches = count(lambda: float(sharded(cfg)))
+        out["loss"] = {"sharded": got, "one_process": want["f32"],
+                       "rel": abs(got - want["f32"]) / abs(want["f32"]),
+                       "launches": launches,
+                       "ms": _time_ms(lambda: sharded(cfg), 3),
+                       "one_process_ms": want["ms"],
+                       "rank_peak_bytes": peak()}
+    if grad:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        got_l, got_g = value_and_grad(lambda p: sharded(plain, p), local)
+        rank_peak = peak()
+        got_g = S.gather_tree(got_g, S.tree_specs(whole, axes, rules), mesh)
+        errs, excess = {}, {}
+        rest = leaves_with_paths(host_g) if host_g is not None else None
+        for i, ((k, g), (_, w)) in enumerate(zip(leaves_with_paths(got_g),
+                                                 leaves_with_paths(last_g))):
+            if rest is not None:
+                w = rest[i][1].to(dev) + w
+            w = w / batch
+            errs[k] = _rel(g, w)
+            # how far past the limit, in units of atol (<= 0: inside)
+            excess[k] = float(((g - w).abs() - 1e-5 * w.abs()).max()) / 1e-5
+        worst = max(errs, key=errs.get)
+        out["grad"] = {"loss": float(got_l), "one_process": want_l,
+                       "loss_rel": abs(float(got_l) - want_l) / abs(want_l),
+                       "leaves": len(errs), "max_leaf_rel": errs[worst],
+                       "worst_leaf": worst, "rtol": 1e-5, "atol": 1e-5,
+                       "leaves_apart": sum(e > 1 for e in excess.values()),
+                       "max_excess_over_atol": max(excess.values()),
+                       "rank_peak_bytes": rank_peak}
+        del host_g, last_g, got_g
+        torch.cuda.empty_cache()
+    if bf16:
+        with torch.no_grad():
+            got, launches = count(lambda: float(sharded(c16)))
+            out["bf16"] = {"sharded": got, "one_process": want["bf16"],
+                           "rel": abs(got - want["bf16"])
+                           / abs(want["bf16"]),
+                           "rtol": 2e-2, "launches": launches,
+                           "ms": _time_ms(lambda: sharded(c16), 3),
+                           "one_process_ms": want["bf16_ms"]}
+    out["max_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
 def spmd_checks(mesh, spec: dict, count=_uncounted) -> dict:
-    """The three checks at ``spec``'s sizes -> {check: result}."""
+    """The checks ``spec`` sizes -> {check: result}: the lookup, the MoE
+    FFNs, ``compressed_psum`` and the sharded transformers (``lm``), each
+    when ``spec`` has its key."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"world": mesh.size, "rank": mesh.rank,
            "mesh": dict(mesh.shape),
-           "device": torch.cuda.get_device_name(mesh.device),
-           "lookup": lookup_check(mesh, count=count, **spec["lookup"])}
-    torch.cuda.empty_cache()
-    for name, kw in spec["moe"].items():
+           "device": torch.cuda.get_device_name(mesh.device)}
+    if "lookup" in spec:
+        out["lookup"] = lookup_check(mesh, count=count, **spec["lookup"])
+        torch.cuda.empty_cache()
+    for name, kw in spec.get("moe", {}).items():
         out[f"moe_{name}"] = moe_check(mesh, count=count, **kw)
         torch.cuda.empty_cache()
-    out["psum"] = psum_check(mesh, count=count, **spec["psum"])
+    if "psum" in spec:
+        out["psum"] = psum_check(mesh, count=count, **spec["psum"])
+        torch.cuda.empty_cache()
+    for name, kw in spec.get("lm", {}).items():
+        out[f"lm_{name}"] = lm_check(mesh, count=count, **kw)
+        torch.cuda.empty_cache()
     return out

@@ -1843,6 +1843,63 @@ def test_spmd_checks_over_every_card(dev, tmp_path):
     _spmd_held(results, n)
 
 
+def test_sharded_lm_loss_on_one_card_over_nccl(dev, tmp_path):
+    """The sharded transformer at world 1 over NCCL (every collective the
+    identity): gemma3's and granite-moe's smoke configs (granite's heads 16
+    wide, a width the kernel takes), the float32 loss
+    through the split kernel within 1e-5 of one process on the card, the
+    kernel launched in it (causal and window forms for gemma3), gemma3's
+    gradient through the plain impl within rtol = atol = 1e-5 element by
+    element, the bf16 loss within 2e-2."""
+    import dataclasses
+
+    from repro_torch.configs import gemma3_4b, granite_moe_3b
+    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.tools.mesh_check import spmd_checks, split_launches
+    kw = dict(batch=2, seq=64)
+    # granite's smoke heads are 12 wide; the kernel takes 16-256
+    granite = dataclasses.replace(granite_moe_3b.smoke_config(), head_dim=16)
+    spec = {"lm": {"gemma3": dict(config=gemma3_4b.smoke_config(),
+                                  grad=True, bf16=True, **kw),
+                   "granite": dict(config=granite, grad=False, bf16=False,
+                                   **kw)}}
+    (res,) = run_spmd(spmd_checks, (1, 1), ("data", "model"),
+                      args=(spec, split_launches), timeout_s=300,
+                      store_dir=str(tmp_path))
+    for key in ("lm_gemma3", "lm_granite"):
+        r = res[key]
+        assert r["loss"]["rel"] <= r["loss_rtol"], r["loss"]
+        assert r["loss"]["launches"]["split_attention_causal"] > 0, r["loss"]
+    g = res["lm_gemma3"]
+    assert g["loss"]["launches"]["split_attention_window"] > 0
+    assert g["grad"]["loss_rel"] <= g["grad"]["rtol"]
+    assert g["grad"]["leaves_apart"] == 0, g["grad"]
+    assert g["bf16"]["rel"] <= g["bf16"]["rtol"], g["bf16"]
+    assert g["bf16"]["launches"]["split_attention_causal"] > 0
+
+
+@pytest.mark.parametrize("hq,hkv,window", [(2, 1, -1), (2, 1, 1024),
+                                           (1, 1, -1), (1, 1, 1024),
+                                           (6, 2, -1), (3, 1, -1)])
+def test_split_kernel_takes_a_ranks_local_heads(dev, hq, hkv, window):
+    """The head counts a rank runs under tensor parallelism (gemma3's 8/4
+    on ``model`` 4 -> 2/1, on 8 -> 1/1; granite's 24/8 on 4 -> 6/2;
+    chatglm3's 32/2 -> 8/1 on 4), causal, at gemma3's head dim 256, float32
+    and bf16, against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q = torch.randn((2, hq, 512, 256), generator=gen, device=dev,
+                        dtype=dtype)
+        k, v = (torch.randn((2, hkv, 512, 256), generator=gen, device=dev,
+                            dtype=dtype) for _ in range(2))
+        got = split_flash_attention(q, k, v, causal=True, window=window)
+        want = split_attention_ref(q, k, v, torch.full((2,), 512,
+                                                       device=dev),
+                                   causal=True, window=window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
 def _mesh_smoke(dev):
     from repro_torch.configs.prettr_bert import smoke_config
     from repro_torch.core.prettr import init_prettr

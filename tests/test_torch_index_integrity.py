@@ -75,6 +75,46 @@ def test_crc32c_matches_jax_bit_for_bit(n_bytes, tmp_path):
         TI.chunk_checksums(data, 0)
 
 
+# sizes around the sub-block fold: empty, under one sub-block, one
+# sub-block, odd remainders, one chunk, chunk tails, many chunks
+SUB = TI.SUB_BLOCK
+FOLD_SIZES = [0, 1, SUB - 1, SUB, SUB + 1, 3 * SUB + 5, 1000, 4096,
+              65536 + 13, 200_003]
+FOLD_CHUNKS = [1, 7, SUB, SUB + 24, 1000, 4096, 65536]
+
+
+@pytest.mark.parametrize("n_bytes", FOLD_SIZES)
+def test_sub_block_fold_matches_jax_bit_for_bit(n_bytes):
+    """The sub-block CRCs folded by the zero-append operator equal JAX's
+    checksums for every chunk size, chunk sizes the sub-block does not
+    divide (zero-padded in front) among them, and the scalar
+    ``crc32c``, chained ``value`` too."""
+    data = np.random.default_rng(7 + n_bytes).integers(
+        0, 256, n_bytes, dtype=np.uint8)
+    for chunk in FOLD_CHUNKS:
+        if n_bytes // chunk > 4096:      # the JAX loop is per position
+            continue
+        assert TI.chunk_checksums(data, chunk) \
+            == JI.chunk_checksums(data, chunk), chunk
+    for value in (0, 1, 0xDEADBEEF, 0xFFFFFFFF):
+        assert TI.crc32c(data, value) == JI.crc32c(data, value), value
+    cut = n_bytes // 3
+    assert TI.crc32c(data[cut:], TI.crc32c(data[:cut])) \
+        == TI.crc32c(data) == JI.crc32c(data.tobytes())
+
+
+def test_zero_append_operator_is_the_register_after_zero_bytes():
+    """``Z_n`` (columns, and as two 16-bit tables) equals running the
+    register through ``n`` zero bytes one at a time."""
+    rng = np.random.default_rng(3)
+    for n in (0, 1, 2, 3, 8, 63, 64, 1000, 65536):
+        regs = rng.integers(0, 1 << 32, 16, dtype=np.uint64) \
+            .astype(np.uint32)
+        want = [TI._crc_scalar(bytes(n), int(r)) for r in regs]
+        assert [TI._apply(TI._zeros_map(n), int(r)) for r in regs] == want
+        assert TI._shift(regs, n).tolist() == want
+
+
 def test_a_flipped_byte_is_refused_at_open_by_both_readers(jax_index):
     ours = TermRepIndex.open(jax_index)
     n_chunks = ours.verify_integrity()
