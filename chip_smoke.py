@@ -244,9 +244,12 @@ and DimeNet at three of its cells:
    one process on the same card: gemma3-4b's ``causal_lm_loss`` in
    float32 through the kernels (the split kernel's causal and window
    forms on each rank's local heads; rtol LM_SPMD_RTOL), its loss and
-   every gradient leaf through the plain impl (rtol = atol =
-   LM_SPMD_RTOL, element by element) and the bf16 loss, timed (rtol
-   LM_SPMD_BF16_RTOL); granite-moe's float32 loss through the kernels
+   every gradient leaf through the plain impl (each leaf's largest error
+   within LM_SPMD_GRAD_LEAF_REL of its largest value, and rtol = atol =
+   LM_SPMD_RTOL element by element; beside it the same gradient with
+   TF32 products as the control) and the bf16 loss, timed (rtol
+   LM_SPMD_BF16_RTOL; beside it one process's bf16 loss against its
+   float32 loss as the control); granite-moe's float32 loss through the kernels
    (MoE at capacity factor E / k); each line gives its tolerance and
    the split kernel's launches, and the phase fails unless they launched;
    each with its ms a call (``repro_torch.tools.mesh_check``).
@@ -321,9 +324,13 @@ SHARD_TIMEOUT_S, SHARD_STALL_S = 2.0, 4.0
 MESH_LOOKUP_ROWS, MESH_TOKENS, MESH_MOE_REL = 1 << 24, 4 * 2048, 1e-4
 MESH_TIMEOUT_S = 600
 # the sharded transformer's checks: [batch, seq] tokens, its float32 and
-# bf16 limits against one process (losses relative, gradients over each
-# leaf's largest value)
-LM_SPMD_TOKENS, LM_SPMD_RTOL, LM_SPMD_BF16_RTOL = (2, 2048), 1e-5, 2e-2
+# bf16 limits against one process (losses relative; gradient elements
+# rtol = atol = LM_SPMD_RTOL, and each leaf's largest error over its
+# largest value, which sound gradients keep near 2e-5 and TF32 products
+# take to 4.5e-3; the bf16 loss at three times its largest sound reading,
+# 3.2e-5 on four cards: PERF.md)
+LM_SPMD_TOKENS, LM_SPMD_RTOL, LM_SPMD_BF16_RTOL = (2, 2048), 1e-5, 1e-4
+LM_SPMD_GRAD_LEAF_REL = 1e-4
 # BERT4Rec's paths: (history precompute, online join) of each run
 BERT4REC_PATHS = {
     "cuda_bf16": ("bert4rec_history", "bert4rec_join"),
@@ -2033,6 +2040,7 @@ def spmd_phase(torch, name, launches):
         emit({"phase": path, "device": name, "world": world,
               "mesh": results[0]["mesh"], "row3_launches": row3,
               "loss_rtol": LM_SPMD_RTOL, "grad_rtol": LM_SPMD_RTOL,
+              "grad_leaf_rel": LM_SPMD_GRAD_LEAF_REL,
               "bf16_rtol": LM_SPMD_BF16_RTOL, "ranks": per_rank})
         if not row3:
             bad.append(f"{key}: the split-attention kernel never launched")
@@ -2040,8 +2048,9 @@ def spmd_phase(torch, name, launches):
             if not r["loss"]["rel"] <= LM_SPMD_RTOL:
                 bad.append(f"{key} loss: {r['loss']}")
             g = r.get("grad")
-            if g is not None and not (g["loss_rel"] <= LM_SPMD_RTOL and
-                                      g["leaves_apart"] == 0):
+            if g is not None and not (
+                    g["loss_rel"] <= LM_SPMD_RTOL and g["leaves_apart"] == 0
+                    and g["max_leaf_rel"] <= LM_SPMD_GRAD_LEAF_REL):
                 bad.append(f"{key} grad: {g}")
             h = r.get("bf16")
             if h is not None and not h["rel"] <= LM_SPMD_BF16_RTOL:

@@ -24,7 +24,8 @@ calls the collectives by hand:
 
 Every collective is the identity over a group of one rank, so a world
 of one runs the same code with no communication.  Gloo has no
-reduce-scatter: the sum is an all-reduce and the slice is taken after.
+reduce-scatter: there the sum is an all-reduce and the slice is taken
+after (NCCL runs ``reduce_scatter_tensor``).
 """
 from __future__ import annotations
 
@@ -134,6 +135,21 @@ def _reduce(x, mesh, axes, op=None):
     return x
 
 
+def _reduce_scatter(x, dim: int, mesh, axes):
+    """This rank's block along ``dim`` of the sum of ``x`` over the ranks
+    of ``axes``."""
+    import torch.distributed as dist
+
+    group = mesh.group(_mesh_order(mesh, axes))
+    if dist.get_backend(group) != "nccl":
+        return local_block(_reduce(x.clone(), mesh, axes), dim, mesh, axes)
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // mesh.axis_size(axes),
+                         *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, mesh, axes, split):
@@ -142,10 +158,9 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if not ctx.split:
-            g = _reduce(g.clone(), ctx.mesh, ctx.axes)
-        return (local_block(g, ctx.dim, ctx.mesh, ctx.axes).contiguous(),
-                None, None, None, None)
+        g = local_block(g, ctx.dim, ctx.mesh, ctx.axes) if ctx.split \
+            else _reduce_scatter(g, ctx.dim, ctx.mesh, ctx.axes)
+        return g.contiguous(), None, None, None, None
 
 
 class _AllReduceSum(torch.autograd.Function):

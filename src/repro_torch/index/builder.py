@@ -46,7 +46,6 @@ import os
 import queue
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
@@ -373,15 +372,11 @@ class IndexBuilder:
         shards (the writer thread's work, overlapping the next encode)."""
         t0 = time.perf_counter()
         reps, kv, sal = self._host_batch(parts)
-        # the docs' codec work (the PQ encode above all) on a thread each:
-        # numpy releases the interpreter lock inside it; appended in order
-        docs = list(self._pool.map(
-            lambda i: self._doc_parts(reps, kv, sal, i, int(lengths[i])),
-            range(len(lengths))))
-        for i, (parts, kept) in enumerate(docs):
+        for i, n in enumerate(lengths):
             shard = int(np.searchsorted(boundaries, doc_lo + i,
                                         side="right") - 1)
-            writers[shard].append(parts, kept, int(lengths[i]))
+            parts, kept = self._doc_parts(reps, kv, sal, i, int(n))
+            writers[shard].append(parts, kept, int(n))
         write_s[0] += time.perf_counter() - t0
 
     def _write_loop(self, work_q: queue.Queue, writers, boundaries,
@@ -423,8 +418,6 @@ class IndexBuilder:
                                  shard_ranges(n_docs, self.n_shards)])
         err: list = []
         write_s = [0.0]
-        self._pool = ThreadPoolExecutor(min(8, os.cpu_count() or 1),
-                                        thread_name_prefix="index-encode")
         work_q: queue.Queue = queue.Queue(maxsize=max(1, self.writer_depth))
         worker = None
         if self.writer_depth > 0:
@@ -461,7 +454,6 @@ class IndexBuilder:
                     except queue.Full:
                         continue
                 worker.join()
-            self._pool.shutdown()
             for w in writers:
                 w.close()
         if err:

@@ -78,11 +78,10 @@ def state_specs(init_fn, opt_cfg: OptimizerConfig, rules: ShardingRules):
                                     opt_state_axes(p_axes, opt_cfg), rules)}
 
 
-def param_init(spec: ArchSpec, config=None):
+def param_init(spec: ArchSpec):
     """``init_fn(generator, device) -> (params, axes)`` of a registry arch
-    at ``config`` (default its full config): the init and axes functions
-    of its model."""
-    cfg = spec.config if config is None else config
+    at its full config: the init and axes functions of its model."""
+    cfg = spec.config
     if spec.name == "prettr-bert":
         from repro_torch.core.prettr import init_prettr, prettr_axes
         init, axes = init_prettr, prettr_axes

@@ -17,6 +17,7 @@ plain backend: the kernel wrappers refuse inputs that require grad).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -25,7 +26,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import backend as B
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-from repro_torch.models import transformer_spmd as spmd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,6 +217,74 @@ def param_axes(cfg: TransformerConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Routes
+# ---------------------------------------------------------------------------
+
+
+class Local:
+    """How the model reaches its weights and its collectives in one
+    process: every weight as stored, every collective the identity.
+    ``transformer_spmd.Route`` gives the same hooks over an SPMD mesh,
+    where ``params`` are a rank's shards."""
+    moe_cut = None          # the expert weights' dim cut over ``model``
+
+    def local(self, cfg):
+        """The config a block runs at (a rank's head and d_ff counts)."""
+        return cfg
+
+    def layer(self, i: int, lp):
+        """The weights layer ``i`` computes with."""
+        return lp
+
+    def run(self, fn, x):
+        """One layer ``fn(x)`` (the sharded route re-runs its gathers in
+        the backward pass)."""
+        return fn(x)
+
+    def enter(self, x, part: str):
+        """``x`` entering the ``part`` (``"attn"``, ``"ffn"``,
+        ``"vocab"``) that the ranks of ``model`` split."""
+        return x
+
+    def leave(self, x, part: str):
+        """``part``'s partial result, summed over the ranks that split
+        it."""
+        return x
+
+    def embed_params(self, params):
+        return params["embed"]
+
+    def lookup(self, table, tokens):
+        return table[tokens]
+
+    def final_norm(self, params):
+        return params["final_norm"]
+
+    def head(self, params, cfg):
+        return _head(params, cfg)
+
+    def logsumexp(self, lg):
+        return torch.logsumexp(lg, dim=-1)
+
+    def gold(self, lg, y):
+        return torch.take_along_dim(lg, y[..., None].long(), dim=-1)[..., 0]
+
+    def data_sum(self, x):
+        """``x`` summed over the data ranks."""
+        return x
+
+
+LOCAL = Local()
+
+
+def _route(cfg):
+    """The installed rules' SPMD route, or :data:`LOCAL`."""
+    from repro_torch.models import transformer_spmd as spmd
+
+    return spmd.Route(cfg) if spmd.active_mesh() is not None else LOCAL
+
+
+# ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
@@ -302,7 +370,7 @@ def _attention(p, x, cfg: TransformerConfig, *, positions, window,
     return proj, kv
 
 
-def block_tail(lp, cfg: TransformerConfig, x, attn_out):
+def block_tail(lp, cfg: TransformerConfig, x, attn_out, route=LOCAL):
     """Everything after attention in a block: post-norm, residual, norm,
     MLP or MoE FFN, post-norm, residual.  Returns ``(x, aux)``: ``aux``
     the MoE load loss (a float32 scalar tensor), or the Python ``0.0`` in
@@ -312,7 +380,8 @@ def block_tail(lp, cfg: TransformerConfig, x, attn_out):
     The MoE FFN runs over the ``[B * S, d]`` tokens at
     ``cfg.capacity_factor`` with its default SiLU, its weights (the
     router's too) cast to the compute dtype first, as the JAX block
-    does."""
+    does.  The MLP's output bias is added after ``route.leave`` (once, not
+    on every rank that split the product)."""
     cd = cfg.compute_dtype
     if cfg.use_post_norm:
         attn_out = L.apply_norm(lp["ln1_post"], attn_out, cfg.norm)
@@ -323,22 +392,27 @@ def block_tail(lp, cfg: TransformerConfig, x, attn_out):
         moe_p = {k: v.to(cd) for k, v in lp["moe"].items()}
         ff, aux = moe_lib.moe_ffn(moe_p, h.reshape(b * s, d),
                                   top_k=cfg.top_k,
-                                  capacity_factor=cfg.capacity_factor)
+                                  capacity_factor=cfg.capacity_factor,
+                                  model_cut=route.moe_cut)
         ff = ff.reshape(b, s, d)
     else:
-        mlp_p = {k: v.to(cd) for k, v in lp["mlp"].items()}
-        ff = L.mlp(mlp_p, h, gated=cfg.gated_mlp, activation=cfg.activation)
+        mlp_p = {k: v.to(cd) for k, v in lp["mlp"].items() if k != "b_out"}
+        ff = route.leave(L.mlp(mlp_p, route.enter(h, "ffn"),
+                               gated=cfg.gated_mlp,
+                               activation=cfg.activation), "ffn")
+        if "b_out" in lp["mlp"]:
+            ff = ff + lp["mlp"]["b_out"].to(cd)
         aux = 0.0
     if cfg.use_post_norm:
         ff = L.apply_norm(lp["ln2_post"], ff, cfg.norm)
     return x + ff, aux
 
 
-def _layer_step(lp, x, cfg: TransformerConfig, **kw):
+def _layer_step(lp, x, cfg: TransformerConfig, route=LOCAL, **kw):
     """One full block over ``x [B, S, d]``; returns ``(x, kv, aux)``."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
-    attn_out, kv = _attention(lp["attn"], h, cfg, **kw)
-    x, aux = block_tail(lp, cfg, x, attn_out)
+    attn_out, kv = _attention(lp["attn"], route.enter(h, "attn"), cfg, **kw)
+    x, aux = block_tail(lp, cfg, x, route.leave(attn_out, "attn"), route)
     return x, kv, aux
 
 
@@ -354,7 +428,8 @@ def layer_step(lp, x, cfg: TransformerConfig, *, split_flag: bool, segs,
 
 def _run_layers(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
                 positions, segs=None, valid=None, seg_boundary=-1,
-                collect_cache=False, cache=None, cache_pos=None):
+                collect_cache=False, cache=None, cache_pos=None,
+                route=LOCAL):
     """Layers [lo, hi), each with its own window, RoPE base and split
     flag.  Returns ``(x, kv, aux)``: ``kv`` the per-layer K/V stacked to
     ``[hi - lo, B, S, Hkv, Dh]`` pairs (``collect_cache``), the updated
@@ -376,14 +451,19 @@ def _run_layers(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
             f"layer ranges or use attn_impl='plain'")
     ks, vs = [], []
     aux = 0.0
+    local = route.local(cfg)
+
+    def step(i, x, **kw):
+        return _layer_step(route.layer(i, params["layers"][i]), x, local,
+                           route, **kw)
+
     for i in range(lo, hi):
-        x, (k, v), a = _layer_step(
-            params["layers"][i], x, cfg, positions=positions,
-            window=windows[i], rope_base=bases[i],
-            split_flag=i < cfg.split_layers, segs=segs, valid=valid,
-            seg_boundary=seg_boundary,
+        x, (k, v), a = route.run(functools.partial(
+            step, i, positions=positions, window=windows[i],
+            rope_base=bases[i], split_flag=i < cfg.split_layers, segs=segs,
+            valid=valid, seg_boundary=seg_boundary,
             cache=None if cache is None else (cache[0][i], cache[1][i]),
-            cache_pos=cache_pos)
+            cache_pos=cache_pos), x)
         aux = aux + a
         if collect_cache:
             ks.append(k)
@@ -412,13 +492,14 @@ def run_layer_range(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
 # ---------------------------------------------------------------------------
 
 
-def embed(params, cfg: TransformerConfig, tokens, positions, segs):
+def embed(params, cfg: TransformerConfig, tokens, positions, segs,
+          route=LOCAL):
     """Token (+ learned-position + segment) embeddings in compute dtype;
     ``scale_embeddings`` multiplies by ``sqrt(d)`` rounded to the compute
     dtype first, as JAX does."""
     cd = cfg.compute_dtype
-    emb = params["embed"]
-    x = emb["tokens"].to(cd)[tokens]
+    emb = route.embed_params(params)
+    x = route.lookup(emb["tokens"].to(cd), tokens)
     if cfg.scale_embeddings:
         # rounded on the host (no stream-waiting copy to the card)
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cd))
@@ -440,19 +521,27 @@ def forward(params, cfg: TransformerConfig, tokens, *, positions=None,
     spmd_mesh))``) ``params`` are this rank's shards
     (``dist.spmd.shard_tree`` over :func:`param_axes`) and ``tokens`` its
     data group's rows: the FSDP / tensor-parallel route of
-    :mod:`repro_torch.models.transformer_spmd`."""
-    if spmd.active_mesh() is not None:
-        return spmd.forward(params, cfg, tokens, positions=positions,
-                            segs=segs, valid=valid,
-                            collect_cache=collect_cache,
-                            seg_boundary=seg_boundary)
+    :mod:`repro_torch.models.transformer_spmd`; the hidden states are
+    whole on every rank of the data group, and no K/V is collected."""
+    return _forward(params, cfg, tokens, _route(cfg), positions=positions,
+                    segs=segs, valid=valid, collect_cache=collect_cache,
+                    seg_boundary=seg_boundary)
+
+
+def _forward(params, cfg: TransformerConfig, tokens, route, *,
+             positions=None, segs=None, valid=None, collect_cache=False,
+             seg_boundary=-1):
+    if collect_cache and route is not LOCAL:
+        raise NotImplementedError(
+            "the sharded transformer collects no K/V cache: decode under "
+            "tensor parallelism is ROADMAP Queue 1 item 7.2")
     positions = _positions(tokens, positions)
-    x = embed(params, cfg, tokens, positions, segs)
+    x = embed(params, cfg, tokens, positions, segs, route)
     x, kv, aux = _run_layers(params, cfg, x, 0, cfg.n_layers,
                              positions=positions, segs=segs, valid=valid,
                              seg_boundary=seg_boundary,
-                             collect_cache=collect_cache)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+                             collect_cache=collect_cache, route=route)
+    x = L.apply_norm(route.final_norm(params), x, cfg.norm)
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, kv, aux
@@ -474,16 +563,14 @@ def logits(params, cfg: TransformerConfig, hidden):
         .reshape(b, s, -1)
 
 
-def _chunk_nll(h, y, m, head):
+def _chunk_nll(h, y, m, head, route=LOCAL):
     """Summed masked next-token NLL of one chunk: h [B, C, d], y / m
-    [B, C], head [d, V].  The logits are float32: the compute-dtype
-    operands widened (exact) and multiplied in float32, which autograd
-    can differentiate."""
+    [B, C], head [d, V] (a rank's vocab columns on the sharded route).
+    The logits are float32: the compute-dtype operands widened (exact)
+    and multiplied in float32, which autograd can differentiate."""
     b, c, d = h.shape
     lg = (h.reshape(b * c, d).float() @ head.float()).reshape(b, c, -1)
-    lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.take_along_dim(lg, y[..., None].long(), dim=-1)[..., 0]
-    return ((lse - gold) * m).sum()
+    return ((route.logsumexp(lg) - route.gold(lg, y)) * m).sum()
 
 
 def causal_lm_loss(params, cfg: TransformerConfig, tokens, labels, *,
@@ -499,16 +586,14 @@ def causal_lm_loss(params, cfg: TransformerConfig, tokens, labels, *,
     is the mean over every rank's tokens."""
     from torch.utils.checkpoint import checkpoint
 
-    if spmd.active_mesh() is not None:
-        return spmd.causal_lm_loss(params, cfg, tokens, labels,
-                                   label_mask=label_mask)
-
-    hidden, _, aux = forward(params, cfg, tokens)
+    route = _route(cfg)
+    hidden, _, aux = _forward(params, cfg, tokens, route)
     b, s, _ = hidden.shape
     chunk = cfg.logits_chunk or s
     if s % chunk:
         chunk = s
-    head = _head(params, cfg)
+    head = route.head(params, cfg)
+    hidden = route.enter(hidden, "vocab")
     if label_mask is None:
         label_mask = torch.ones((b, s), dtype=torch.float32,
                                 device=hidden.device)
@@ -517,9 +602,10 @@ def causal_lm_loss(params, cfg: TransformerConfig, tokens, labels, *,
     for c in range(0, s, chunk):
         sl = slice(c, c + chunk)
         total = total + checkpoint(_chunk_nll, hidden[:, sl], labels[:, sl],
-                                   label_mask[:, sl], head,
+                                   label_mask[:, sl], head, route,
                                    use_reentrant=False)
-    loss = total / torch.clamp(label_mask.sum(), min=1.0)
+    count = route.data_sum(label_mask.sum())
+    loss = route.data_sum(total) / torch.clamp(count, min=1.0)
     return loss + 0.01 * aux / max(cfg.n_layers, 1)
 
 

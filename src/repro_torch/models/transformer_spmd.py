@@ -1,10 +1,13 @@
-"""The transformer over an SPMD mesh: the route that
+"""The transformer over an SPMD mesh: the :class:`Route` that
 :func:`repro_torch.models.transformer.forward` and ``causal_lm_loss``
 take when the installed rules' mesh is an
 :class:`~repro_torch.dist.compat.SpmdMesh`.  It computes what the JAX
 package computes when GSPMD lays the model out by ``default_rules``
 (``repro.dist.sharding``), with the collectives written out
-(:mod:`repro_torch.dist.spmd`).
+(:mod:`repro_torch.dist.spmd`).  The blocks, the layer loop and the
+chunked loss are the transformer's own; this module gives them a rank's
+views of the weights and the collectives around the parts that the
+ranks of ``model`` split (``transformer.Local`` lists the hooks).
 
 Each rank holds its shards of the parameters (``dist.spmd.shard_tree``
 over :func:`~repro_torch.models.transformer.param_axes`) and its data
@@ -49,15 +52,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 
 import torch
 
 from repro_torch.dist import spmd as S
 from repro_torch.dist.compat import SpmdMesh, axis_index
 from repro_torch.dist.context import current_rules
-from repro_torch.models import layers as L
-from repro_torch.models import moe as moe_lib
+from repro_torch.models import transformer as T
 
 MODEL = ("model",)
 
@@ -122,7 +123,6 @@ def _specs(cfg, mesh_shape: tuple, rules_items: tuple):
     from repro_torch.dist.compat import AbstractMesh
     from repro_torch.dist.sharding import ShardingRules
     from repro_torch.launch.steps import eval_params
-    from repro_torch.models import transformer as T
 
     shapes, axes = eval_params(lambda g, d: (T.init_params(cfg, g, d),
                                              T.param_axes(cfg)))
@@ -196,228 +196,145 @@ def _view(w, spec, p: Plan, **kw):
 
 
 # ---------------------------------------------------------------------------
-# Blocks
+# The route
 # ---------------------------------------------------------------------------
 
 
-def _norm(lp, specs, name, p, x, kind):
-    w = {k: _view(v, specs[name][k], p, split=False)
-         for k, v in lp[name].items()}
-    return L.apply_norm(w, x, kind)
+class Route(T.Local):
+    """The transformer's hooks on this rank of the installed rules' SPMD
+    mesh: ``params`` are its shards, ``tokens`` its data group's rows.
+    Made once a forward or loss call (it keeps the gathered token table
+    that the lookup and the tied head share)."""
 
+    def __init__(self, cfg):
+        rules = current_rules()
+        self.specs = param_specs(cfg, rules)
+        self.p = plan(cfg, rules.mesh)
+        self.mesh = rules.mesh
+        self._split = {"attn": self.p.attn_split, "ffn": self.p.mlp_split,
+                       "vocab": self.p.vocab_split}
+        self.v0 = self.p.vocab[0] if self.p.vocab_split else 0
+        self.moe_cut = None
+        if cfg.n_experts and self.p.model:
+            # which dim of the expert weights ``model`` cut
+            e, _, f = (S.entry_axes(a) == MODEL for a in
+                       self.specs["layers"][0]["moe"]["w_gate"])
+            self.moe_cut = "experts" if e else "ff" if f else None
+        self._table = None
 
-def _attn_weights(ap, specs, cfg, p: Plan):
-    split = p.attn_split
-    cols = {"wq": (1, p.q_cols), "wk": (1, p.kv_cols), "wv": (1, p.kv_cols),
-            "wo": (0, p.q_cols), "bq": (0, p.q_cols), "bk": (0, p.kv_cols),
-            "bv": (0, p.kv_cols)}
-    out = {}
-    for k, v in ap.items():
-        dim, index = cols.get(k, (None, None))
-        out[k] = _view(v, specs[k], p, split=split, dim=dim if split
-                       else None, index=index)
-    return out
+    def local(self, cfg):
+        return self.p.local
 
+    def run(self, fn, x):
+        from torch.utils.checkpoint import checkpoint
 
-def _mlp(lp, specs, cfg, p: Plan, h):
-    cd = cfg.compute_dtype
-    split = p.mlp_split
-    cols = {"w_gate": 1, "w_up": 1, "w_in": 1, "b_in": 0, "w_down": 0,
-            "w_out": 0}
-    w = {}
-    for k, v in lp["mlp"].items():
-        if k == "b_out":
-            continue
-        dim = cols[k] if split else None
-        w[k] = _view(v, specs["mlp"][k], p, split=split, dim=dim,
-                     index=p.f_cols).to(cd)
-    x = S.copy_to(h, p.mesh, p.model) if split else h
-    out = L.mlp(w, x, gated=cfg.gated_mlp, activation=cfg.activation)
-    if split:
-        out = S.all_reduce_sum(out, p.mesh, p.model)
-    if "b_out" in lp["mlp"]:
-        out = out + _view(lp["mlp"]["b_out"], specs["mlp"]["b_out"], p,
-                          split=False).to(cd)
-    return out
-
-
-def _moe(lp, specs, cfg, p: Plan, h):
-    cd = cfg.compute_dtype
-    w = {k: _gather_data(v, specs["moe"][k], p.mesh).to(cd)
-         for k, v in lp["moe"].items()}
-    # which dim ``model`` cut (none when it has one rank)
-    cut = [bool(p.model) and S.entry_axes(e) == MODEL
-           for e in specs["moe"]["w_gate"]]
-    b, s, d = h.shape
-    ff, aux = moe_lib.moe_ffn(w, h.reshape(b * s, d), top_k=cfg.top_k,
-                              capacity_factor=cfg.capacity_factor,
-                              model_cut="experts" if cut[0] else
-                              "ff" if cut[2] else None)
-    return ff.reshape(b, s, d), aux
-
-
-def _layer(lp, specs, x, cfg, p: Plan, **kw):
-    """One block over this rank's rows ``x [b, S, d]`` -> ``(x, aux)``."""
-    from repro_torch.models import transformer as T
-
-    h = _norm(lp, specs, "ln1", p, x, cfg.norm)
-    ap = _attn_weights(lp["attn"], specs["attn"], cfg, p)
-    hq = S.copy_to(h, p.mesh, p.model) if p.attn_split else h
-    attn_out, _ = T._attention(ap, hq, p.local, **kw)
-    if p.attn_split:
-        attn_out = S.all_reduce_sum(attn_out, p.mesh, p.model)
-    if cfg.use_post_norm:
-        attn_out = _norm(lp, specs, "ln1_post", p, attn_out, cfg.norm)
-    x = x + attn_out
-    h = _norm(lp, specs, "ln2", p, x, cfg.norm)
-    if cfg.n_experts:
-        ff, aux = _moe(lp, specs, cfg, p, h)
-    else:
-        ff, aux = _mlp(lp, specs, cfg, p, h), 0.0
-    if cfg.use_post_norm:
-        ff = _norm(lp, specs, "ln2_post", p, ff, cfg.norm)
-    return x + ff, aux
-
-
-# ---------------------------------------------------------------------------
-# Entry points
-# ---------------------------------------------------------------------------
-
-
-def _table(params, specs, p: Plan):
-    """The token table with its data dims gathered: this rank's vocab rows
-    where the rules cut the vocab over ``model``, else the whole table."""
-    return _gather_data(params["embed"]["tokens"],
-                        specs["embed"]["tokens"], p.mesh)
-
-
-def _vocab_cut(specs):
-    return S.entry_axes(specs["embed"]["tokens"][0]) == MODEL
-
-
-def _embed(params, specs, cfg, p: Plan, table, tokens, positions, segs):
-    cd = cfg.compute_dtype
-    if _vocab_cut(specs):
-        v0, vl = table.shape[0] * S.block(p.mesh, MODEL)[0], table.shape[0]
-        inside = (tokens >= v0) & (tokens < v0 + vl)
-        rows = torch.where(inside, tokens - v0, 0)
-        x = table.to(cd)[rows] * inside[..., None].to(cd)
-        x = S.all_reduce_sum(x, p.mesh, p.model)
-    else:
-        x = table.to(cd)[tokens]
-    if cfg.scale_embeddings:
-        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cd))
-    emb = params["embed"]
-    if cfg.learned_pos:
-        x = x + _view(emb["pos"], specs["embed"]["pos"], p,
-                      split=False).to(cd)[positions]
-    if cfg.segment_vocab and segs is not None:
-        x = x + _view(emb["segment"], specs["embed"]["segment"], p,
-                      split=False).to(cd)[segs]
-    return x
-
-
-def forward(params, cfg, tokens, *, positions=None, segs=None, valid=None,
-            collect_cache=False, seg_boundary=-1, table=None):
-    """``transformer.forward`` over the installed SPMD mesh: ``params``
-    this rank's shards, ``tokens`` its data group's rows.  Returns
-    ``(hidden [b, S, d], None, aux)``, the hidden states whole on every
-    rank of the data group."""
-    from torch.utils.checkpoint import checkpoint
-
-    from repro_torch.models import transformer as T
-
-    if collect_cache:
-        raise NotImplementedError(
-            "the sharded transformer collects no K/V cache: decode under "
-            "tensor parallelism is ROADMAP Queue 1 item 7.2")
-    rules = current_rules()
-    specs = param_specs(cfg, rules)
-    p = plan(cfg, rules.mesh)
-    positions = T._positions(tokens, positions)
-    if table is None:
-        table = _table(params, specs, p)
-    x = _embed(params, specs, cfg, p, table, tokens, positions, segs)
-    windows, bases = cfg.layer_windows(), cfg.layer_rope_bases()
-    grad = torch.is_grad_enabled()
-    aux = 0.0
-    for i, lp in enumerate(params["layers"]):
-        kw = dict(positions=positions, window=windows[i],
-                  rope_base=bases[i], split_flag=i < cfg.split_layers,
-                  segs=segs, valid=valid, seg_boundary=seg_boundary)
-        run = functools.partial(_layer, lp, specs["layers"][i], cfg=cfg,
-                                p=p, **kw)
         # the layer's gathers are made again in the backward pass
-        x, a = checkpoint(run, x, use_reentrant=False) if grad else run(x)
-        aux = aux + a
-    x = _norm(params, specs, "final_norm", p, x, cfg.norm)
-    if not torch.is_tensor(aux):
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, None, aux
+        if torch.is_grad_enabled():
+            return checkpoint(fn, x, use_reentrant=False)
+        return fn(x)
 
+    def enter(self, x, part):
+        return S.copy_to(x, self.mesh, MODEL) if self._split[part] else x
 
-def _head(params, specs, cfg, p: Plan, table):
-    """This rank's columns of the LM head ``[d, v]`` in the compute dtype
-    (the rows ``p.vocab`` of the whole vocab; every row on one model
-    rank) and their first vocab id."""
-    split = p.vocab_split
-    if cfg.tie_embeddings:
-        w = _model_view(table, specs["embed"]["tokens"], p, split=split,
-                        dim=0 if split else None, index=p.vocab).T
-    else:
-        w = _view(params["lm_head"], specs["lm_head"], p, split=split,
-                  dim=1 if split else None, index=p.vocab)
-    return w.to(cfg.compute_dtype), p.vocab[0] if split else 0
+    def leave(self, x, part):
+        return S.all_reduce_sum(x, self.mesh, MODEL) if self._split[part] \
+            else x
 
+    def _whole(self, tree, specs):
+        """Leaves every model rank uses alike, their data dims
+        gathered."""
+        return {k: _view(v, specs[k], self.p, split=False)
+                for k, v in tree.items()}
 
-def _chunk_nll(h, y, m, head, v0: int, mesh, model):
-    """Summed masked NLL of one chunk over this rank's vocab columns
-    ``[v0, v0 + v)``: a float32 logsumexp and gold logit reduced over
-    ``model``."""
-    b, c, d = h.shape
-    lg = (h.reshape(b * c, d).float() @ head.float()).reshape(b, c, -1)
-    top = S.all_reduce_max(lg.max(dim=-1).values, mesh, model)
-    sumexp = S.all_reduce_sum(torch.exp(lg - top[..., None]).sum(dim=-1),
-                              mesh, model)
-    lse = top + torch.log(sumexp)
-    inside = (y >= v0) & (y < v0 + lg.shape[-1])
-    idx = torch.where(inside, y - v0, 0).long()
-    gold = torch.take_along_dim(lg, idx[..., None], dim=-1)[..., 0]
-    gold = S.all_reduce_sum(torch.where(inside, gold, 0.0), mesh, model)
-    return ((lse - gold) * m).sum()
+    def layer(self, i, lp):
+        specs, p = self.specs["layers"][i], self.p
+        out = {k: self._whole(lp[k], specs[k])
+               for k in ("ln1", "ln2", "ln1_post", "ln2_post") if k in lp}
+        cols = {"wq": (1, p.q_cols), "wk": (1, p.kv_cols),
+                "wv": (1, p.kv_cols), "wo": (0, p.q_cols),
+                "bq": (0, p.q_cols), "bk": (0, p.kv_cols),
+                "bv": (0, p.kv_cols)}
+        out["attn"] = {k: _view(v, specs["attn"][k], p, split=p.attn_split,
+                                **(dict(zip(("dim", "index"), cols[k]))
+                                   if p.attn_split and k in cols else {}))
+                       for k, v in lp["attn"].items()}
+        if "moe" in lp:
+            out["moe"] = {k: _gather_data(v, specs["moe"][k], self.mesh)
+                          for k, v in lp["moe"].items()}
+        else:
+            rows = {"w_gate": 1, "w_up": 1, "w_in": 1, "b_in": 0,
+                    "w_down": 0, "w_out": 0}
+            out["mlp"] = {k: _view(v, specs["mlp"][k], p,
+                                   split=p.mlp_split and k in rows,
+                                   dim=rows.get(k) if p.mlp_split else None,
+                                   index=p.f_cols)
+                          for k, v in lp["mlp"].items()}
+        return out
 
+    def _tokens(self, params):
+        """The token table with its data dims gathered: this rank's vocab
+        rows where the rules cut the vocab over ``model``, else the whole
+        table."""
+        if self._table is None:
+            self._table = _gather_data(params["embed"]["tokens"],
+                                       self.specs["embed"]["tokens"],
+                                       self.mesh)
+        return self._table
 
-def causal_lm_loss(params, cfg, tokens, labels, *, label_mask=None):
-    """``transformer.causal_lm_loss`` over the installed SPMD mesh: the
-    global masked mean of the next-token NLL (its numerator and count
-    all-reduced over the data axes) plus ``0.01 * aux / n_layers``; every
-    rank returns the same loss."""
-    from torch.utils.checkpoint import checkpoint
+    def _vocab_cut(self):
+        return S.entry_axes(self.specs["embed"]["tokens"][0]) == MODEL
 
-    rules = current_rules()
-    specs = param_specs(cfg, rules)
-    p = plan(cfg, rules.mesh)
-    table = _table(params, specs, p)
-    hidden, _, aux = forward(params, cfg, tokens, table=table)
-    b, s, _ = hidden.shape
-    chunk = cfg.logits_chunk or s
-    if s % chunk:
-        chunk = s
-    head, v0 = _head(params, specs, cfg, p, table)
-    if p.vocab_split:
-        hidden = S.copy_to(hidden, p.mesh, p.model)
-    if label_mask is None:
-        label_mask = torch.ones((b, s), dtype=torch.float32,
-                                device=hidden.device)
-    label_mask = label_mask.float()
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c in range(0, s, chunk):
-        sl = slice(c, c + chunk)
-        total = total + checkpoint(_chunk_nll, hidden[:, sl], labels[:, sl],
-                                   label_mask[:, sl], head, v0, p.mesh,
-                                   p.model, use_reentrant=False)
-    data = S.data_axes(p.mesh)
-    total = S.all_reduce_sum(total, p.mesh, data)
-    count = S.all_reduce_sum(label_mask.sum().detach(), p.mesh, data)
-    loss = total / torch.clamp(count, min=1.0)
-    return loss + 0.01 * aux / max(cfg.n_layers, 1)
+    def embed_params(self, params):
+        rest = {k: v for k, v in params["embed"].items() if k != "tokens"}
+        return {"tokens": self._tokens(params),
+                **self._whole(rest, self.specs["embed"])}
+
+    def lookup(self, table, tokens):
+        if not self._vocab_cut():
+            return table[tokens]
+        # the rank's rows; the others' are all-reduced in
+        v0 = table.shape[0] * S.block(self.mesh, MODEL)[0]
+        inside = (tokens >= v0) & (tokens < v0 + table.shape[0])
+        x = table[torch.where(inside, tokens - v0, 0)] \
+            * inside[..., None].to(table.dtype)
+        return S.all_reduce_sum(x, self.mesh, MODEL)
+
+    def final_norm(self, params):
+        return self._whole(params["final_norm"], self.specs["final_norm"])
+
+    def head(self, params, cfg):
+        """This rank's columns of the LM head ``[d, v]`` in the compute
+        dtype: the rows ``p.vocab`` of the whole vocab (every row on one
+        model rank)."""
+        p, split = self.p, self.p.vocab_split
+        if cfg.tie_embeddings:
+            w = _model_view(self._tokens(params),
+                            self.specs["embed"]["tokens"], p, split=split,
+                            dim=0 if split else None, index=p.vocab).T
+        else:
+            w = _view(params["lm_head"], self.specs["lm_head"], p,
+                      split=split, dim=1 if split else None, index=p.vocab)
+        return w.to(cfg.compute_dtype)
+
+    def logsumexp(self, lg):
+        """A float32 logsumexp over the vocab columns of every model
+        rank (max and sum-exp reduced over ``model``)."""
+        if not self.p.vocab_split:
+            return super().logsumexp(lg)
+        top = S.all_reduce_max(lg.max(dim=-1).values, self.mesh, MODEL)
+        sumexp = S.all_reduce_sum(
+            torch.exp(lg - top[..., None]).sum(dim=-1), self.mesh, MODEL)
+        return top + torch.log(sumexp)
+
+    def gold(self, lg, y):
+        """The label's logit, from the model rank whose columns hold
+        it."""
+        if not self.p.vocab_split:
+            return super().gold(lg, y)
+        inside = (y >= self.v0) & (y < self.v0 + lg.shape[-1])
+        gold = super().gold(lg, torch.where(inside, y - self.v0, 0))
+        return S.all_reduce_sum(torch.where(inside, gold, 0.0), self.mesh,
+                                MODEL)
+
+    def data_sum(self, x):
+        return S.all_reduce_sum(x, self.mesh, S.data_axes(self.mesh))

@@ -1,20 +1,22 @@
 """Time the port's CRC-32C (``index.integrity.chunk_checksums``) against
 the per-byte-position loop it replaced, on the host CPU::
 
-    PYTHONPATH=src python -m repro_torch.tools.crc_rate [--mb 64] [--chunks 1024]
+    PYTHONPATH=src python -m repro_torch.tools.crc_rate
 
-Prints one JSON line: both times (best of ``--repeats``), their ratio, the
-new path's MB/s, and whether the two agree on every chunk.
+over MB megabytes of seeded bytes in CHUNKS chunks.  Prints one JSON
+line: both times (best of REPEATS), their ratio, the new path's MB/s,
+and whether the two agree on every chunk.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import time
 
 import numpy as np
 
 from repro_torch.index import integrity
+
+MB, CHUNKS, REPEATS = 64, 1024, 3
 
 
 def per_position_crcs(mat: np.ndarray) -> np.ndarray:
@@ -37,26 +39,21 @@ def best_s(fn, repeats: int) -> float:
     return best
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mb", type=int, default=64)
-    ap.add_argument("--chunks", type=int, default=1024)
-    ap.add_argument("--repeats", type=int, default=3)
-    args = ap.parse_args(argv)
-    data = np.random.default_rng(0).integers(
-        0, 256, args.mb << 20, dtype=np.uint8)
-    chunk = len(data) // args.chunks
-    mat = data[:chunk * args.chunks].reshape(args.chunks, chunk)
+def main() -> int:
+    data = np.random.default_rng(0).integers(0, 256, MB << 20,
+                                             dtype=np.uint8)
+    chunk = len(data) // CHUNKS
+    mat = data[:chunk * CHUNKS].reshape(CHUNKS, chunk)
     integrity.chunk_checksums(data[:4 * chunk], chunk)      # tables built
     new = integrity.chunk_checksums(data, chunk)
     old = per_position_crcs(mat).tolist()
     new_s = best_s(lambda: integrity.chunk_checksums(data, chunk),
-                   args.repeats)
-    old_s = best_s(lambda: per_position_crcs(mat), args.repeats)
-    print(json.dumps({"mb": args.mb, "chunks": args.chunks,
+                   REPEATS)
+    old_s = best_s(lambda: per_position_crcs(mat), REPEATS)
+    print(json.dumps({"mb": MB, "chunks": CHUNKS,
                       "chunk_bytes": chunk, "new_s": new_s, "old_s": old_s,
                       "speedup": old_s / new_s,
-                      "new_mb_per_s": args.mb / new_s,
+                      "new_mb_per_s": MB / new_s,
                       "equal": new == old}))
     return 0
 

@@ -245,12 +245,17 @@ def lm_check(mesh, *, config, batch: int, seq: int, grad: bool,
       activations do not fit on the card beside the params and their
       gradient; every row but the last waits on the host) and averaged:
       every label counts, so the batch mean is the mean of the rows'
-      means; each leaf held element
-      by element to ``|got - want| <= atol + rtol |want|`` (rtol = atol
-      = 1e-5, the gloo tests' limit against JAX), and its largest error
-      over its largest value reported;
+      means; each leaf's largest error over its largest value
+      (``max_leaf_rel``), and each leaf element by element against
+      ``|got - want| <= atol + rtol |want|`` (rtol = atol = 1e-5, the
+      gloo tests' limit against JAX); the control
+      (``control_tf32_max_leaf_rel``): the same sharded gradient with
+      TF32 products, a lower precision that a sound float32 gradient
+      must beat;
     * ``bf16`` (with ``bf16``): the loss at bf16 compute through the
-      kernels, its launches counted, timed, against one process's.
+      kernels, its launches counted, timed, against one process's; the
+      control (``control_rel``): one process's bf16 loss against its
+      float32 loss.
 
     MoE configs run at capacity factor E / k, so no token is dropped
     under the mesh's dispatch groups or one process's single group."""
@@ -310,16 +315,20 @@ def lm_check(mesh, *, config, batch: int, seq: int, grad: bool,
         with install_rules(rules):
             return T.causal_lm_loss(p, c, mine[:, :-1], mine[:, 1:])
 
-    # the whole leaves this rank holds only to compare (a leaf no dim of
-    # which is cut is its own shard)
+    # the whole leaves this rank holds only to compare (a shard that is
+    # the whole leaf, or a view of it, shares its storage)
     compare_bytes = sum(
         w.numel() * w.element_size() for (_, w), (_, l) in
-        zip(leaves_with_paths(whole), leaves_with_paths(local)) if l is not w)
+        zip(leaves_with_paths(whole), leaves_with_paths(local))
+        if l.untyped_storage().data_ptr() != w.untyped_storage().data_ptr())
 
     def peak():
-        """This rank's peak bytes, less the whole params it holds only to
-        compare (its own shards counted)."""
-        return torch.cuda.max_memory_allocated(dev) - compare_bytes
+        """This rank's peak bytes, less what it holds only to compare: the
+        whole params that are not its shards and the one-process
+        gradient's last row (its shards counted)."""
+        ref = sum(t.numel() * t.element_size()
+                  for _, t in leaves_with_paths(last_g)) if grad else 0
+        return torch.cuda.max_memory_allocated(dev) - compare_bytes - ref
 
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
@@ -343,28 +352,47 @@ def lm_check(mesh, *, config, batch: int, seq: int, grad: bool,
     if grad:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
+        specs = S.tree_specs(whole, axes, rules)
+        rest = leaves_with_paths(host_g) if host_g is not None else None
+
+        def leaf_errors(g_local):
+            """Each leaf's (largest error over its largest value, how far
+            past rtol = atol = 1e-5 in units of atol: <= 0 inside)."""
+            errs, excess = {}, {}
+            got_g = S.gather_tree(g_local, specs, mesh)
+            for i, ((k, g), (_, w)) in enumerate(zip(
+                    leaves_with_paths(got_g), leaves_with_paths(last_g))):
+                if rest is not None:
+                    w = rest[i][1].to(dev) + w
+                w = w / batch
+                errs[k] = _rel(g, w)
+                excess[k] = float(((g - w).abs() - 1e-5 * w.abs()).max()) \
+                    / 1e-5
+            return errs, excess
+
         got_l, got_g = value_and_grad(lambda p: sharded(plain, p), local)
         rank_peak = peak()
-        got_g = S.gather_tree(got_g, S.tree_specs(whole, axes, rules), mesh)
-        errs, excess = {}, {}
-        rest = leaves_with_paths(host_g) if host_g is not None else None
-        for i, ((k, g), (_, w)) in enumerate(zip(leaves_with_paths(got_g),
-                                                 leaves_with_paths(last_g))):
-            if rest is not None:
-                w = rest[i][1].to(dev) + w
-            w = w / batch
-            errs[k] = _rel(g, w)
-            # how far past the limit, in units of atol (<= 0: inside)
-            excess[k] = float(((g - w).abs() - 1e-5 * w.abs()).max()) / 1e-5
-        worst = max(errs, key=errs.get)
+        errs, excess = leaf_errors(got_g)
+        del got_g
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, ctl_g = value_and_grad(lambda p: sharded(plain, p), local)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        ctl = leaf_errors(ctl_g)[0]
+        del ctl_g
+        worst, ctl_worst = max(errs, key=errs.get), max(ctl, key=ctl.get)
         out["grad"] = {"loss": float(got_l), "one_process": want_l,
                        "loss_rel": abs(float(got_l) - want_l) / abs(want_l),
                        "leaves": len(errs), "max_leaf_rel": errs[worst],
                        "worst_leaf": worst, "rtol": 1e-5, "atol": 1e-5,
                        "leaves_apart": sum(e > 1 for e in excess.values()),
                        "max_excess_over_atol": max(excess.values()),
+                       "control_tf32_max_leaf_rel": ctl[ctl_worst],
+                       "control_worst_leaf": ctl_worst,
                        "rank_peak_bytes": rank_peak}
-        del host_g, last_g, got_g
+        del host_g, last_g
         torch.cuda.empty_cache()
     if bf16:
         with torch.no_grad():
@@ -372,7 +400,9 @@ def lm_check(mesh, *, config, batch: int, seq: int, grad: bool,
             out["bf16"] = {"sharded": got, "one_process": want["bf16"],
                            "rel": abs(got - want["bf16"])
                            / abs(want["bf16"]),
-                           "rtol": 2e-2, "launches": launches,
+                           "control_rel": abs(want["bf16"] - want["f32"])
+                           / abs(want["f32"]),
+                           "launches": launches,
                            "ms": _time_ms(lambda: sharded(c16), 3),
                            "one_process_ms": want["bf16_ms"]}
     out["max_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)

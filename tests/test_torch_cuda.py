@@ -1874,7 +1874,7 @@ def test_sharded_lm_loss_on_one_card_over_nccl(dev, tmp_path):
     assert g["loss"]["launches"]["split_attention_window"] > 0
     assert g["grad"]["loss_rel"] <= g["grad"]["rtol"]
     assert g["grad"]["leaves_apart"] == 0, g["grad"]
-    assert g["bf16"]["rel"] <= g["bf16"]["rtol"], g["bf16"]
+    assert g["bf16"]["rel"] <= 2e-2, g["bf16"]
     assert g["bf16"]["launches"]["split_attention_causal"] > 0
 
 
