@@ -253,11 +253,41 @@ and DimeNet at three of its cells:
    (MoE at capacity factor E / k); each line gives its tolerance and
    the split kernel's launches, and the phase fails unless they launched;
    each with its ms a call (``repro_torch.tools.mesh_check``).
+9c. cells -- the cells of ``launch.steps`` (``tools/cell_check.py``),
+   one rank a visible card over NCCL as in 9b, each built with
+   ``build_cell(..., backend="cuda")`` at full width under
+   ``default_rules`` and run on the rank's part of seeded inputs
+   (``cell.inputs``, ``cell.local``), against the same cell through the
+   plain impls in one process on the same card (CELLS): PreTTR-BERT's
+   ``index_docs`` (512 docs) and ``serve_join`` (512 pairs) under
+   ``replicated_serving_rules``, ``rank_train`` (32 pairs, one AdamW
+   step); gemma3-4b's ``prefill_32k`` at 2 x 2048 tokens (the logits and
+   the collected cache) and ``decode_32k`` at batch 2 against its seeded
+   32,768-key cache (four teacher-forced steps); granite-moe's
+   ``train_4k`` at 4 of its 32 layers, two micro-batches of 2 x 2048
+   tokens, one step.  The train cells run at float32 compute (the
+   kernels forward, the plain versions' gradient backward), their
+   configured bf16 step held by no check.  Each ``cells_<key>`` line
+   gives ``reduced`` (each cut beside its published size, the train
+   cells' compute dtype among them), the limits (a bf16 output's
+   distance from the plain impls at float32 compute, ``kernel_vs_f32``,
+   within CELLS_BF16_FACTOR of the plain bf16 run's own,
+   ``plain_bf16_vs_f32``; a train cell's loss and grad_norm within
+   LM_SPMD_RTOL, its clipped gradient, read from AdamW's first moment
+   after the step, and its updated parameters within rtol = atol =
+   LM_SPMD_RTOL element by element, and each gradient leaf within
+   LM_SPMD_GRAD_LEAF_REL of its largest value, rank_train's within
+   CELLS_FP16_LEAF_REL; the last two over what lies above rounding,
+   ``held``), every rank's differences, times and
+   peak memory, and the launches; ``cells_wall`` the phase's seconds.
+   Off one card (``overrides`` on each rank's result) granite-moe runs
+   at capacity factor E / k, so that one process's limits hold.
 
 Kernel launches are counted per path: every counter is set to 0 just
 before each index build, each timed serving run, the training steps, the
 validation and distillation runs, the soundness check, each LM run,
-each recsys run and each DimeNet cell, and read just after.  A path that
+each recsys run, each DimeNet cell and each cell's run, and read just
+after.  A path that
 misses a kernel it must run (``PATH_KERNELS``: the tensor-core split and
 join kernels on the bf16 paths, the CUDA-core ones on the float32
 paths; the tensor-core compress and decompress kernels on every path
@@ -273,8 +303,8 @@ the index builds, the bf16 kernel runs of each serving form, the
 cascades, the training paths, the LMs' bf16 prefill and decode, the
 recsys serve_bulk forwards, retrieval runs and towers, the router's bf16
 drains, BERT4Rec's bf16 history and join, the DimeNet cells, the
-data-parallel build, the router's bf16 drains on a mesh and the SPMD
-checks), each launch under one
+data-parallel build, the router's bf16 drains on a mesh, the SPMD
+checks and the cells), each launch under one
 row: the later LMs' under the rows that hold their shapes;
 ``launches_by_path`` gives each path's own.
 
@@ -331,6 +361,34 @@ MESH_TIMEOUT_S = 600
 # 3.2e-5 on four cards: PERF.md)
 LM_SPMD_TOKENS, LM_SPMD_RTOL, LM_SPMD_BF16_RTOL = (2, 2048), 1e-5, 1e-4
 LM_SPMD_GRAD_LEAF_REL = 1e-4
+# the cells phase (launch.steps' cells, one rank a card): (key, arch,
+# shape, cuts); full width, the batch and depth cut so that the phase
+# adds about two minutes.  Each is held against the same cell through the
+# plain impls in one process.  A bf16 output (all but the train cells'),
+# as a largest error over the largest value from the plain impls at
+# float32 compute on the same inputs (tools/cell_check.py's control):
+# the kernels' within CELLS_BF16_FACTOR of the plain bf16 run's own, as
+# both round the same operands to bf16 and sum in float32.  A train cell
+# (float32) at the sharded LM's limits: loss and grad_norm within
+# LM_SPMD_RTOL, its clipped gradient (from AdamW's first moment after the
+# step) and its updated parameters element by element within rtol = atol
+# = LM_SPMD_RTOL, each gradient leaf within LM_SPMD_GRAD_LEAF_REL of its
+# largest value; leaves and elements below rounding (cell_check.
+# ROUNDING_FLOOR: PreTTR's key-bias gradients, zero in exact arithmetic)
+# are left out of the last two.  rank_train's leaves within one fp16 step
+# (CELLS_FP16_LEAF_REL) instead: its reps pass layer l through the
+# compressor's fp16 store, where a value on a rounding boundary moves by
+# a step either way (H100 80GB HBM3, 700.00 W: the compressor's bias
+# 1.9e-4, every leaf 1.2e-5 at most with a float32 store; PERF.md)
+CELLS_BF16_FACTOR = 1.5
+CELLS_FP16_LEAF_REL = 2 ** -10
+CELLS = (("index_docs", "prettr-bert", "index_docs", {"batch": 512}),
+         ("serve_join", "prettr-bert", "serve_join", {"batch": 512}),
+         ("rank_train", "prettr-bert", "rank_train", {"batch": 32}),
+         ("prefill", "gemma3-4b", "prefill_32k", {"batch": 2, "seq": 2048}),
+         ("decode", "gemma3-4b", "decode_32k", {"batch": 2}),
+         ("train_granite", "granite-moe-3b-a800m", "train_4k",
+          {"batch": 4, "seq": 2048, "n_layers": 4}))
 # BERT4Rec's paths: (history precompute, online join) of each run
 BERT4REC_PATHS = {
     "cuda_bf16": ("bert4rec_history", "bert4rec_join"),
@@ -1463,6 +1521,25 @@ PATH_KERNELS = {
                        "split_attention_tensor_core"),
     "spmd_lm_granite": ("split_attention_causal",
                         "split_attention_cuda_core"),
+    # the cells: index_docs encodes the docs (split attention with the
+    # segment mask, compress), serve_join decodes the stored reps
+    # (decompress) and joins them (the dense join and its CLS row),
+    # prefill runs gemma3's causal and window split forms, decode flash
+    # decode's two forms and their merges over the 32,768-key cache; the
+    # train cells (float32) launch the kernels forward: rank_train the
+    # split form on the CUDA cores, compress and decompress on the tensor
+    # cores and the CLS row's decode (one split on one card; a (2, 2)
+    # mesh's 8 pairs a rank split it and merge), granite-moe the causal
+    # form
+    "cells_index_docs": _INDEX_F16,
+    "cells_serve_join": ("join_attention", "join_attention_row",
+                         "decompress", *_DECOMPRESS_TC,
+                         "join_attention_tensor_core"),
+    "cells_rank_train": ("split_attention", *_SPLIT_CC, "compress",
+                         *_COMPRESS_TC, "decompress", *_DECOMPRESS_TC,
+                         "decode_attention"),
+    "cells_train_granite": _LM_CAUSAL + _SPLIT_CC,
+    "cells_prefill": _LM_PREFILL + _SPLIT_TC, "cells_decode": _LM_DECODE,
     # BERT4Rec: head dim 32, so every split call takes the CUDA-core
     # kernel (the tensor-core one takes 64, 128 and 256), bf16 and float32
     **{p: ("split_attention", "split_attention_cuda_core",
@@ -1545,7 +1622,8 @@ MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               *(f"dimenet_{c}" for c in DIMENET_CELLS),
               "index_dp", "serve_mesh_fp16",
               "serve_mesh_int8_kv", "serve_mesh_cached", "spmd_lookup",
-              "spmd_moe", "spmd_psum", "spmd_lm_gemma3")
+              "spmd_moe", "spmd_psum", "spmd_lm_gemma3",
+              *(f"cells_{key}" for key, *_ in CELLS))
 
 
 def _scores(resps):
@@ -2059,6 +2137,84 @@ def spmd_phase(torch, name, launches):
           "seconds": wall})
     if bad:
         raise AssertionError(f"spmd checks: {bad}")
+
+
+def cells_rank(mesh, spec):
+    """One rank of the cells phase, its launches counted."""
+    from repro_torch.tools.cell_check import cell_checks
+    return cell_checks(mesh, spec, count=counted)
+
+
+def _published(arch, shape):
+    """A cell's published batch, sequence and depth."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import PRETTR_SHAPES
+    spec = get_arch(arch)
+    if arch == "prettr-bert":
+        info = PRETTR_SHAPES[shape]
+        return {"batch": info.get("batch", info.get("global_batch"))}
+    info = spec.shapes[shape]
+    return {"batch": info["global_batch"], "seq": info["seq_len"],
+            "n_layers": spec.config.n_layers}
+
+
+def cells_phase(torch, name, launches):
+    """(d) The cells of ``launch.steps`` (``tools/cell_check.py``): one
+    rank a visible card over NCCL on a ``("data", "model")`` mesh, each
+    cell of CELLS built with ``backend="cuda"`` under ``default_rules``
+    and held against the same cell through the plain impls in one process
+    on the same card; each line gives the cell's cuts of its published
+    sizes (``reduced``), its limits, its differences and launches."""
+    from repro_torch.launch.mesh import run_spmd
+    world = torch.cuda.device_count()
+    shape = (world // 2, 2) if world > 1 and world % 2 == 0 else (world, 1)
+    spec = {key: (arch, sh, cuts) for key, arch, sh, cuts in CELLS}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = run_spmd(cells_rank, shape, ("data", "model"), args=(spec,),
+                       timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    bad = []
+    for key, arch, sh, cuts in CELLS:
+        path = f"cells_{key}"
+        per_rank = [r[key] for r in results]
+        launches[path] = {}
+        for r in per_rank:
+            for k, n in r["launches"].items():
+                launches[path][k] = launches[path].get(k, 0) + n
+        published = _published(arch, sh)
+        train = per_rank[0]["kind"] in ("train", "prettr_train")
+        tol = {"loss": LM_SPMD_RTOL, "grad_norm": LM_SPMD_RTOL,
+               "grad_apart": 1.0, "params_apart": 1.0,
+               "grad_leaf_rel": CELLS_FP16_LEAF_REL if key == "rank_train"
+               else LM_SPMD_GRAD_LEAF_REL} if train else \
+            {"kernel_vs_f32": f"{CELLS_BF16_FACTOR} x plain_bf16_vs_f32"}
+        emit({"phase": path, "device": name, "world": world,
+              "mesh": results[0]["mesh"], "arch": arch, "shape": sh,
+              "reduced": {**{k: {"run": v, "published": published[k]}
+                             for k, v in cuts.items()},
+                          **per_rank[0]["overrides"]},
+              "tol": tol, "elem_rtol_atol": LM_SPMD_RTOL if train else None,
+              "launches": {k: n for k, n in launches[path].items() if n},
+              "ranks": per_rank})
+        for r in per_rank:
+            if train:
+                bad += [f"{path} {what}: {d} (limit {tol[what]})"
+                        for what, d in r["diff"].items()
+                        if not d <= tol[what]]
+                continue
+            bad += [f"{path} {what}: kernel_vs_f32 {d}, plain_bf16_vs_f32 "
+                    f"{r['plain_bf16_vs_f32'][what]}"
+                    for what, d in r["kernel_vs_f32"].items()
+                    if not d <= CELLS_BF16_FACTOR
+                    * r["plain_bf16_vs_f32"][what]]
+        missing = [k for k in PATH_KERNELS[path] if not launches[path][k]]
+        if missing:
+            bad.append(f"{path}: {missing} never launched")
+    emit({"phase": "cells_wall", "device": name, "world": world,
+          "seconds": wall})
+    if bad:
+        raise AssertionError(f"cells checks: {bad}")
 
 
 def _stage_diff(a, b, stage):
@@ -4076,6 +4232,9 @@ def main():
 
     # 9b. the SPMD checks, one rank a card over NCCL
     spmd_phase(torch, name, launches)
+
+    # 9c. the cells of launch.steps, one rank a card
+    cells_phase(torch, name, launches)
 
     # 10. kernels line: `launches` counts the main paths (the index builds,
     #    the bf16 drains, the LMs' bf16 prefill and decode and the recsys

@@ -29,7 +29,11 @@ the port of ``repro.core.prettr``.
 
 * **Training** -- :func:`rank_pairs_loss`, the paper's pairwise loss over
   :func:`rank_forward`.  Autograd runs through the plain backend only:
-  the kernel wrappers refuse inputs that require grad.
+  the kernel wrappers refuse inputs that require grad.  Under rules over
+  an SPMD mesh (``default_rules``) both run the backbone through
+  ``transformer_spmd.Route`` (FSDP over the data axes, heads, ``d_ff``
+  and vocab over ``model``), the compressor and the score head gathered
+  whole; the loss is the mean over every rank's pairs.
 """
 from __future__ import annotations
 
@@ -119,11 +123,33 @@ def prettr_axes(cfg: PreTTRConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _score_from_cls(params, cfg: PreTTRConfig, cls_rep):
+def _prettr_init(cfg: PreTTRConfig, generator, device):
+    return init_prettr(cfg, generator, device), prettr_axes(cfg)
+
+
+def _route(cfg: PreTTRConfig):
+    """The backbone's route: :data:`~repro_torch.models.transformer.LOCAL`,
+    or under rules over an SPMD mesh the sharded transformer's ``Route``
+    over the backbone's shards, with the compressor's and the score
+    head's specs for :meth:`~repro_torch.models.transformer_spmd.Route.
+    whole`."""
+    from repro_torch.dist.context import current_rules
+    from repro_torch.models import transformer_spmd as SP
+
+    if SP.active_mesh() is None:
+        return T.LOCAL
+    specs = SP.param_specs(cfg, current_rules(), init=_prettr_init)
+    return SP.Route(cfg.backbone, specs=specs["backbone"],
+                    extra={k: v for k, v in specs.items()
+                           if k != "backbone"})
+
+
+def _score_from_cls(params, cfg: PreTTRConfig, cls_rep, route=T.LOCAL):
     """cls_rep: [B, d] -> [B] float32 ranking score."""
-    h = L.apply_norm(params["backbone"]["final_norm"], cls_rep,
+    h = L.apply_norm(route.final_norm(params["backbone"]), cls_rep,
                      cfg.backbone.norm)
-    return (h @ params["score_head"].to(h.dtype))[..., 0].float()
+    head = route.whole(params["score_head"], "score_head")
+    return (h @ head.to(h.dtype))[..., 0].float()
 
 
 def _decode_doc_store(params, cfg: PreTTRConfig, doc_store):
@@ -140,26 +166,30 @@ def _positions(start: int, n: int, b: int, device):
     return (start + torch.arange(n, device=device)).expand(b, n)
 
 
-def _cls_only_layer(lp, x, cfg: T.TransformerConfig, *, positions, valid):
+def _cls_only_layer(lp, x, cfg: T.TransformerConfig, *, positions, valid,
+                    route=T.LOCAL):
     """Final layer computing only the [CLS] (index 0) row of attention
     (paper section 6.3): a decode-shaped attention through the
     ``decode_attention`` backend op (the flash-decode kernel under
     ``"cuda"``).  x: [B, S, d]; positions, valid: [B, S] -> cls rep
-    [B, d]."""
+    [B, d].  ``lp`` is the last layer's params; over an SPMD mesh the
+    route gives this rank its heads' view of them."""
     b = x.shape[0]
-    h = L.apply_norm(lp["ln1"], x, cfg.norm)
+    lp, local = route.layer(cfg.n_layers - 1, lp), route.local(cfg)
+    h = route.enter(L.apply_norm(lp["ln1"], x, cfg.norm), "attn")
     p = lp["attn"]
-    q = T.project_q(p, h[:, :1], cfg)
-    k, v = T.project_kv(p, h, cfg)
+    q = T.project_q(p, h[:, :1], local)
+    k, v = T.project_kv(p, h, local)
     # bidirectional: the query row sits past every key
     q_pos = torch.full((b, 1), (2**31 - 1) // 2, dtype=positions.dtype,
                        device=x.device)
     out = B.get_impl("decode_attention", cfg.attn_impl)(
-        q, k, v, cfg=cfg, scale=1.0 / math.sqrt(cfg.dh), k_pos=positions,
+        q, k, v, cfg=local, scale=1.0 / math.sqrt(cfg.dh), k_pos=positions,
         q_pos=q_pos, window=-1, k_valid=valid, static_window=-1)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.dh) \
+    out = out.reshape(b, 1, local.n_heads * local.dh) \
         @ p["wo"].to(cfg.compute_dtype)
-    return T.block_tail(lp, cfg, x[:, :1], out)[0][:, 0]
+    return T.block_tail(lp, local, x[:, :1], route.leave(out, "attn"),
+                        route)[0][:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -172,37 +202,45 @@ def rank_forward(params, cfg: PreTTRConfig, tokens, segs, valid):
     0..l and the compressor round trip on doc tokens.  tokens/segs/valid:
     [B, S] with S = max_query_len + max_doc_len.  Returns scores [B]."""
     bcfg = cfg.backbone
+    route = _route(cfg)
+    bb = params["backbone"]
     b, s = tokens.shape
     positions = _positions(0, s, b, tokens.device)
-    x = T.embed(params["backbone"], bcfg, tokens, positions, segs)
-    x = T.run_layer_range(params["backbone"], bcfg, x, 0, cfg.l, segs=segs,
-                          valid=valid, seg_boundary=cfg.max_query_len)
+    x = T.embed(bb, bcfg, tokens, positions, segs, route)
+    x = T.run_layer_range(bb, bcfg, x, 0, cfg.l, segs=segs, valid=valid,
+                          seg_boundary=cfg.max_query_len, route=route)
     if cfg.compress_dim:
-        x_hat = C.roundtrip(params["compressor"], x,
-                            store_dtype=cfg.store_dtype,
+        x_hat = C.roundtrip(route.whole(params["compressor"], "compressor"),
+                            x, store_dtype=cfg.store_dtype,
                             compute_dtype=bcfg.compute_dtype,
                             impl=bcfg.compress_impl)
         x = torch.where((segs == 1)[..., None], x_hat, x)
     last = bcfg.n_layers - (1 if cfg.cls_only_last_layer else 0)
-    x = T.run_layer_range(params["backbone"], bcfg, x, cfg.l, last,
-                          segs=segs, valid=valid)
+    x = T.run_layer_range(bb, bcfg, x, cfg.l, last, segs=segs, valid=valid,
+                          route=route)
     if cfg.cls_only_last_layer:
-        cls = _cls_only_layer(params["backbone"]["layers"][-1], x, bcfg,
-                              positions=positions, valid=valid)
+        cls = _cls_only_layer(bb["layers"][-1], x, bcfg,
+                              positions=positions, valid=valid, route=route)
     else:
         cls = x[:, 0]
-    return _score_from_cls(params, cfg, cls)
+    return _score_from_cls(params, cfg, cls, route)
 
 
 def rank_pairs_loss(params, cfg: PreTTRConfig, pos, neg):
     """Paper section 5.3 pairwise softmax loss, the mean of
     ``softplus(-(s_pos - s_neg))``.  pos / neg: dicts of ``tokens`` /
-    ``segs`` / ``valid`` [B, S] tensors."""
+    ``segs`` / ``valid`` [B, S] tensors (a rank's data rows over an SPMD
+    mesh, where the mean is over every rank's pairs)."""
     s_pos = rank_forward(params, cfg, pos["tokens"], pos["segs"],
                          pos["valid"])
     s_neg = rank_forward(params, cfg, neg["tokens"], neg["segs"],
                          neg["valid"])
-    return F.softplus(-(s_pos - s_neg)).mean()
+    loss = F.softplus(-(s_pos - s_neg))
+    route = _route(cfg)
+    if route is T.LOCAL:
+        return loss.mean()
+    return route.data_sum(loss.sum()) \
+        / route.data_sum(loss.new_tensor(float(loss.numel())))
 
 
 # ---------------------------------------------------------------------------

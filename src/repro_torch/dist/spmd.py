@@ -22,6 +22,9 @@ calls the collectives by hand:
   gradients: a replicated tensor that each rank uses for a different
   part of the work (the input of a column-parallel product).
 
+:func:`global_norm` is the gradient norm of a tree of blocks, which
+AdamW's clipping needs whole.
+
 Every collective is the identity over a group of one rank, so a world
 of one runs the same code with no communication.  Gloo has no
 reduce-scatter: there the sum is an all-reduce and the slice is taken
@@ -226,9 +229,39 @@ def all_reduce_max(x, mesh, axes):
     return _reduce(x.detach().clone(), mesh, axes, dist.ReduceOp.MAX)
 
 
+def global_norm(tree, specs, mesh):
+    """The float32 L2 norm over every leaf of a tree of this rank's blocks
+    (``specs`` from :func:`tree_specs`): each leaf's sum of squares is
+    summed over the ranks that hold its other blocks (the axes its spec
+    names), never over ranks that hold a copy of the same block.  A
+    ``None`` leaf counts as zero."""
+    sums = {}
+
+    def add(g, spec):
+        named = {a for e in spec for a in entry_axes(e)}
+        axes = tuple(a for a in mesh.axis_names if a in named)
+        sums[axes] = sums.get(axes, 0) + g.float().square().sum()
+        return g
+
+    tree_map(add, tree, specs)
+    total = 0
+    # the same keys in the same order on every rank
+    for axes, part in sums.items():
+        total = total + (_reduce(part.detach().clone(), mesh, axes)
+                         if axes else part)
+    return torch.sqrt(total)
+
+
 def data_axes(mesh) -> tuple:
     """The batch axes of a mesh (``pod``, ``data``), in its order."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def gather_data(x, mesh, dim: int = 0):
+    """The whole batch from every data rank's rows (:func:`data_block`'s
+    inverse), with no gradient."""
+    with torch.no_grad():
+        return _gather(x, dim, mesh, data_axes(mesh))
 
 
 def data_block(x, mesh, dim: int = 0):

@@ -202,10 +202,11 @@ def refuse_grad(name: str, *tensors) -> None:
             for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but the kernel's output "
-            f"carries no gradient; train through the plain backend "
-            f"(attn_impl / compress_impl 'plain', apply_backend(cfg, "
-            f"'plain'), bag_impl 'plain'), or call it under "
-            f"torch.no_grad() / torch.inference_mode()")
+            f"carries no gradient; train through the backend ops "
+            f"(repro_torch.models.backend), whose 'cuda' ones launch the "
+            f"kernel and take the gradient of the plain backend "
+            f"(bag_impl 'plain'), or call it under torch.no_grad() / "
+            f"torch.inference_mode()")
 
 
 def check(name: str, code: int) -> None:

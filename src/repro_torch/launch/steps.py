@@ -1,24 +1,34 @@
 """Cell builders of the port, the twin of ``repro.launch.steps``: the
 spec plumbing (each leaf's shape, dtype and partition spec under a
-mesh's rules, without allocating a parameter) and the GNN part.  A cell
-is one (architecture x input shape) pair; here the DimeNet cells of
-``GNN_SHAPES``, with their per-shape configuration, analytic model FLOPs
-and the training step the reference compiles for them.
+mesh's rules, without allocating a parameter), the LM, PreTTR and GNN
+cells and the dispatcher (:func:`build_cell`, :func:`cell_names`,
+:func:`backend_support`).  A cell is one (architecture x input shape)
+pair: its step function, its args as trees of :class:`TensorSpec`, its
+analytic model FLOPs a call, notes and donated args.
 
 The reference builds each cell from abstract, sharded shapes for its
-compile dry-run.  The LM, PreTTR and recsys cells and the dry-run itself
-wait for ROADMAP Queue 1 items 7.2 and 7.3; the port runs its GNN cells
-on real data instead (``chip_smoke.py``).
+compile dry-run (ROADMAP Queue 1 item 7.3).  The port runs its cells:
+:func:`cell_inputs` makes a cell's args from a seed, whole or as this
+rank's part, and the step functions take real tensors, on one device or
+on a rank of an SPMD mesh (``launch.mesh.run_spmd``), where the sharded
+transformer (``models.transformer_spmd``) does what GSPMD does for the
+reference.  The recsys cells wait for ROADMAP Queue 1 item 7.2b
+(:func:`build_cell` raises on them).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Callable
 
 import torch
 
-from repro_torch.configs import ArchSpec
-from repro_torch.dist.compat import PartitionSpec
-from repro_torch.dist.sharding import ShardingRules, divisible_spec
+from repro_torch.configs import ArchSpec, get_arch
+from repro_torch.dist import spmd as S
+from repro_torch.dist.compat import PartitionSpec, SpmdMesh
+from repro_torch.dist.context import install_rules
+from repro_torch.dist.sharding import (ShardingRules, divisible_spec,
+                                       replicated_serving_rules)
 from repro_torch.models.gnn.dimenet import (DimeNetConfig, energy_loss,
                                             node_cls_loss)
 from repro_torch.optim import (OptimizerConfig, adam_update, init_opt_state,
@@ -102,6 +112,79 @@ def param_init(spec: ArchSpec):
         from repro_torch.models.recsys.deepfm import deepfm_axes, init_deepfm
         init, axes = init_deepfm, deepfm_axes
     return lambda gen, device: (init(cfg, gen, device=device), axes(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Cells
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Cell:
+    """One (architecture x input shape) cell, the reference's ``Cell``:
+    ``fn(*args)``, ``args`` as trees of :class:`TensorSpec` (the whole
+    leaves' shapes, dtypes and partition specs), the analytic useful
+    FLOPs of one call, notes and the donated arg indices (the reference
+    donates state and caches; here a step returns new state and writes a
+    cache in place).  The reference only compiles a cell; the port runs
+    one, so two fields are its own: ``inputs(generator, device)`` makes
+    the whole args from a seed, and ``local(args)`` takes this rank's part
+    of them (:func:`cell_inputs`)."""
+    arch: str
+    shape: str
+    kind: str
+    fn: Callable
+    args: tuple
+    model_flops: float
+    notes: str = ""
+    donate: tuple = ()
+    inputs: Callable | None = None
+    local: Callable | None = None
+
+
+def _installed(rules):
+    return install_rules(rules) if rules is not None \
+        else contextlib.nullcontext()
+
+
+def _spec_local(args, specs, mesh):
+    """Each leaf's block under its spec on an SPMD mesh (the whole leaf
+    on any other mesh)."""
+    if not isinstance(mesh, SpmdMesh):
+        return args
+    return tree_map(lambda x, t: S.shard_leaf(x, t.spec, mesh)
+                    if torch.is_tensor(x) else x, args, specs)
+
+
+def _specs_of(tree):
+    """The PartitionSpec tree of a tree of :class:`TensorSpec`."""
+    return tree_map(lambda t: t.spec, tree)
+
+
+def _ids(gen, shape, high, device):
+    return torch.randint(0, high, shape, generator=gen,
+                         device=gen.device).to(device, torch.int32)
+
+
+def _prefix_valid(gen, n, length, lo, device):
+    """[n, length] bool: a random valid prefix of at least ``lo`` of each
+    row."""
+    lens = torch.randint(lo, length + 1, (n, 1), generator=gen,
+                         device=gen.device)
+    return (torch.arange(length, device=gen.device) < lens).to(device)
+
+
+def _sharded_adam(grads, state, opt_cfg, specs):
+    """AdamW on this rank's blocks: the global norm summed over the
+    ranks that hold a leaf's other blocks (one process: the plain
+    norm)."""
+    from repro_torch.models import transformer_spmd as SP
+
+    mesh = SP.active_mesh()
+    norm = None if mesh is None else \
+        (lambda g: S.global_norm(g, specs, mesh))
+    return adam_update(grads, state["opt"], state["params"], opt_cfg,
+                       lr=opt_cfg.lr, norm_fn=norm)
 
 
 # ---------------------------------------------------------------------------
@@ -190,3 +273,473 @@ def gnn_train_step(params, opt, cfg: DimeNetConfig, opt_cfg, batch):
     params, opt, gn = adam_update(grads, opt, params, opt_cfg,
                                   lr=opt_cfg.lr)
     return params, opt, {"loss": loss, "grad_norm": gn}
+
+
+def make_gnn_cell(spec: ArchSpec, shape_name: str,
+                  rules: ShardingRules) -> Cell:
+    """The reference's DimeNet cell: the batch specs of
+    :func:`gnn_cell_config`'s sizes and one :func:`gnn_train_step` under
+    ``rules``.  Its graphs come from ``data.graphs`` (``chip_smoke.py``'s
+    dimenet phase), not from :func:`cell_inputs`."""
+    from repro_torch.models.gnn.dimenet import dimenet_axes, init_dimenet
+
+    c = gnn_cell_config(spec, shape_name)
+    cfg, n_nodes, ne, nt = c.cfg, c.n_nodes, c.n_edges, c.n_trip
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    batch = {
+        "node_feat": (sds((n_nodes, cfg.d_feat), f32, rules,
+                          ("table_rows", None)) if cfg.d_feat else
+                      sds((n_nodes,), i32, rules, (None,))),
+        "positions": sds((n_nodes, 3), f32, rules, (None, None)),
+        "edge_src": sds((ne,), i32, rules, ("edges",)),
+        "edge_dst": sds((ne,), i32, rules, ("edges",)),
+        "edge_valid": sds((ne,), b8, rules, ("edges",)),
+        "trip_kj": sds((nt,), i32, rules, ("edges",)),
+        "trip_ji": sds((nt,), i32, rules, ("edges",)),
+        "trip_valid": sds((nt,), b8, rules, ("edges",)),
+    }
+    if cfg.task == "energy":
+        batch["graph_ids"] = sds((n_nodes,), i32, rules, (None,))
+        batch["labels"] = sds((c.n_graphs,), f32, rules, (None,))
+    else:
+        batch["labels"] = sds((n_nodes,), i32, rules, (None,))
+    opt_cfg = OptimizerConfig()
+    st = state_specs(lambda g, d: (init_dimenet(cfg, g, device=d),
+                                   dimenet_axes(cfg)), opt_cfg, rules)
+
+    def train_step(state, batch):
+        with _installed(rules):
+            params, opt, out = gnn_train_step(state["params"], state["opt"],
+                                              cfg, opt_cfg, batch)
+        return {"params": params, "opt": opt}, out
+
+    return Cell(spec.name, shape_name, c.kind, train_step, (st, batch),
+                model_flops=c.model_flops,
+                notes=f"nodes={n_nodes} edges={ne} trip={nt}", donate=(0,))
+
+
+# ---------------------------------------------------------------------------
+# LM cells
+# ---------------------------------------------------------------------------
+
+
+def _lm_opt_cfg(cfg) -> OptimizerConfig:
+    big = cfg.num_params() > 20e9
+    return OptimizerConfig(m_dtype=torch.bfloat16 if big else torch.float32,
+                           keep_master=False)
+
+
+def _lm_accum(arch: str) -> int:
+    return {"mistral-large-123b": 4, "qwen3-moe-235b-a22b": 4,
+            "granite-moe-3b-a800m": 2}.get(arch, 1)
+
+
+def _micro_batch(x, j: int, accum: int, mesh):
+    """Micro-batch ``j`` of the reference's reshape of the global batch
+    (global rows ``[j gb / accum, (j + 1) gb / accum)``), this rank's
+    data rows of it: the rows are gathered over the data axes (token ids,
+    a few MB at 256 x 4096) and cut again."""
+    if mesh is not None:
+        x = S.gather_data(x, mesh)
+    rows = x.shape[0] // accum
+    x = x[j * rows:(j + 1) * rows]
+    return x if mesh is None else S.data_block(x, mesh)
+
+
+def make_lm_train_step(cfg, opt_cfg: OptimizerConfig, accum: int,
+                       rules: ShardingRules | None = None,
+                       param_specs=None):
+    """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``, the
+    reference's: ``causal_lm_loss`` and its gradient over ``accum``
+    micro-batches, the float32 gradients summed and divided by ``accum``,
+    then ``adam_update``.  Under ``rules`` over an SPMD mesh ``state``
+    holds this rank's shards (``param_specs``: their PartitionSpec tree)
+    and ``batch`` (``tokens``, ``labels``) its data rows; each gradient
+    comes back and is summed in the shards' own layout (what the
+    reference's ``_shard_like_params`` enforces), and the clipping norm
+    is summed over the ranks.  The loss runs ``cfg``'s impls; under
+    ``"cuda"`` the forward launches the kernels and the backward takes
+    the plain versions' gradient (``models.backend``)."""
+    from repro_torch.models import transformer_spmd as SP
+    from repro_torch.models.transformer import causal_lm_loss
+
+    def train_step(state, batch):
+        with _installed(rules):
+            mesh = SP.active_mesh()
+            specs = param_specs
+            if mesh is not None and specs is None:
+                specs = SP.param_specs(cfg, rules)
+            params = state["params"]
+
+            def loss_fn(mb):
+                return lambda p: causal_lm_loss(p, cfg, mb["tokens"],
+                                                mb["labels"])
+
+            if accum <= 1:
+                loss, grads = value_and_grad(loss_fn(batch), params)
+            else:
+                grads, loss = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device),
+                    params), 0.0
+                for j in range(accum):
+                    mb = {k: _micro_batch(v, j, accum, mesh)
+                          for k, v in batch.items()}
+                    lj, g = value_and_grad(loss_fn(mb), params)
+                    grads = tree_map(lambda a, b: a if b is None
+                                     else a + b.float(), grads, g)
+                    loss = loss + lj
+                grads = tree_map(lambda g: g / accum, grads)
+                loss = loss / accum
+            params, opt, gn = _sharded_adam(grads, state, opt_cfg, specs)
+        return {"params": params, "opt": opt}, \
+            {"loss": loss, "grad_norm": gn}
+
+    return train_step
+
+
+def make_lm_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules, *,
+                 batch: int | None = None, seq: int | None = None) -> Cell:
+    """The reference's LM cell of ``shape_name``: ``train`` (AdamW over
+    ``_lm_accum`` micro-batches), ``prefill`` (``forward(collect_cache=
+    True)`` and the last position's logits) or ``decode`` (one
+    ``decode_step`` against a ``seq``-long cache at position ``pos``).
+    Inference casts the config to bf16 params, as the reference's
+    ``icfg``.  ``batch`` / ``seq`` cut the shape's global batch and
+    sequence (the specs follow).
+
+    Under rules over an SPMD mesh a rank's K/V cache is
+    ``transformer_spmd.cache_block``'s layout (its data rows, the kv
+    heads its query heads read), not the block of the cache's spec,
+    which keeps the reference's ``DECODE_CACHE_AXES`` (its sequence cut
+    over ``model``)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models import transformer_spmd as SP
+
+    info = spec.shapes[shape_name]
+    kind = info["kind"]
+    gb, seq = batch or info["global_batch"], seq or info["seq_len"]
+    cfg = spec.config
+    n_act = cfg.num_active_params()
+    ids = lambda gen, shape, device: _ids(gen, shape, cfg.vocab_size,
+                                          device)
+
+    if kind == "train":
+        opt_cfg = _lm_opt_cfg(cfg)
+        accum = _lm_accum(spec.name)
+        st = state_specs(lambda g, d: (T.init_params(cfg, g, d),
+                                       T.param_axes(cfg)), opt_cfg, rules)
+        data = {"tokens": sds((gb, seq), torch.int32, rules,
+                              ("batch", None)),
+                "labels": sds((gb, seq), torch.int32, rules,
+                              ("batch", None))}
+        fn = make_lm_train_step(cfg, opt_cfg, accum, rules,
+                                _specs_of(st["params"]))
+
+        def inputs(gen, device):
+            params = T.init_params(cfg, gen, device)
+            return ({"params": params,
+                     "opt": init_opt_state(params, opt_cfg)},
+                    {"tokens": ids(gen, (gb, seq), device),
+                     "labels": ids(gen, (gb, seq), device)})
+
+        args = (st, data)
+        return Cell(spec.name, shape_name, "train", fn, args,
+                    model_flops=6.0 * n_act * gb * seq,
+                    notes=f"grad_accum={accum}", donate=(0,), inputs=inputs,
+                    local=lambda a: _spec_local(a, args, rules.mesh))
+
+    icfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    p_shapes, p_axes = eval_params(lambda g, d: (T.init_params(icfg, g, d),
+                                                 T.param_axes(icfg)))
+    params = attach_shardings(p_shapes, p_axes, rules)
+    init = lambda gen, device: T.init_params(icfg, gen, device)
+
+    if kind == "prefill":
+        def prefill_step(params, tokens):
+            with _installed(rules), torch.no_grad():
+                hidden, kv, _ = T.forward(params, icfg, tokens,
+                                          collect_cache=True)
+                lg = T.logits(params, icfg, hidden[:, -1:])
+            return lg, kv
+
+        tokens = sds((gb, seq), torch.int32, rules, ("batch", None))
+        args = (params, tokens)
+        return Cell(spec.name, shape_name, "prefill", prefill_step, args,
+                    model_flops=2.0 * n_act * gb * seq,
+                    inputs=lambda gen, device: (
+                        init(gen, device), ids(gen, (gb, seq), device)),
+                    local=lambda a: _spec_local(a, args, rules.mesh))
+
+    # decode: one new token against a seq_len KV cache
+    def serve_step(params, tokens, cache, pos):
+        with _installed(rules), torch.no_grad():
+            return T.decode_step(params, icfg, tokens, cache, int(pos))
+
+    cache_shape = (cfg.n_layers, gb, seq, cfg.n_kv_heads, cfg.dh)
+    cache = tuple(sds(cache_shape, torch.bfloat16, rules,
+                      T.DECODE_CACHE_AXES) for _ in range(2))
+    tokens = sds((gb, 1), torch.int32, rules, ("batch", None))
+    pos = TensorSpec((), torch.int32, PartitionSpec())
+    args = (params, tokens, cache, pos)
+
+    def inputs(gen, device):
+        kv = tuple(torch.randn(cache_shape, generator=gen,
+                               device=gen.device, dtype=torch.bfloat16)
+                   .to(device) for _ in range(2))
+        return (init(gen, device), ids(gen, (gb, 1), device), kv,
+                torch.tensor(seq - 1, dtype=torch.int32, device=device))
+
+    def local(a):
+        p, t = _spec_local(a[:2], args[:2], rules.mesh)
+        kv = a[2]
+        if isinstance(rules.mesh, SpmdMesh):
+            kv = tuple(SP.cache_block(c, icfg, rules.mesh) for c in kv)
+        return p, t, kv, a[3]
+
+    # useful decode FLOPs: params matmuls + attention against the cache
+    attn_flops = 4.0 * gb * seq * cfg.n_heads * cfg.dh
+    return Cell(spec.name, shape_name, "decode", serve_step, args,
+                model_flops=2.0 * n_act * gb + attn_flops, donate=(2,),
+                inputs=inputs, local=local)
+
+
+# ---------------------------------------------------------------------------
+# PreTTR cells (the paper's own model)
+# ---------------------------------------------------------------------------
+
+PRETTR_SHAPES = {
+    "rank_train":  {"kind": "prettr_train", "global_batch": 256},
+    "index_docs":  {"kind": "prettr_index", "batch": 4096},
+    "serve_join":  {"kind": "prettr_serve", "batch": 2048},
+}
+
+
+def make_prettr_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
+                     *, batch: int | None = None) -> Cell:
+    """The reference's PreTTR cells: ``rank_train`` (``rank_pairs_loss``
+    over positive and negative pairs, then AdamW, under ``rules``),
+    ``index_docs`` (``precompute_docs``) and ``serve_join``
+    (``join_and_score``); the last two under ``replicated_serving_rules``,
+    the batch cut over every axis and the weights whole.  ``batch`` cuts
+    the shape's batch.  ``rank_train`` differentiates through the
+    config's impls (under ``"cuda"`` the kernels forward, the plain
+    versions' gradient backward: ``models.backend``)."""
+    from repro_torch.core import prettr as P
+
+    cfg = spec.config
+    bcfg = cfg.backbone
+    info = PRETTR_SHAPES[shape_name]
+    if shape_name in ("index_docs", "serve_join"):
+        rules = replicated_serving_rules(rules.mesh)
+    lq, ld = cfg.max_query_len, cfg.max_doc_len
+    s = lq + ld
+    n = bcfg.num_params()
+    init = lambda g, d: (P.init_prettr(cfg, g, d), P.prettr_axes(cfg))
+
+    def cell(kind, fn, args, flops, inputs, **kw):
+        return Cell(spec.name, shape_name, kind, fn, args, model_flops=flops,
+                    inputs=inputs,
+                    local=lambda a: _spec_local(a, args, rules.mesh), **kw)
+
+    if info["kind"] == "prettr_train":
+        gb = batch or info["global_batch"]
+        opt_cfg = OptimizerConfig()
+        st = state_specs(init, opt_cfg, rules)
+        specs = _specs_of(st["params"])
+        pair = {"tokens": sds((gb, s), torch.int32, rules, ("batch", None)),
+                "segs": sds((gb, s), torch.int32, rules, ("batch", None)),
+                "valid": sds((gb, s), torch.bool, rules, ("batch", None))}
+
+        def train_step(state, pos, neg):
+            with _installed(rules):
+                loss, grads = value_and_grad(
+                    lambda p: P.rank_pairs_loss(p, cfg, pos, neg),
+                    state["params"])
+                params, opt, gn = _sharded_adam(grads, state, opt_cfg,
+                                                specs)
+            return {"params": params, "opt": opt}, \
+                {"loss": loss, "grad_norm": gn}
+
+        def pairs(gen, device):
+            valid = torch.cat([_prefix_valid(gen, gb, lq, 2, device),
+                               _prefix_valid(gen, gb, ld, 2, device)], 1)
+            segs = torch.cat([torch.zeros((gb, lq), dtype=torch.int32),
+                              torch.ones((gb, ld), dtype=torch.int32)],
+                             1).to(device)
+            toks = _ids(gen, (gb, s), bcfg.vocab_size, device) * valid
+            return {"tokens": toks, "segs": segs, "valid": valid}
+
+        def inputs(gen, device):
+            params = P.init_prettr(cfg, gen, device)
+            return ({"params": params, "opt": init_opt_state(params,
+                                                             opt_cfg)},
+                    pairs(gen, device), pairs(gen, device))
+
+        return cell(info["kind"], train_step, (st, pair, pair),
+                    2 * 3 * 2.0 * n * gb * s, inputs, donate=(0,))
+
+    p_shapes, p_axes = eval_params(init)
+    params = attach_shardings(p_shapes, p_axes, rules)
+    b = batch or info["batch"]
+
+    if info["kind"] == "prettr_index":
+        def index_step(params, docs, valid):
+            with _installed(rules), torch.no_grad():
+                return P.precompute_docs(params, cfg, docs, valid)
+
+        def inputs(gen, device):
+            valid = _prefix_valid(gen, b, ld, 2, device)
+            return (P.init_prettr(cfg, gen, device),
+                    _ids(gen, (b, ld), bcfg.vocab_size, device) * valid,
+                    valid)
+
+        args = (params,
+                sds((b, ld), torch.int32, rules, ("batch", None)),
+                sds((b, ld), torch.bool, rules, ("batch", None)))
+        return cell(info["kind"], index_step, args,
+                    2.0 * n * (cfg.l / bcfg.n_layers) * b * ld, inputs)
+
+    def join_step(params, q_reps, q_valid, store, d_valid):
+        with _installed(rules), torch.no_grad():
+            return P.join_and_score(params, cfg, q_reps, q_valid, store,
+                                    d_valid)
+
+    e = cfg.compress_dim or bcfg.d_model
+
+    def inputs(gen, device):
+        normal = lambda *shape: torch.randn(shape, generator=gen,
+                                            device=gen.device)
+        # stored reps as the compressor writes them: GELU outputs
+        store = torch.nn.functional.gelu(normal(b, ld, e),
+                                         approximate="tanh")
+        return (P.init_prettr(cfg, gen, device),
+                normal(b, lq, bcfg.d_model).to(device),
+                _prefix_valid(gen, b, lq, 2, device),
+                store.to(device, cfg.store_dtype),
+                _prefix_valid(gen, b, ld, 2, device))
+
+    args = (params,
+            sds((b, lq, bcfg.d_model), torch.float32, rules,
+                ("batch", None, None)),
+            sds((b, lq), torch.bool, rules, ("batch", None)),
+            sds((b, ld, e), torch.float16, rules, ("batch", None, None)),
+            sds((b, ld), torch.bool, rules, ("batch", None)))
+    frac = (bcfg.n_layers - cfg.l) / bcfg.n_layers
+    return cell(info["kind"], join_step, args, 2.0 * n * frac * b * s,
+                inputs)
+
+
+# ---------------------------------------------------------------------------
+# Dispatcher
+# ---------------------------------------------------------------------------
+
+
+def backend_support(cfg, backend: str | None) -> str:
+    """``"applied"`` if ``backend`` (``"cuda"`` or ``"plain"``) lands on
+    ``cfg``, ``"passthrough"`` if the config has no backend knob (recsys,
+    GNN), ``"unsupported"`` if the arch cannot run it: the reference's
+    logic, its ``"pallas"`` being the port's ``"cuda"``.  One stated
+    difference: the split kernel takes the window at runtime, so a layer
+    range that mixes windows (gemma3-4b) is ``"applied"`` under
+    ``"cuda"`` where the reference's ``"pallas"`` is ``"unsupported"``.
+    A bare TransformerConfig whose split flags differ across its layers
+    stays ``"unsupported"``: the kernel impl refuses it (a PreTTRConfig's
+    cells run the uniform subranges [0, l) and [l, n))."""
+    from repro_torch.models.backend import impls_for, transformer_config_of
+
+    if backend is None:
+        return "passthrough"
+    impls_for(backend)
+    tcfg = transformer_config_of(cfg)
+    if tcfg is None:
+        return "passthrough"
+    if backend == "cuda" and tcfg is cfg \
+            and 0 < tcfg.split_layers < tcfg.n_layers:
+        return "unsupported"
+    return "applied"
+
+
+def _with_backend(spec: ArchSpec, backend: str | None) -> ArchSpec:
+    """A spec whose configs route through ``backend``; configs where it
+    does not apply (:func:`backend_support`) pass through unchanged."""
+    if backend is None:
+        return spec
+    from repro_torch.models.backend import apply_backend
+
+    def swap(cfg):
+        if cfg is None or backend_support(cfg, backend) != "applied":
+            return cfg
+        return apply_backend(cfg, backend)
+
+    return dataclasses.replace(spec, config=swap(spec.config),
+                               smoke=swap(spec.smoke))
+
+
+def build_cell(arch: str, shape_name: str, rules: ShardingRules,
+               backend: str | None = None, *, smoke: bool = False,
+               batch: int | None = None, seq: int | None = None,
+               n_layers: int | None = None) -> Cell:
+    """The cell ``(arch, shape_name)`` under ``rules``, its configs routed
+    through ``backend``.  The port's cuts for running a cell where its
+    published size does not fit: ``smoke`` takes the arch's smoke config,
+    ``n_layers`` keeps that many layers, ``batch`` / ``seq`` cut the
+    shape's batch and sequence (widths stay as published).  The recsys
+    cells raise ``NotImplementedError``: ROADMAP Queue 1 item 7.2b."""
+    return build_spec_cell(get_arch(arch), shape_name, rules, backend,
+                           smoke=smoke, batch=batch, seq=seq,
+                           n_layers=n_layers)
+
+
+def build_spec_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
+                    backend: str | None = None, *, smoke: bool = False,
+                    batch: int | None = None, seq: int | None = None,
+                    n_layers: int | None = None) -> Cell:
+    """:func:`build_cell` of the architecture ``spec`` describes (as
+    registered, or with its configs replaced)."""
+    arch = spec.name
+    spec = _with_backend(spec, backend)
+    if spec.family == "recsys":
+        raise NotImplementedError(
+            f"{arch}: the recsys cells are not ported yet (ROADMAP Queue 1 "
+            f"item 7.2b)")
+    if smoke:
+        spec = dataclasses.replace(spec, config=spec.smoke)
+    if n_layers is not None:
+        cfg = spec.config
+        if hasattr(cfg, "backbone"):
+            raise ValueError(f"{arch}: n_layers cuts a transformer LM")
+        spec = dataclasses.replace(spec, config=dataclasses.replace(
+            cfg, n_layers=n_layers))
+    if arch == "prettr-bert":
+        return make_prettr_cell(spec, shape_name, rules, batch=batch)
+    if spec.family == "lm":
+        return make_lm_cell(spec, shape_name, rules, batch=batch, seq=seq)
+    return make_gnn_cell(spec, shape_name, rules)
+
+
+def cell_names(include_prettr: bool = True) -> list[tuple[str, str]]:
+    """Every (arch, shape) cell of the reference's dry-run, recsys cells
+    included."""
+    from repro_torch.configs import ASSIGNED_ARCHS, arch_cells
+
+    out = [(arch, shape) for arch in ASSIGNED_ARCHS
+           for shape in arch_cells(arch)]
+    if include_prettr:
+        out += [("prettr-bert", shape) for shape in PRETTR_SHAPES]
+    return out
+
+
+def cell_inputs(cell: Cell, generator: torch.Generator, device, *,
+                whole: bool = False):
+    """Real tensors for ``cell.args``, made from ``generator`` (seeded
+    weights from the model's own init, token ids, valid prefixes, random
+    reps and caches) on ``device``: the whole leaves (``whole``), or this
+    rank's part of them under the cell's rules (``cell.local``: each
+    leaf's block under its spec, a decode cache in the sharded
+    transformer's layout).  It adds no feature to the model: the reference
+    only compiles its cells."""
+    if cell.inputs is None:
+        raise ValueError(f"{cell.arch} {cell.shape}: the DimeNet cells take "
+                         f"a graph from data.graphs")
+    args = cell.inputs(generator, device)
+    return args if whole else cell.local(args)

@@ -42,6 +42,14 @@ call.  That computes what the JAX ``plain``/``blocked`` impls compute
 (the JAX ``pallas`` impl takes uniform layer ranges only); it adds no
 feature.
 
+Training through ``"cuda"``: where autograd records through a float
+input of ``attention``, ``decode_attention``, ``compress`` or
+``decompress``, the op runs :class:`_PlainGradient`: its forward
+launches the kernel (the wrappers themselves refuse inputs that require
+grad), its backward recomputes the plain version on the saved inputs
+and differentiates that.  ``join_attention`` runs at inference only and
+keeps the wrappers' refusal.
+
 A backend family (:func:`impls_for`, :func:`apply_backend`) sets both
 knobs of a config at once, as the entry points' ``backend=`` argument
 does: ``"cuda"`` or ``"plain"``.
@@ -100,16 +108,30 @@ def impls_for(backend: str) -> tuple[str, str]:
     return backend, backend
 
 
+def transformer_config_of(cfg):
+    """The TransformerConfig carrying the backend knobs (``attn_impl`` and
+    ``compress_impl``): ``cfg`` itself, its ``backbone`` *field* (a
+    PreTTRConfig; a ``backbone()`` method, as on Bert4RecConfig, whose
+    own ``attn_impl`` feeds it, is not this case), or None."""
+    import dataclasses
+
+    knobs = lambda c: hasattr(c, "attn_impl") and hasattr(c, "compress_impl")
+    bb = getattr(cfg, "backbone", None)
+    if dataclasses.is_dataclass(bb) and knobs(bb):
+        return bb
+    return cfg if knobs(cfg) else None
+
+
 def apply_backend(cfg, backend: str):
     """Copy of ``cfg`` (a TransformerConfig, or a PreTTRConfig carrying
     one as its ``backbone``) rerouted through the ``backend`` family."""
     import dataclasses
 
     attn_impl, compress_impl = impls_for(backend)
-    bb = getattr(cfg, "backbone", None)
-    if dataclasses.is_dataclass(bb) and hasattr(bb, "attn_impl"):
+    tcfg = transformer_config_of(cfg)
+    if tcfg is not None and tcfg is not cfg:
         return dataclasses.replace(cfg, backbone=dataclasses.replace(
-            bb, attn_impl=attn_impl, compress_impl=compress_impl))
+            tcfg, attn_impl=attn_impl, compress_impl=compress_impl))
     return dataclasses.replace(cfg, attn_impl=attn_impl,
                                compress_impl=compress_impl)
 
@@ -167,6 +189,38 @@ def _model_layout_out(q):
     return out, out.transpose(1, 2)
 
 
+class _PlainGradient(torch.autograd.Function):
+    """``kernel(*xs)`` with the gradient of ``plain(*xs)``: the forward
+    runs with grad off, so the kernel wrapper takes the call; the
+    backward recomputes ``plain`` on the saved inputs and differentiates
+    it, so nothing of the plain forward is held between the passes."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *xs):
+        ctx.plain = plain
+        ctx.save_for_backward(*xs)
+        return kernel(*xs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xs = [x.detach().requires_grad_(need) for x, need in
+              zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            out = ctx.plain(*xs)
+        grads = iter(torch.autograd.grad(
+            out, [x for x in xs if x.requires_grad], grad))
+        return (None, None,
+                *(next(grads) if x.requires_grad else None for x in xs))
+
+
+def _trainable(kernel, plain, *xs):
+    """``kernel(*xs)``; where autograd records through one of the float
+    tensors ``xs``, with ``plain``'s gradient (:class:`_PlainGradient`)."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return _PlainGradient.apply(kernel, plain, *xs)
+    return kernel(*xs)
+
+
 # -- attention -------------------------------------------------------------
 
 
@@ -188,14 +242,19 @@ def _attention_plain(q, k, v, *, cfg, scale, split_flag, segs, valid,
 @register("attention", "cuda")
 def _attention_cuda(q, k, v, *, cfg, scale, split_flag, segs, valid,
                     seg_boundary=-1, window=-1, positions=None):
-    del scale, segs, positions       # the kernel derives all three
-    out, out_t = _model_layout_out(q)
-    split_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), None, k_valid=valid,
-                          causal=cfg.causal, window=int(window),
-                          seg_boundary=seg_boundary if split_flag else -1,
-                          out=out_t)
-    return out
+    def kernel(q, k, v):             # it derives scale, segs, positions
+        out, out_t = _model_layout_out(q)
+        split_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), None, k_valid=valid,
+                              causal=cfg.causal, window=int(window),
+                              seg_boundary=seg_boundary if split_flag
+                              else -1, out=out_t)
+        return out
+
+    plain = lambda q, k, v: _attention_plain(
+        q, k, v, cfg=cfg, scale=scale, split_flag=split_flag, segs=segs,
+        valid=valid, window=window, positions=positions)
+    return _trainable(kernel, plain, q, k, v)
 
 
 # -- decode_attention --------------------------------------------------------
@@ -212,16 +271,22 @@ def _decode_plain(q, k, v, *, cfg, scale, q_pos, k_pos, window,
 @register("decode_attention", "cuda")
 def _decode_cuda(q, k, v, *, cfg, scale, q_pos, k_pos, window, k_valid=None,
                  lengths=None, static_window=None):
-    del cfg, scale, q_pos, k_pos, window   # the kernel's static contract
     if static_window is None:
         raise ValueError(
             "attn_impl='cuda' decode needs a static window; this layer "
             "range mixes window sizes -- use 'plain'")
-    out, out_t = _model_layout_out(q)
-    flash_decode_attention(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), lengths, k_valid=k_valid,
-                           window=int(static_window), out=out_t)
-    return out
+
+    def kernel(q, k, v):             # scale, q_pos: the static contract
+        out, out_t = _model_layout_out(q)
+        flash_decode_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), lengths, k_valid=k_valid,
+                               window=int(static_window), out=out_t)
+        return out
+
+    plain = lambda q, k, v: L.decode_attention(
+        q, k, v, scale=scale, k_pos=k_pos, q_pos=q_pos, window=window,
+        k_valid=k_valid)
+    return _trainable(kernel, plain, q, k, v)
 
 
 # -- join_attention ----------------------------------------------------------
@@ -282,8 +347,11 @@ def _compress_plain(params, x, *, store_dtype=torch.float16):
 
 @register("compress", "cuda")
 def _compress_cuda(params, x, *, store_dtype=torch.float16):
-    return fused_compress(x, params["w_comp"], params["b_comp"],
-                          out_dtype=store_dtype)
+    return _trainable(
+        lambda x, w, b: fused_compress(x, w, b, out_dtype=store_dtype),
+        lambda x, w, b: _compress_plain({"w_comp": w, "b_comp": b}, x,
+                                        store_dtype=store_dtype),
+        x, params["w_comp"], params["b_comp"])
 
 
 @register("decompress", "plain")
@@ -294,6 +362,11 @@ def _decompress_plain(params, r, *, compute_dtype=torch.bfloat16):
 
 @register("decompress", "cuda")
 def _decompress_cuda(params, r, *, compute_dtype=torch.bfloat16):
-    return fused_decompress(r, params["w_decomp"], params["b_decomp"],
-                            params["ln"]["scale"], params["ln"]["bias"],
-                            out_dtype=compute_dtype)
+    return _trainable(
+        lambda r, w, b, g, be: fused_decompress(r, w, b, g, be,
+                                                out_dtype=compute_dtype),
+        lambda r, w, b, g, be: _decompress_plain(
+            {"w_decomp": w, "b_decomp": b, "ln": {"scale": g, "bias": be}},
+            r, compute_dtype=compute_dtype),
+        r, params["w_decomp"], params["b_decomp"], params["ln"]["scale"],
+        params["ln"]["bias"])

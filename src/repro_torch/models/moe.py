@@ -32,9 +32,16 @@ every expert's columns, whose partial outputs are all-reduced over
 ``model``.
 
 The aux loss is a mean over every token of the mesh: the routing sums
-are all-reduced over the axes that split the tokens.  Gradients are
-autograd's on one device; under an SPMD mesh the FFN runs forward only
-(its collectives carry no gradient: ROADMAP.md Queue 1 item 7.2).
+are all-reduced over the axes that split the tokens.  Under an SPMD mesh
+every collective is one of :mod:`repro_torch.dist.spmd`'s autograd
+functions, so the FFN takes a gradient as on one device: the gathered
+expert outputs keep this rank's block of their gradient (every rank
+combines alike), the ``d_ff`` blocks' float32 all-reduce passes it
+through, and a tensor that the ranks of ``model`` use for different work
+(the dispatch buffer, or whole weights over a rank's share of the
+tokens) has its gradient summed over them.  A parameter's gradient is
+summed over the data groups by the caller (the sharded transformer's
+FSDP gather does).
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import spmd as S
 from repro_torch.dist.compat import SpmdMesh, axis_index
 from repro_torch.dist.context import current_rules
 
@@ -131,25 +139,6 @@ def _group_axes(mesh, include_model: bool):
     return fs if fs else None
 
 
-def _all_reduce(x, mesh, axes):
-    import torch.distributed as dist
-
-    if axes is not None:
-        dist.all_reduce(x, group=mesh.group(axes))
-    return x
-
-
-def _all_gather(x, mesh, dim):
-    import torch.distributed as dist
-
-    if "model" not in mesh.axis_names:
-        return x
-    group = mesh.group("model")
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
-
-
 def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
             activation=F.silu, n_groups: int | None = None,
             model_cut: str | None = None):
@@ -188,12 +177,8 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
         raise ValueError(f"moe_ffn: model_cut {model_cut!r} with {n_experts} "
                          f"experts over {n_model} model ranks")
     col_split = model_cut == "ff"
-    e_lo, n_local = 0, n_experts
+    e_lo, n_local, model = 0, n_experts, ()
     if spmd:
-        if torch.is_grad_enabled() and any(
-                p.requires_grad for p in (x, *params.values())):
-            raise RuntimeError("moe_ffn under an SPMD mesh runs forward "
-                               "only: its collectives carry no gradient")
         # the groups of this data group, then this rank's share of them
         local = g // g_mesh
         if g % g_mesh or t % local or (not use_ep and local % n_model):
@@ -202,11 +187,18 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
                 f"of {t} tokens and {n_model} model ranks do not split "
                 f"evenly")
         j = axis_index(mesh, "model") if "model" in mesh.shape else 0
+        if "model" in mesh.shape:
+            model = ("model",)
         if use_ep:
             n_local = n_experts // n_model
             e_lo = j * n_local
         elif not col_split:
-            x = x.reshape(n_model, t // n_model, d)[j]
+            # a share of the tokens through whole weights: what every
+            # model rank uses for its own tokens sums its gradient
+            params = {k: S.copy_to(v, mesh, model)
+                      for k, v in params.items()}
+            x = S.copy_to(x, mesh, model).reshape(n_model, t // n_model,
+                                                  d)[j]
             local //= n_model
         g, t_all = local, t * g_mesh
         token_axes = _group_axes(mesh, not (use_ep or col_split))
@@ -222,8 +214,9 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
     first = F.one_hot(experts[:, 0], n_experts).float()
     if spmd:
         # means over every token of the mesh
-        density = _all_reduce(first.sum(0), mesh, token_axes) / t_all
-        mean_probs = _all_reduce(probs.sum(0), mesh, token_axes) / t_all
+        density = S.all_reduce_sum(first.sum(0), mesh, token_axes) / t_all
+        mean_probs = S.all_reduce_sum(probs.sum(0), mesh,
+                                      token_axes) / t_all
     else:
         density, mean_probs = first.mean(0), probs.mean(0)
     aux_loss = n_experts * torch.sum(density * mean_probs)
@@ -241,9 +234,13 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
     del parts
 
     # expert parallelism: this rank's free slice of the experts (already
-    # its own under ``model_cut``)
-    w = {k: params[k] if model_cut else params[k][e_lo:e_lo + n_local]
-         for k in ("w_gate", "w_up", "w_down")}
+    # its own under ``model_cut``); the buffer, the same on every model
+    # rank, feeds each rank's own experts or d_ff columns
+    sliced = spmd and use_ep and not model_cut
+    w = {k: S.copy_to(params[k], mesh, model)[e_lo:e_lo + n_local]
+         if sliced else params[k] for k in ("w_gate", "w_up", "w_down")}
+    if spmd and (use_ep or col_split):
+        buf = S.copy_to(buf, mesh, model)
     buf = buf[:, e_lo:e_lo + n_local]
     h = activation(torch.einsum("gecd,edf->gecf", buf, w["w_gate"])) \
         * torch.einsum("gecd,edf->gecf", buf, w["w_up"])
@@ -251,10 +248,11 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
     out_buf = torch.einsum("gecf,efd->gecd", h, w["w_down"])
     del h
     if spmd and use_ep:
-        out_buf = _all_gather(out_buf, mesh, dim=1)      # [G, E, C, d]
+        out_buf = S.all_gather(out_buf, 1, mesh, model,
+                               backward="split")        # [G, E, C, d]
     elif col_split:
         # the d_ff blocks' partial products, summed in float32
-        out_buf = _all_reduce(out_buf.float(), mesh, "model") \
+        out_buf = S.all_reduce_sum(out_buf.float(), mesh, model) \
             .to(out_buf.dtype)
 
     # combine: the k slots in order, in float32; a dropped slot gathers 0
@@ -269,5 +267,5 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
         out = out + gath.float() * w_g[:, :, kk, None]
     out = out.reshape(g * tg, d).to(x.dtype)
     if spmd and not (use_ep or col_split):
-        out = _all_gather(out, mesh, dim=0)
+        out = S.all_gather(out, 0, mesh, model, backward="split")
     return out, aux_loss

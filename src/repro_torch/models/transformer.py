@@ -263,6 +263,15 @@ class Local:
     def head(self, params, cfg):
         return _head(params, cfg)
 
+    def full_logits(self, lg):
+        """Logits over the whole vocab from this rank's columns."""
+        return lg
+
+    def whole(self, tree, key: str):
+        """A parameter tree outside the transformer's own (``key`` names
+        it to the route), as every rank uses it alike."""
+        return tree
+
     def logsumexp(self, lg):
         return torch.logsumexp(lg, dim=-1)
 
@@ -476,15 +485,17 @@ def _run_layers(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
 
 def run_layer_range(params, cfg: TransformerConfig, x, lo: int, hi: int, *,
                     positions=None, segs=None, valid=None,
-                    seg_boundary: int = -1):
+                    seg_boundary: int = -1, route=LOCAL):
     """Run layers [lo, hi) over already-embedded ``x``: the hook PreTTR
     uses for precompute (0..l) and join (l..n).  Layers below
     ``cfg.split_layers`` carry the split mask: by segment ids in the plain
     impl, at the static token index ``seg_boundary`` in the kernel impl
-    (-1 = single segment)."""
+    (-1 = single segment).  ``route``: the weights' views and collectives
+    (``transformer_spmd.Route`` over an SPMD mesh)."""
     return _run_layers(params, cfg, x, lo, hi,
                        positions=_positions(x, positions), segs=segs,
-                       valid=valid, seg_boundary=seg_boundary)[0]
+                       valid=valid, seg_boundary=seg_boundary,
+                       route=route)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -522,7 +533,9 @@ def forward(params, cfg: TransformerConfig, tokens, *, positions=None,
     (``dist.spmd.shard_tree`` over :func:`param_axes`) and ``tokens`` its
     data group's rows: the FSDP / tensor-parallel route of
     :mod:`repro_torch.models.transformer_spmd`; the hidden states are
-    whole on every rank of the data group, and no K/V is collected."""
+    whole on every rank of the data group, and ``kv`` is this rank's
+    cache, ``[L, B / data, S, Hkv_local, Dh]``: the kv heads its query
+    heads read (``transformer_spmd.cache_block``)."""
     return _forward(params, cfg, tokens, _route(cfg), positions=positions,
                     segs=segs, valid=valid, collect_cache=collect_cache,
                     seg_boundary=seg_boundary)
@@ -531,10 +544,6 @@ def forward(params, cfg: TransformerConfig, tokens, *, positions=None,
 def _forward(params, cfg: TransformerConfig, tokens, route, *,
              positions=None, segs=None, valid=None, collect_cache=False,
              seg_boundary=-1):
-    if collect_cache and route is not LOCAL:
-        raise NotImplementedError(
-            "the sharded transformer collects no K/V cache: decode under "
-            "tensor parallelism is ROADMAP Queue 1 item 7.2")
     positions = _positions(tokens, positions)
     x = embed(params, cfg, tokens, positions, segs, route)
     x, kv, aux = _run_layers(params, cfg, x, 0, cfg.n_layers,
@@ -557,10 +566,17 @@ def _head(params, cfg: TransformerConfig):
 def logits(params, cfg: TransformerConfig, hidden):
     """``hidden [B, S, d]`` -> float32 logits ``[B, S, V]``: the compute
     dtype product summed and returned in float32, not rounded to bf16
-    (JAX's ``preferred_element_type``; ``layers.mm_f32``)."""
+    (JAX's ``preferred_element_type``; ``layers.mm_f32``).  Under rules
+    over an SPMD mesh ``params`` are this rank's shards: each rank of
+    ``model`` multiplies by its vocab columns and the logits are
+    gathered whole."""
+    return _logits(params, cfg, hidden, _route(cfg))
+
+
+def _logits(params, cfg: TransformerConfig, hidden, route):
     b, s, d = hidden.shape
-    return L.mm_f32(hidden.reshape(b * s, d), _head(params, cfg)) \
-        .reshape(b, s, -1)
+    lg = L.mm_f32(hidden.reshape(b * s, d), route.head(params, cfg))
+    return route.full_logits(lg).reshape(b, s, -1)
 
 
 def _chunk_nll(h, y, m, head, route=LOCAL):
@@ -629,13 +645,20 @@ def decode_step(params, cfg: TransformerConfig, tokens, cache,
     """One decode step.  tokens: [B, 1] at position ``cache_pos``; cache:
     ``(k, v)`` each ``[L, B, S, Hkv, Dh]``, written in place at
     ``cache_pos`` (callers that reuse a cache clone it first).  Returns
-    ``(logits [B, 1, V] float32, cache)``."""
+    ``(logits [B, 1, V] float32, cache)``.
+
+    Under rules over an SPMD mesh, as :func:`forward`: ``params`` are
+    this rank's shards, ``tokens`` its data group's rows and ``cache``
+    its ``[L, B / data, S, Hkv_local, Dh]`` block; each rank runs its
+    query heads against its kv heads (the ``decode_attention`` kind on
+    the local heads) and the logits come back whole."""
     b = tokens.shape[0]
+    route = _route(cfg)
     positions = torch.full((b, 1), int(cache_pos), dtype=torch.long,
                            device=tokens.device)
-    x = embed(params, cfg, tokens, positions, None)
+    x = embed(params, cfg, tokens, positions, None, route)
     x, cache, _ = _run_layers(params, cfg, x, 0, cfg.n_layers,
                               positions=positions, cache=cache,
-                              cache_pos=int(cache_pos))
-    x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    return logits(params, cfg, x), cache
+                              cache_pos=int(cache_pos), route=route)
+    x = L.apply_norm(route.final_norm(params), x, cfg.norm)
+    return _logits(params, cfg, x, route), cache

@@ -40,13 +40,25 @@ group's rows of the batch:
 * **MoE.**  The experts' ``embed`` dim is gathered like any other; the
   FFN then runs expert-parallel where E divides ``model``, column / row
   parallel over ``d_ff`` with an all-reduce where ``d_ff`` takes
-  ``model`` (``moe.moe_ffn(..., model_cut=...)``).  It runs forward only.
+  ``model`` (``moe.moe_ffn(..., model_cut=...)``), its collectives
+  autograd's, so the MoE blocks train as the dense ones do.
+* **Decode.**  With ``collect_cache`` a rank keeps the K/V of its own kv
+  heads; :func:`cache_block` gives a rank's ``[L, B / data, S,
+  Hkv_local, Dh]`` block of a whole cache, and ``decode_step`` runs each
+  rank's query heads against it, then gathers the vocab-parallel logits
+  whole (:meth:`Route.full_logits`).  JAX's ``DECODE_CACHE_AXES`` cut the
+  cache's sequence over ``model`` instead; that would need a
+  log-sum-exp merge of partial attentions across ranks, which the decode
+  kernel does not return.
 
-A dim the rules leave whole on a rank is used whole; work that ``model``
-does not split (heads it does not divide, a ``d_ff`` it does not divide)
-runs on every model rank alike, with no collective.  The residual stream
-is whole on every rank of a data group: JAX's ``act_shard`` constraints
-only place its bytes.
+Rules that cut the batch over ``model`` as well
+(``replicated_serving_rules``) give every rank its own rows with whole
+weights: there the model runs as in one process (:func:`active_mesh` is
+None).  A dim the rules leave whole on a rank is used whole; work that
+``model`` does not split (heads it does not divide, a ``d_ff`` it does
+not divide) runs on every model rank alike, with no collective.  The
+residual stream is whole on every rank of a data group: JAX's
+``act_shard`` constraints only place its bytes.
 """
 from __future__ import annotations
 
@@ -57,16 +69,19 @@ import torch
 
 from repro_torch.dist import spmd as S
 from repro_torch.dist.compat import SpmdMesh, axis_index
-from repro_torch.dist.context import current_rules
+from repro_torch.dist.context import current_rules, install_rules
 from repro_torch.models import transformer as T
+from repro_torch.tree import tree_map
 
 MODEL = ("model",)
 
 
 def active_mesh():
-    """The installed rules' mesh when it is an SPMD mesh, else None."""
+    """The installed rules' mesh when it is an SPMD mesh whose ``model``
+    ranks share a data group's rows, else None."""
     rules = current_rules()
-    if rules is not None and isinstance(rules.mesh, SpmdMesh):
+    if rules is not None and isinstance(rules.mesh, SpmdMesh) \
+            and "model" not in rules.mesh_axes("batch"):
         return rules.mesh
     return None
 
@@ -116,26 +131,50 @@ def plan(cfg, mesh) -> Plan:
                 (v0, min(vl, cfg.vocab_size - v0)))
 
 
+def lm_init(cfg, generator, device):
+    """``(params, axes)`` of a transformer config."""
+    return T.init_params(cfg, generator, device), T.param_axes(cfg)
+
+
 @functools.lru_cache(maxsize=32)
-def _specs(cfg, mesh_shape: tuple, rules_items: tuple):
-    """The PartitionSpec tree of the whole params of ``cfg`` (cached:
-    the shapes come from an init under FakeTensorMode)."""
+def _specs(init, cfg, mesh_shape: tuple, rules_items: tuple):
+    """The PartitionSpec tree of the whole params ``init(cfg, generator,
+    device) -> (params, axes)`` makes (cached: the shapes come from an
+    init under FakeTensorMode)."""
     from repro_torch.dist.compat import AbstractMesh
     from repro_torch.dist.sharding import ShardingRules
     from repro_torch.launch.steps import eval_params
 
-    shapes, axes = eval_params(lambda g, d: (T.init_params(cfg, g, d),
-                                             T.param_axes(cfg)))
+    shapes, axes = eval_params(lambda g, d: init(cfg, g, d))
     names, sizes = zip(*mesh_shape)
     rules = ShardingRules(AbstractMesh(sizes, names), dict(rules_items))
     return S.tree_specs(shapes, axes, rules)
 
 
-def param_specs(cfg, rules):
-    """The ``PartitionSpec`` of every leaf of ``cfg``'s params under
-    ``rules``."""
-    return _specs(cfg, tuple(rules.mesh.shape.items()),
+def param_specs(cfg, rules, init=lm_init):
+    """The ``PartitionSpec`` of every leaf of the params that ``init``
+    makes for ``cfg`` (default: a transformer's) under ``rules``."""
+    return _specs(init, cfg, tuple(rules.mesh.shape.items()),
                   tuple(sorted(rules.rules.items())))
+
+
+def _kv_heads(p: Plan, dh: int):
+    """The kv heads a rank's query heads read: a ``(start, length)``
+    block or a LongTensor of heads."""
+    if isinstance(p.kv_cols, tuple):
+        return p.kv_cols[0] // dh, p.kv_cols[1] // dh
+    return p.kv_cols.reshape(-1, dh)[:, 0] // dh
+
+
+def cache_block(x, cfg, mesh):
+    """This rank's block ``[L, B / data, S, Hkv_local, Dh]`` of a whole
+    ``[L, B, S, Hkv, Dh]`` K or V cache of ``cfg`` on ``mesh``: its data
+    group's rows and the kv heads its query heads read (a kv head that
+    several ranks read held whole by each).  The layout that
+    ``forward(collect_cache=True)`` returns and ``decode_step`` takes
+    under the sharded route."""
+    x = S.data_block(x, mesh, dim=1)
+    return _take(x, 3, _kv_heads(plan(cfg, mesh), cfg.dh)).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -204,11 +243,15 @@ class Route(T.Local):
     """The transformer's hooks on this rank of the installed rules' SPMD
     mesh: ``params`` are its shards, ``tokens`` its data group's rows.
     Made once a forward or loss call (it keeps the gathered token table
-    that the lookup and the tied head share)."""
+    that the lookup and the tied head share).  ``specs``: the
+    transformer's spec tree when its params sit inside a larger model's
+    (PreTTR's backbone), and ``extra`` the spec trees of that model's
+    other params, by key (:meth:`whole`)."""
 
-    def __init__(self, cfg):
-        rules = current_rules()
-        self.specs = param_specs(cfg, rules)
+    def __init__(self, cfg, specs=None, extra=None):
+        self.rules = rules = current_rules()
+        self.specs = param_specs(cfg, rules) if specs is None else specs
+        self.extra = extra or {}
         self.p = plan(cfg, rules.mesh)
         self.mesh = rules.mesh
         self._split = {"attn": self.p.attn_split, "ffn": self.p.mlp_split,
@@ -230,8 +273,15 @@ class Route(T.Local):
 
         # the layer's gathers are made again in the backward pass
         if torch.is_grad_enabled():
-            return checkpoint(fn, x, use_reentrant=False)
+            return checkpoint(self._under_rules, fn, x, use_reentrant=False)
         return fn(x)
+
+    def _under_rules(self, fn, x):
+        # the recomputation runs on autograd's own thread on the card,
+        # where the thread-local rules (which moe_ffn reads) are not
+        # installed
+        with install_rules(self.rules):
+            return fn(x)
 
     def enter(self, x, part):
         return S.copy_to(x, self.mesh, MODEL) if self._split[part] else x
@@ -315,6 +365,25 @@ class Route(T.Local):
             w = _view(params["lm_head"], self.specs["lm_head"], p,
                       split=split, dim=1 if split else None, index=p.vocab)
         return w.to(cfg.compute_dtype)
+
+    def full_logits(self, lg):
+        """``[N, V_local]`` float32 logits of this rank's vocab rows ->
+        ``[N, V]``: gathered over ``model`` (no gradient), the last
+        rank's short block padded for the gather and cut after."""
+        if not self.p.vocab_split:
+            return lg
+        m = self.mesh.shape["model"]
+        width = -(-self.p.local.vocab_size // m)
+        pad = lg.new_zeros((lg.shape[0], width - lg.shape[1]))
+        with torch.no_grad():
+            full = S._gather(torch.cat([lg, pad], 1), 1, self.mesh, MODEL)
+        return full[:, :self.p.local.vocab_size]
+
+    def whole(self, tree, key):
+        """``tree`` (this rank's shards of the params ``extra[key]``
+        specifies) with every dim gathered, as each rank uses it alike."""
+        return tree_map(lambda v, spec: _view(v, spec, self.p, split=False),
+                        tree, self.extra[key])
 
     def logsumexp(self, lg):
         """A float32 logsumexp over the vocab columns of every model

@@ -87,25 +87,28 @@ def _global_norm(grads):
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Scale ``grads`` so their global norm is at most ``max_norm``.
-    Returns ``(clipped grads, norm before clipping)``."""
-    gn = _global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, gn=None):
+    """Scale ``grads`` so their global norm (``gn`` when the caller has
+    it) is at most ``max_norm``.  Returns ``(clipped grads, norm before
+    clipping)``."""
+    gn = _global_norm(grads) if gn is None else gn
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
 
 @torch.no_grad()
-def adam_update(grads, opt_state: dict, params, cfg: OptimizerConfig, lr):
+def adam_update(grads, opt_state: dict, params, cfg: OptimizerConfig, lr,
+                norm_fn=None):
     """One AdamW step.  ``grads`` has the params' structure (a ``None``
     leaf is a zero gradient); ``lr`` a float or a float32 scalar tensor.
-    Returns ``(new_params, new_opt_state, grad_norm)``."""
+    ``norm_fn(grads)`` gives the global norm where the leaves are blocks
+    of sharded params (``dist.spmd.global_norm``).  Returns
+    ``(new_params, new_opt_state, grad_norm)``."""
     grads = tree_map(lambda p, g: torch.zeros_like(p) if g is None else g,
                      params, grads)
+    gn = (norm_fn or _global_norm)(grads)
     if cfg.grad_clip > 0:
-        grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
-        gn = _global_norm(grads)
+        grads, gn = clip_by_global_norm(grads, cfg.grad_clip, gn)
     step = opt_state["step"] + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - cfg.b1 ** t

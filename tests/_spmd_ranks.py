@@ -4,6 +4,7 @@ import torch
 
 from repro_torch.dist import default_rules, install_rules
 from repro_torch.dist.compat import axis_index, spmd_mesh
+from repro_torch.dist.spmd import all_reduce_sum
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.recsys.embedding import sharded_lookup
 from repro_torch.optim import compressed_psum, init_error_feedback
@@ -53,14 +54,17 @@ def world4(mesh, table, id_cases, moe_cases, dlrm_case):
             y, aux = moe_ffn(p, torch.from_numpy(_group_rows(mesh, x)),
                              top_k=top_k, capacity_factor=cf)
         out[f"moe/{name}"] = (y.numpy(), float(aux))
+    # the gradient of sum(y^2) over every token plus the aux loss (the
+    # last case's capacity factor: no slot drops): d/dx of this rank's
+    # rows, and each parameter's part from this data group's tokens
     trainable = {k: v.clone().requires_grad_() for k, v in p.items()}
+    xg = torch.from_numpy(_group_rows(mesh, x)).requires_grad_()
     with install_rules(rules):
-        try:
-            moe_ffn(trainable, torch.from_numpy(_group_rows(mesh, x)),
-                    top_k=top_k)
-            out["moe_refuses_grad"] = ""
-        except RuntimeError as e:
-            out["moe_refuses_grad"] = str(e)
+        y, aux = moe_ffn(trainable, xg, top_k=top_k, capacity_factor=cf)
+        loss = all_reduce_sum(y.square().sum(), mesh, "data") + aux
+        grads = torch.autograd.grad(loss, [xg, *trainable.values()])
+    out["moe_grad"] = (float(loss), grads[0].numpy(),
+                       {k: g.numpy() for k, g in zip(trainable, grads[1:])})
     from repro_torch.models.recsys import dlrm as D
     cfg, params, dense, sparse = dlrm_case
     p = dict(params)

@@ -1978,3 +1978,72 @@ def test_router_on_a_mesh_of_the_cards_bit_equals_the_service(dev,
     # failed over, bit-equal, and only these counts show it
     st = router.stats
     assert (st.n_retries, st.n_failovers, st.n_degraded) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("hq,hkv,d,window", [
+    (4, 2, 256, -1), (4, 2, 256, 1024), (2, 1, 256, 1024), (1, 1, 256, -1),
+    (8, 1, 128, -1), (6, 2, 64, -1), (16, 1, 128, -1)])
+def test_decode_kernel_takes_a_ranks_local_heads(dev, hq, hkv, d, window):
+    """Flash decode (row 6) at the head counts a rank runs in the sharded
+    route's decode step (gemma3's 8/4 on ``model`` 2 -> 4/2, on 4 -> 2/1,
+    on 8 -> 1/1; chatglm3's 32/2 on 4 -> 8/1, on 2 -> 16/1; granite's
+    24/8 on 4 -> 6/2) against a 2080-key cache at position 2063, float32
+    and bf16, against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv + d)
+    lengths = torch.full((2,), 2064, device=dev)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q = _rand(gen, dev, dtype, 2, hq, 1, d)
+        k, v = (_rand(gen, dev, dtype, 2, hkv, 2080, d) for _ in range(2))
+        got = flash_decode_attention(q, k, v, lengths, window=window)
+        want = decode_attention_ref(q, k, v, lengths, window=window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_sharded_decode_cells_on_one_card_over_nccl(dev, tmp_path):
+    """gemma3's smoke prefill and four decode steps through the cells at
+    world 1 over NCCL (``launch.steps``, the sharded route's cache and
+    local heads), the kernels in float32, within 1e-4 of the same cells
+    through the plain impls in one process; flash decode launched on the
+    mesh, never on the plain run."""
+    import _spmd_cell_ranks as R
+    from repro_torch.launch.mesh import run_spmd
+
+    (res,) = run_spmd(R.card_decode, (1, 1), ("data", "model"),
+                      timeout_s=300, store_dir=str(tmp_path))
+    assert res["max_rel"] <= 1e-4, res
+    assert res["launches"] > 0 and res["plain_launches"] == 0, res
+
+
+def test_moe_train_cell_gradient_on_one_card_over_nccl(dev, tmp_path):
+    """granite-moe's smoke train cell at world 1 over NCCL (the MoE FFN's
+    gradient through its autograd collectives, two micro-batches) against
+    the same cell in one process on the card: loss, ``grad_norm`` and
+    every updated parameter within 1e-5."""
+    import _spmd_cell_ranks as R
+    from repro_torch.launch.mesh import run_spmd
+
+    (res,) = run_spmd(R.card_moe_train, (1, 1), ("data", "model"),
+                      timeout_s=300, store_dir=str(tmp_path))
+    assert max(res.values()) <= 1e-5, res
+
+
+@pytest.mark.parametrize("case", ["attention_split", "attention_causal",
+                                  "attention_window", "decode_attention",
+                                  "compress", "decompress"])
+def test_cuda_backend_ops_train_through_the_kernels(dev, case):
+    """Under autograd the "cuda" backend ops launch their kernel forward
+    (its counter moves once) and take the plain op's gradient backward:
+    float32 output within 1e-4 of the plain op's on the card (fp16 stores
+    within one fp16 step), every input's gradient within 1e-4 of its
+    largest value."""
+    import _backend_ops as O
+
+    got, got_g, launches = O.run(case, "cuda", dev)
+    want, want_g, plain_launches = O.run(case, "plain", dev)
+    assert (launches, plain_launches) == (1, 0)
+    tol = 2 ** -10 if got.dtype == torch.float16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for g, w in zip(got_g, want_g):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 1e-4 * float(w.float().abs().max()), (case, err)

@@ -308,8 +308,36 @@ def test_moe_ffn_model_ranks_agree(runs, name):
 
 
 def test_moe_ffn_under_an_spmd_mesh_refuses_a_gradient(runs):
-    for rank in range(4):
-        assert "forward only" in runs["world4"][rank]["moe_refuses_grad"]
+    """(The name is the forward-only FFN's.)  Under the (2, 2) mesh the
+    FFN now takes a gradient: ``sum(y^2)`` over every token plus the aux
+    loss, with 5 experts (each model rank routes half of its data group's
+    tokens through whole weights) at capacity factor 8 (no slot drops),
+    against ``jax.grad`` of the same loss in one group: every rank's loss,
+    its rows of d/dx, and each parameter's gradient summed over the two
+    data groups (the caller's sum; the model ranks of a group hold the
+    same) within rtol = atol = 2e-5."""
+    params, x, top_k, cf = runs["moe"]["E5_cf8.0"]
+
+    def loss(p, xx):
+        y, aux = JM.moe_ffn(p, xx, top_k=top_k, capacity_factor=cf,
+                            n_groups=1)
+        return jnp.sum(jnp.square(y)) + aux
+
+    want, (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1))(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x))
+    half = MOE_T // 2
+    ranks = [runs["world4"][r]["moe_grad"] for r in range(4)]
+    for rank, (got, g_x, _) in enumerate(ranks):
+        assert got == pytest.approx(float(want), rel=2e-5)
+        g = rank // 2
+        np.testing.assert_allclose(g_x, np.asarray(gx)[g * half:
+                                                       (g + 1) * half],
+                                   rtol=2e-5, atol=2e-5)
+    for k in params:
+        np.testing.assert_array_equal(ranks[0][2][k], ranks[1][2][k])
+        np.testing.assert_allclose(ranks[0][2][k] + ranks[2][2][k],
+                                   np.asarray(gp[k]), rtol=2e-5, atol=2e-5,
+                                   err_msg=k)
 
 
 # ---------------------------------------------------------------------------

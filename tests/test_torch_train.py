@@ -385,3 +385,36 @@ def test_kernel_wrappers_refuse_a_gradient(wrapper):
         assert call(True) is not None
     with torch.inference_mode():
         assert call(True) is not None
+
+
+# ---------------------------------------------------------------------------
+# The "cuda" backend ops train: the kernel forward, the plain gradient
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["attention_split", "attention_causal",
+                                  "attention_window", "decode_attention",
+                                  "compress", "decompress"])
+def test_cuda_backend_ops_take_the_plain_gradient(case):
+    """Under autograd the "cuda" backend ops run the kernel wrapper
+    forward (its plain version on these CPU tensors) and the plain op's
+    gradient backward (``models.backend._PlainGradient``): output within
+    TOL of the plain op's (fp16 stores within one fp16 step), and the
+    gradient by every float input equal to it, recomputed from the same
+    inputs; without a gradient to record the op runs the wrapper alone."""
+    import _backend_ops as O
+
+    got, got_g, _ = O.run(case, "cuda", "cpu")
+    want, want_g, _ = O.run(case, "plain", "cpu")
+    assert got.grad_fn is not None and got.dtype == want.dtype
+    tol = dict(rtol=2 ** -10, atol=2e-5) if got.dtype == torch.float16 \
+        else TOL
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               want.detach().float().numpy(), **tol)
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                   **TOL)
+    with torch.no_grad():
+        call, _ = O.CASES[case]
+        fn, xs = call(torch.Generator().manual_seed(0), "cpu")
+        assert fn("cuda", *(x.requires_grad_() for x in xs)).grad_fn is None
