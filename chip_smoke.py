@@ -265,9 +265,17 @@ and DimeNet at three of its cells:
    the collected cache) and ``decode_32k`` at batch 2 against its seeded
    32,768-key cache (four teacher-forced steps); granite-moe's
    ``train_4k`` at 4 of its 32 layers, two micro-batches of 2 x 2048
-   tokens, one step.  The train cells run at float32 compute (the
+   tokens, one step; the recsys cells: DLRM's ``train_batch`` (65,536
+   rows) and ``retrieval_cand`` (1,000,192 candidates) at 2^20 table rows
+   a field, DeepFM's ``serve_bulk`` (262,144 rows, its 39 M-row table),
+   xDeepFM's ``train_batch`` at 8,192 rows, BERT4Rec's ``serve_p99``
+   (the top-100 of its 2^20 items) and ``train_batch`` at 1,024 rows.
+   The train cells run at float32 compute (the
    kernels forward, the plain versions' gradient backward), their
-   configured bf16 step held by no check.  Each ``cells_<key>`` line
+   configured bf16 step held by no check; a recsys cell's control takes
+   the plain embedding bag (``bag_impl="plain"``), and BERT4Rec's top-k
+   ids must equal the plain run's wherever the values are not tied
+   (``ids_mismatch``).  Each ``cells_<key>`` line
    gives ``reduced`` (each cut beside its published size, the train
    cells' compute dtype among them), the limits (a bf16 output's
    distance from the plain impls at float32 compute, ``kernel_vs_f32``,
@@ -388,7 +396,22 @@ CELLS = (("index_docs", "prettr-bert", "index_docs", {"batch": 512}),
          ("prefill", "gemma3-4b", "prefill_32k", {"batch": 2, "seq": 2048}),
          ("decode", "gemma3-4b", "decode_32k", {"batch": 2}),
          ("train_granite", "granite-moe-3b-a800m", "train_4k",
-          {"batch": 4, "seq": 2048, "n_layers": 4}))
+          {"batch": 4, "seq": 2048, "n_layers": 4}),
+         # the recsys cells: DLRM's table at 2^20 rows a field (7,401,902
+         # rows, 3.8 GB in float32; the published 96.1 GB would need 385 GB
+         # with its gradient and two moments), xDeepFM's batch at 8,192
+         # (CIN's [B, 200, 39, 10] float32 is 20 GB a layer at 65,536),
+         # BERT4Rec's training batch at 1,024 (plain attention's scores at
+         # 65,536 x 2 x 200^2); DeepFM's 39 M x 10 table and BERT4Rec's
+         # 2^20-item head as published
+         ("dlrm_train", "dlrm-mlperf", "train_batch",
+          {"rows_per_field": 2 ** 20}),
+         ("dlrm_retrieval", "dlrm-mlperf", "retrieval_cand",
+          {"rows_per_field": 2 ** 20}),
+         ("deepfm_serve_bulk", "deepfm", "serve_bulk", {}),
+         ("xdeepfm_train", "xdeepfm", "train_batch", {"batch": 8192}),
+         ("bert4rec_serve_p99", "bert4rec", "serve_p99", {}),
+         ("bert4rec_train", "bert4rec", "train_batch", {"batch": 1024}))
 # BERT4Rec's paths: (history precompute, online join) of each run
 BERT4REC_PATHS = {
     "cuda_bf16": ("bert4rec_history", "bert4rec_join"),
@@ -1540,6 +1563,19 @@ PATH_KERNELS = {
                          "decode_attention"),
     "cells_train_granite": _LM_CAUSAL + _SPLIT_CC,
     "cells_prefill": _LM_PREFILL + _SPLIT_TC, "cells_decode": _LM_DECODE,
+    # the recsys cells, float32 tables: DLRM's train step (float32
+    # compute) gathers on the wide kernel in the sum form, its retrieval
+    # user tower takes a bf16 mean bag from the float32 table (the cast
+    # form, wide); DeepFM's serve rounds its rows to bf16 (cast) and sums
+    # w1 (sum), xDeepFM's train step sums both in float32, all on the
+    # narrow kernel (40- and 4-byte rows); BERT4Rec's cells run plain
+    # attention (the reference's "blocked") and launch none
+    "cells_dlrm_train": ("embedding_bag", "embedding_bag_wide"),
+    "cells_dlrm_retrieval": ("embedding_bag_cast", "embedding_bag_wide"),
+    "cells_deepfm_serve_bulk": ("embedding_bag", "embedding_bag_cast",
+                                "embedding_bag_narrow"),
+    "cells_xdeepfm_train": ("embedding_bag", "embedding_bag_narrow"),
+    "cells_bert4rec_serve_p99": (), "cells_bert4rec_train": (),
     # BERT4Rec: head dim 32, so every split call takes the CUDA-core
     # kernel (the tensor-core one takes 64, 128 and 256), bf16 and float32
     **{p: ("split_attention", "split_attention_cuda_core",
@@ -2154,6 +2190,10 @@ def _published(arch, shape):
         info = PRETTR_SHAPES[shape]
         return {"batch": info.get("batch", info.get("global_batch"))}
     info = spec.shapes[shape]
+    if spec.family == "recsys":
+        vocab = getattr(spec.config, "vocab_sizes", None)
+        return {"batch": info["batch"],
+                **({"rows_per_field": max(vocab)} if vocab else {})}
     return {"batch": info["global_batch"], "seq": info["seq_len"],
             "n_layers": spec.config.n_layers}
 
@@ -2183,12 +2223,14 @@ def cells_phase(torch, name, launches):
             for k, n in r["launches"].items():
                 launches[path][k] = launches[path].get(k, 0) + n
         published = _published(arch, sh)
-        train = per_rank[0]["kind"] in ("train", "prettr_train")
+        train = per_rank[0]["kind"] in ("train", "prettr_train",
+                                        "rec_train")
         tol = {"loss": LM_SPMD_RTOL, "grad_norm": LM_SPMD_RTOL,
                "grad_apart": 1.0, "params_apart": 1.0,
                "grad_leaf_rel": CELLS_FP16_LEAF_REL if key == "rank_train"
                else LM_SPMD_GRAD_LEAF_REL} if train else \
-            {"kernel_vs_f32": f"{CELLS_BF16_FACTOR} x plain_bf16_vs_f32"}
+            {"kernel_vs_f32": f"{CELLS_BF16_FACTOR} x plain_bf16_vs_f32",
+             "ids_mismatch": 0}
         emit({"phase": path, "device": name, "world": world,
               "mesh": results[0]["mesh"], "arch": arch, "shape": sh,
               "reduced": {**{k: {"run": v, "published": published[k]}
@@ -2208,6 +2250,10 @@ def cells_phase(torch, name, launches):
                     for what, d in r["kernel_vs_f32"].items()
                     if not d <= CELLS_BF16_FACTOR
                     * r["plain_bf16_vs_f32"][what]]
+            if r.get("ids_mismatch"):
+                bad.append(f"{path}: {r['ids_mismatch']} top-k ids apart "
+                           f"from the plain run's where the values are not "
+                           f"tied")
         missing = [k for k in PATH_KERNELS[path] if not launches[path][k]]
         if missing:
             bad.append(f"{path}: {missing} never launched")

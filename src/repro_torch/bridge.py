@@ -20,6 +20,7 @@ from repro_torch.core.prettr import PreTTRConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn.dimenet import (DimeNetConfig, map_shapes,
                                            param_shapes)
+from repro_torch.models.recsys.bert4rec import Bert4RecConfig
 from repro_torch.models.recsys.deepfm import DeepFMConfig
 from repro_torch.models.recsys.dlrm import DLRMConfig
 from repro_torch.models.transformer import TransformerConfig
@@ -159,10 +160,17 @@ def train_state_from_jax(tree: dict, cfg, device=None) -> dict:
     (``None`` means the card): ``params`` and the optimizer's ``m``,
     ``v`` and ``master`` trees bridged as params are (layers unstacked,
     PreTTR's ``lm_head`` dropped), ``step`` an int32 scalar.  ``cfg`` is a
-    PreTTRConfig or a TransformerConfig."""
+    PreTTRConfig, a TransformerConfig or a recsys config (DLRM, DeepFM,
+    BERT4Rec)."""
     dev = resolve_device(device)
-    bridge = params_from_jax if isinstance(cfg, PreTTRConfig) \
-        else lm_params_from_jax
+    if isinstance(cfg, PreTTRConfig):
+        bridge = params_from_jax
+    elif isinstance(cfg, (DLRMConfig, DeepFMConfig)):
+        bridge = recsys_params_from_jax
+    elif isinstance(cfg, Bert4RecConfig):
+        bridge = bert4rec_params_from_jax
+    else:
+        bridge = lm_params_from_jax
     opt = tree["opt"]
     out = {"step": torch.as_tensor(np.asarray(opt["step"]),
                                    dtype=torch.int32).to(dev)}

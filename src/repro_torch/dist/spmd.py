@@ -21,6 +21,8 @@ calls the collectives by hand:
 * :func:`copy_to` -- the identity, whose backward sums the ranks'
   gradients: a replicated tensor that each rank uses for a different
   part of the work (the input of a column-parallel product).
+* :func:`gather_data_dims` / :func:`whole_leaf` -- a leaf's data dims
+  (FSDP), or every dim, gathered for a rank's data rows.
 
 :func:`global_norm` is the gradient norm of a tree of blocks, which
 AdamW's clipping needs whole.
@@ -145,7 +147,9 @@ def _reduce_scatter(x, dim: int, mesh, axes):
 
     group = mesh.group(_mesh_order(mesh, axes))
     if dist.get_backend(group) != "nccl":
-        return local_block(_reduce(x.clone(), mesh, axes), dim, mesh, axes)
+        # a copy of the block, so the whole sum may be freed
+        return local_block(_reduce(x.clone(), mesh, axes), dim, mesh,
+                           axes).clone()
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // mesh.axis_size(axes),
                          *src.shape[1:]))
@@ -217,6 +221,37 @@ def copy_to(x, mesh, axes):
     if not axes or mesh.axis_size(axes) == 1:
         return x
     return _CopyTo.apply(x, mesh, axes)
+
+
+def gather_data_dims(w, spec, mesh):
+    """``w`` (a rank's block under ``spec``) with every dim sharded over
+    the data axes gathered (FSDP); the gradient is reduce-scattered back,
+    and summed over the data axes that no dim takes (each data group adds
+    its own rows' part).  A dim cut over ``model`` stays cut."""
+    used = set()
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if axes and "model" in axes and axes != ("model",):
+            raise ValueError(f"a dim sharded over {axes}: a leaf takes the "
+                             f"data axes or 'model' on a dim, not both")
+        if axes and axes != ("model",):
+            w = all_gather(w, d, mesh, axes, backward="sum")
+            used.update(axes)
+    rest = tuple(a for a in data_axes(mesh) if a not in used)
+    return copy_to(w, mesh, rest) if rest else w
+
+
+def whole_leaf(w, spec, mesh):
+    """A leaf that every rank uses alike on its data group's rows, whole
+    (the hybrid-parallel DLRM layout of the dense layers):
+    :func:`gather_data_dims`, then the dims cut over ``model`` gathered
+    with this rank's block of its own gradient kept (the ranks of
+    ``model`` in a data group do the same work)."""
+    w = gather_data_dims(w, spec, mesh)
+    for d, entry in enumerate(spec):
+        if entry_axes(entry) == ("model",):
+            w = all_gather(w, d, mesh, "model", backward="split")
+    return w
 
 
 def all_reduce_max(x, mesh, axes):

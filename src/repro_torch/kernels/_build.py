@@ -203,10 +203,10 @@ def refuse_grad(name: str, *tensors) -> None:
         raise RuntimeError(
             f"{name}: an input requires grad, but the kernel's output "
             f"carries no gradient; train through the backend ops "
-            f"(repro_torch.models.backend), whose 'cuda' ones launch the "
-            f"kernel and take the gradient of the plain backend "
-            f"(bag_impl 'plain'), or call it under torch.no_grad() / "
-            f"torch.inference_mode()")
+            f"(repro_torch.models.backend) or the recsys lookups "
+            f"(embedding.padded_bag), whose 'cuda' forms launch the kernel "
+            f"and take the gradient of the plain backend, or call it under "
+            f"torch.no_grad() / torch.inference_mode()")
 
 
 def check(name: str, code: int) -> None:

@@ -1,24 +1,25 @@
 """Cell builders of the port, the twin of ``repro.launch.steps``: the
 spec plumbing (each leaf's shape, dtype and partition spec under a
-mesh's rules, without allocating a parameter), the LM, PreTTR and GNN
-cells and the dispatcher (:func:`build_cell`, :func:`cell_names`,
+mesh's rules, without allocating a parameter), the LM, PreTTR, GNN and
+recsys cells and the dispatcher (:func:`build_cell`, :func:`cell_names`,
 :func:`backend_support`).  A cell is one (architecture x input shape)
 pair: its step function, its args as trees of :class:`TensorSpec`, its
 analytic model FLOPs a call, notes and donated args.
 
 The reference builds each cell from abstract, sharded shapes for its
-compile dry-run (ROADMAP Queue 1 item 7.3).  The port runs its cells:
+compile dry-run; the port's is ``launch.dryrun``, which traces them on
+fake tensors.  The port runs its cells:
 :func:`cell_inputs` makes a cell's args from a seed, whole or as this
 rank's part, and the step functions take real tensors, on one device or
 on a rank of an SPMD mesh (``launch.mesh.run_spmd``), where the sharded
-transformer (``models.transformer_spmd``) does what GSPMD does for the
-reference.  The recsys cells wait for ROADMAP Queue 1 item 7.2b
-(:func:`build_cell` raises on them).
+transformer (``models.transformer_spmd``) and the sharded lookup
+(``models.recsys.embedding``) do what GSPMD does for the reference.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -449,6 +450,11 @@ def make_lm_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules, *,
                     local=lambda a: _spec_local(a, args, rules.mesh))
 
     icfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    data = [a for a in rules.mesh_axes("batch") if a in rules.mesh.shape]
+    if gb % math.prod(rules.mesh.shape[a] for a in data):
+        # a batch too small to split is whole on every rank, as its spec
+        # says: the rules tell the MoE FFN so
+        rules = ShardingRules(rules.mesh, {**rules.rules, "batch": ()})
     p_shapes, p_axes = eval_params(lambda g, d: (T.init_params(icfg, g, d),
                                                  T.param_axes(icfg)))
     params = attach_shardings(p_shapes, p_axes, rules)
@@ -501,6 +507,300 @@ def make_lm_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules, *,
     return Cell(spec.name, shape_name, "decode", serve_step, args,
                 model_flops=2.0 * n_act * gb + attn_flops, donate=(2,),
                 inputs=inputs, local=local)
+
+
+# ---------------------------------------------------------------------------
+# Recsys cells
+# ---------------------------------------------------------------------------
+
+
+def _mlp_flops(dims, batch):
+    return float(sum(2 * batch * a * b for a, b in zip(dims[:-1], dims[1:])))
+
+
+#: the row-sharded leaves of a DLRM / DeepFM tree, never gathered
+ROW_SHARDED = ("table", "w1")
+
+
+def _recsys_view(params, specs, mesh):
+    """The params a DLRM / DeepFM step computes with on this rank: the
+    row-sharded tables as its block (their reads go through the sharded
+    lookup), every dense leaf whole (``dist.spmd.whole_leaf``: the
+    hybrid-parallel layout, each data group's rows on whole dense
+    layers)."""
+    if mesh is None:
+        return params
+    return {k: v if k in ROW_SHARDED else tree_map(
+        lambda w, sp: S.whole_leaf(w, sp, mesh), v, specs[k])
+        for k, v in params.items()}
+
+
+def _data_mean(x, mesh):
+    """The global mean from a data group's mean (the groups' rows are
+    equal in number); its gradient passes through."""
+    if mesh is None:
+        return x
+    axes = S.data_axes(mesh)
+    return S.all_reduce_sum(x, mesh, axes) / mesh.axis_size(axes) \
+        if axes else x
+
+
+def _field_ids(gen, b, vocab_sizes, device):
+    """[b, F] int32 ids, field f's uniform in its vocabulary."""
+    return torch.stack([_ids(gen, (b,), v, device) for v in vocab_sizes], 1)
+
+
+def _labels(gen, b, device):
+    return (torch.rand((b,), generator=gen, device=gen.device) < 0.5) \
+        .to(device, torch.float32)
+
+
+def _normal(gen, shape, scale, device):
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(device)
+
+
+def _item_seqs(gen, cfg, b, device, *, cloze: bool):
+    """BERT4Rec rows: a valid prefix of at least half the sequence of
+    items in ``[2, n_items + 2)``, ``[MASK]`` at the last valid slot (and,
+    for ``cloze``, at 15 % of the valid slots) -> ``(item_seq, valid,
+    targets)``, targets the masked items (0 elsewhere)."""
+    from repro_torch.models.recsys.bert4rec import MASK_ITEM
+
+    s = cfg.seq_len
+    valid = _prefix_valid(gen, b, s, max(1, s // 2), device)
+    items = _ids(gen, (b, s), cfg.n_items, device) + 2
+    last = torch.arange(s, device=device) == (valid.sum(1, keepdim=True) - 1)
+    mask = last
+    if cloze:
+        drawn = torch.rand((b, s), generator=gen, device=gen.device) < 0.15
+        mask = (mask | drawn.to(device)) & valid
+    targets = torch.where(mask, items, 0).to(torch.int32)
+    seq = torch.where(mask, MASK_ITEM, items) * valid
+    return seq.to(torch.int32), valid, targets
+
+
+def make_recsys_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
+                     *, batch: int | None = None) -> Cell:
+    """The reference's recsys cells (``rec_train``, ``rec_serve``,
+    ``rec_retrieval``) of DLRM, DeepFM / xDeepFM and BERT4Rec; ``batch``
+    cuts the shape's batch.
+
+    Under rules over an SPMD mesh a rank holds its block of every leaf:
+    the fused ``table`` (and DeepFM's ``w1``) row-sharded over every axis
+    and read through the sharded lookup, never gathered; the dense layers
+    gathered whole for its data rows (:func:`_recsys_view`).  A train
+    cell's loss is the global mean and its AdamW clips by the global norm
+    (:func:`_sharded_adam`); retrieval scores come out as the rank's
+    block of the candidate axis.  BERT4Rec runs ``attn_impl="plain"``:
+    its backbone runs the reference's ``"blocked"`` attention, which
+    reaches no Pallas kernel, and its ``forward_hidden`` (split flags
+    that differ across its two layers, ``[MASK]`` anywhere) is one the
+    split kernel refuses; over a mesh it takes the sharded transformer's
+    route, the tied head vocab-sharded over ``model``."""
+    info = spec.shapes[shape_name]
+    kind = info["kind"]
+    b = batch or info["batch"]
+    name = spec.name
+    cfg = spec.config
+    opt_cfg = OptimizerConfig()
+    mesh = rules.mesh if isinstance(rules.mesh, SpmdMesh) else None
+    i32, f32 = torch.int32, torch.float32
+
+    def cell(fn, args, flops, inputs, **kw):
+        return Cell(name, shape_name, kind, fn, args, model_flops=flops,
+                    inputs=inputs,
+                    local=lambda a: _spec_local(a, args, rules.mesh), **kw)
+
+    def new_state(params):
+        return {"params": params, "opt": init_opt_state(params, opt_cfg)}
+
+    if name == "bert4rec":
+        from repro_torch.models.recsys import bert4rec as M
+
+        cfg = dataclasses.replace(cfg, attn_impl="plain")
+        init = lambda g, d: (M.init_bert4rec(cfg, g, d), M.bert4rec_axes(cfg))
+        bcfg = cfg.backbone()
+        tok = b * cfg.seq_len
+        # matmul params only: the (tied) item table is a lookup
+        n_matmul = bcfg.num_params() - bcfg.vocab_size * bcfg.d_model \
+            - bcfg.learned_pos * bcfg.d_model
+        flops_fwd = 2.0 * n_matmul * tok
+        rows = lambda dt: sds((b, cfg.seq_len), dt, rules, ("batch", None))
+        if kind == "rec_train":
+            st = state_specs(init, opt_cfg, rules)
+            specs = _specs_of(st["params"])
+            data = {"item_seq": rows(i32), "valid": rows(torch.bool),
+                    "targets": rows(i32)}
+
+            def train_step(state, batch):
+                with _installed(rules):
+                    loss, grads = value_and_grad(
+                        lambda p: M.cloze_loss(p, cfg, batch),
+                        state["params"])
+                    params, opt, gn = _sharded_adam(grads, state, opt_cfg,
+                                                    specs)
+                return {"params": params, "opt": opt}, \
+                    {"loss": loss, "grad_norm": gn}
+
+            def inputs(gen, device):
+                seq, valid, targets = _item_seqs(gen, cfg, b, device,
+                                                 cloze=True)
+                return (new_state(M.init_bert4rec(cfg, gen, device)),
+                        {"item_seq": seq, "valid": valid,
+                         "targets": targets})
+
+            # Cloze head: 32 masked slots x the item softmax
+            head_flops = 2.0 * b * 32 * bcfg.d_model * bcfg.vocab_size
+            return cell(train_step, (st, data), 3 * (flops_fwd + head_flops),
+                        inputs, donate=(0,))
+
+        p_shapes, p_axes = eval_params(init)
+        params = attach_shardings(p_shapes, p_axes, rules)
+
+        def serve(params, seq, valid):
+            with _installed(rules), torch.no_grad():
+                return M.serve_topk(params, cfg, seq, valid,
+                                    batch_chunk=min(1024, b))
+
+        def inputs(gen, device):
+            seq, valid, _ = _item_seqs(gen, cfg, b, device, cloze=False)
+            return M.init_bert4rec(cfg, gen, device), seq, valid
+
+        return cell(serve, (params, rows(i32), rows(torch.bool)),
+                    flops_fwd + 2.0 * b * (cfg.n_items + 2) * cfg.embed_dim,
+                    inputs)
+
+    if name == "dlrm-mlperf":
+        from repro_torch.models.recsys import dlrm as M
+
+        init = lambda g, d: (M.init_dlrm(cfg, g, d), M.dlrm_axes(cfg))
+        n_vec = cfg.n_sparse + 1
+        flops_fwd = (_mlp_flops((cfg.n_dense, *cfg.bot_mlp), b)
+                     + 2 * b * n_vec * n_vec * cfg.embed_dim
+                     + _mlp_flops((n_vec * (n_vec - 1) // 2
+                                   + cfg.bot_mlp[-1], *cfg.top_mlp), b))
+        data = {"dense": sds((b, cfg.n_dense), f32, rules, ("batch", None)),
+                "sparse": sds((b, cfg.n_sparse), i32, rules,
+                              ("batch", None)),
+                "labels": sds((b,), f32, rules, ("batch",))}
+        fwd = lambda p, bt: M.dlrm_forward(p, cfg, bt["dense"], bt["sparse"])
+
+        def batch_of(gen, device):
+            return {"dense": _normal(gen, (b, cfg.n_dense), 1.0, device),
+                    "sparse": _field_ids(gen, b, cfg.vocab_sizes, device),
+                    "labels": _labels(gen, b, device)}
+
+        if kind == "rec_retrieval":
+            nc = _pad_mult(info["n_candidates"])   # row-shardable
+            user = [cfg.vocab_sizes[f] for f in cfg.user_fields]
+            p_shapes, p_axes = eval_params(init)
+            params = attach_shardings(p_shapes, p_axes, rules)
+            specs = _specs_of(params)
+            bt = {"dense": sds((b, cfg.n_dense), f32, rules, ("batch", None)),
+                  "user": sds((b, len(user)), i32, rules, ("batch", None))}
+            vecs = sds((nc, cfg.embed_dim), f32, rules, ("table_rows", None))
+
+            def retrieval(params, bt, iv):
+                with _installed(rules), torch.no_grad():
+                    return M.retrieval_scores(
+                        _recsys_view(params, specs, mesh), cfg, bt["dense"],
+                        bt["user"], iv)
+
+            def inputs(gen, device):
+                return (M.init_dlrm(cfg, gen, device),
+                        {"dense": _normal(gen, (b, cfg.n_dense), 1.0, device),
+                         "user": _field_ids(gen, b, user, device)},
+                        # a table row's scale
+                        _normal(gen, (nc, cfg.embed_dim), 0.01, device))
+
+            return cell(retrieval, (params, bt, vecs),
+                        2.0 * b * nc * cfg.embed_dim
+                        + _mlp_flops((cfg.n_dense, *cfg.bot_mlp), b), inputs)
+    else:
+        from repro_torch.models.recsys import deepfm as M
+
+        init = lambda g, d: (M.init_deepfm(cfg, g, d), M.deepfm_axes(cfg))
+        flops_fwd = (_mlp_flops((cfg.n_fields * cfg.embed_dim, *cfg.mlp, 1),
+                                b) + 2 * b * cfg.n_fields * cfg.embed_dim)
+        if cfg.interaction == "cin":
+            h_prev = cfg.n_fields
+            for h in cfg.cin_layers:
+                flops_fwd += 2 * b * h_prev * cfg.n_fields * cfg.embed_dim * h
+                h_prev = h
+        data = {"sparse": sds((b, cfg.n_fields), i32, rules,
+                              ("batch", None)),
+                "labels": sds((b,), f32, rules, ("batch",))}
+        fwd = lambda p, bt: M.deepfm_forward(p, cfg, bt["sparse"])
+
+        def batch_of(gen, device):
+            return {"sparse": _field_ids(gen, b, cfg.vocab_sizes, device),
+                    "labels": _labels(gen, b, device)}
+
+        if kind == "rec_retrieval":
+            nc = _pad_mult(info["n_candidates"])
+            n_user = len(cfg.user_fields)
+            p_shapes, p_axes = eval_params(init)
+            params = attach_shardings(p_shapes, p_axes, rules)
+            specs = _specs_of(params)
+            args = (sds((b, n_user), i32, rules, ("batch", None)),
+                    sds((nc, cfg.embed_dim), f32, rules,
+                        ("table_rows", None)),
+                    sds((nc,), f32, rules, ("table_rows",)))
+
+            def retrieval(params, uids, ivecs, ifirst):
+                with _installed(rules), torch.no_grad():
+                    return M.retrieval_scores(
+                        _recsys_view(params, specs, mesh), cfg, uids, ivecs,
+                        ifirst)
+
+            def inputs(gen, device):
+                return (M.init_deepfm(cfg, gen, device),
+                        _field_ids(gen, b, (cfg.vocab_per_field,) * n_user,
+                                   device),
+                        _normal(gen, (nc, cfg.embed_dim), 0.01, device),
+                        _normal(gen, (nc,), 0.01, device))
+
+            return cell(retrieval, (params, *args),
+                        2.0 * b * nc * cfg.embed_dim, inputs)
+
+    # the train and serve cells of DLRM and the DeepFM family
+    if kind == "rec_train":
+        st = state_specs(init, opt_cfg, rules)
+        specs = _specs_of(st["params"])
+
+        def train_step(state, batch):
+            with _installed(rules):
+                loss, grads = value_and_grad(
+                    lambda p: _data_mean(M.bce_loss(
+                        _recsys_view(p, specs, mesh), cfg, batch), mesh),
+                    state["params"])
+                params, opt, gn = _sharded_adam(grads, state, opt_cfg, specs)
+            return {"params": params, "opt": opt}, \
+                {"loss": loss, "grad_norm": gn}
+
+        def inputs(gen, device):
+            return (new_state(init(gen, device)[0]), batch_of(gen, device))
+
+        return cell(train_step, (st, data), 3 * flops_fwd, inputs,
+                    donate=(0,))
+
+    p_shapes, p_axes = eval_params(init)
+    params = attach_shardings(p_shapes, p_axes, rules)
+    specs = _specs_of(params)
+    del data["labels"]
+
+    def serve(params, batch):
+        with _installed(rules), torch.no_grad():
+            return fwd(_recsys_view(params, specs, mesh), batch)
+
+    def inputs(gen, device):
+        params = init(gen, device)[0]
+        bt = batch_of(gen, device)
+        del bt["labels"]
+        return params, bt
+
+    return cell(serve, (params, data), flops_fwd, inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -678,32 +978,51 @@ def _with_backend(spec: ArchSpec, backend: str | None) -> ArchSpec:
 def build_cell(arch: str, shape_name: str, rules: ShardingRules,
                backend: str | None = None, *, smoke: bool = False,
                batch: int | None = None, seq: int | None = None,
-               n_layers: int | None = None) -> Cell:
+               n_layers: int | None = None,
+               rows_per_field: int | None = None) -> Cell:
     """The cell ``(arch, shape_name)`` under ``rules``, its configs routed
     through ``backend``.  The port's cuts for running a cell where its
     published size does not fit: ``smoke`` takes the arch's smoke config,
     ``n_layers`` keeps that many layers, ``batch`` / ``seq`` cut the
-    shape's batch and sequence (widths stay as published).  The recsys
-    cells raise ``NotImplementedError``: ROADMAP Queue 1 item 7.2b."""
+    shape's batch and sequence, ``rows_per_field`` caps every field's
+    vocabulary of a DLRM / DeepFM table (widths stay as published)."""
     return build_spec_cell(get_arch(arch), shape_name, rules, backend,
                            smoke=smoke, batch=batch, seq=seq,
-                           n_layers=n_layers)
+                           n_layers=n_layers, rows_per_field=rows_per_field)
+
+
+def _cap_rows(cfg, cap: int):
+    """A DLRM / DeepFM config with every field's vocabulary at most
+    ``cap``."""
+    if hasattr(cfg, "vocab_per_field"):
+        return dataclasses.replace(cfg, vocab_per_field=min(
+            cfg.vocab_per_field, cap))
+    if hasattr(cfg, "vocab_sizes"):
+        return dataclasses.replace(cfg, vocab_sizes=tuple(
+            min(v, cap) for v in cfg.vocab_sizes))
+    raise ValueError(f"{cfg.name}: rows_per_field cuts a DLRM or DeepFM "
+                     f"table")
 
 
 def build_spec_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
                     backend: str | None = None, *, smoke: bool = False,
                     batch: int | None = None, seq: int | None = None,
-                    n_layers: int | None = None) -> Cell:
+                    n_layers: int | None = None,
+                    rows_per_field: int | None = None) -> Cell:
     """:func:`build_cell` of the architecture ``spec`` describes (as
     registered, or with its configs replaced)."""
     arch = spec.name
     spec = _with_backend(spec, backend)
-    if spec.family == "recsys":
-        raise NotImplementedError(
-            f"{arch}: the recsys cells are not ported yet (ROADMAP Queue 1 "
-            f"item 7.2b)")
     if smoke:
         spec = dataclasses.replace(spec, config=spec.smoke)
+    if rows_per_field is not None:
+        spec = dataclasses.replace(spec, config=_cap_rows(spec.config,
+                                                          rows_per_field))
+    if spec.family == "recsys":
+        if seq is not None or n_layers is not None:
+            raise ValueError(f"{arch}: a recsys cell takes the cuts batch "
+                             f"and rows_per_field")
+        return make_recsys_cell(spec, shape_name, rules, batch=batch)
     if n_layers is not None:
         cfg = spec.config
         if hasattr(cfg, "backbone"):

@@ -43,9 +43,8 @@ Where parity hangs on detail, as the reference does it:
   between blocks.
 
 The reference's ``maybe_shard`` hints are the identity without a mesh and
-are dropped; the edge-sharded layout waits for the port's distribution
-slice (ROADMAP Queue 1 item 7), as does the sharding axes tree, which
-:func:`init_dimenet` does not return.
+are dropped; the edge-sharded layout waits for ROADMAP Queue 1 item 7.4
+(the axes tree is :func:`dimenet_axes`).
 """
 from __future__ import annotations
 

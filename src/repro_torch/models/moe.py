@@ -120,23 +120,55 @@ def _dispatch_group(x_g, experts_g, capacity: int, n_experts: int):
     return buf[:n_experts], safe_rank, keep
 
 
+def _data_axes(rules):
+    """The data axes that split the tokens' rows (``pod``, ``data``, as
+    the rules map the batch onto them: none where a batch too small to
+    split is whole on every rank)."""
+    batch = rules.mesh_axes("batch")
+    return tuple(a for a in ("pod", "data")
+                 if a in rules.mesh.shape and a in batch)
+
+
 def _mesh_info():
-    """``(mesh, data groups, model size)`` of the installed rules, or
-    ``(None, 1, 1)``."""
+    """``(mesh, data axes, data groups, model size)`` of the installed
+    rules, or ``(None, (), 1, 1)``."""
     rules = current_rules()
     if rules is None:
-        return None, 1, 1
-    mesh = rules.mesh
-    g = math.prod(mesh.shape[a] for a in ("pod", "data") if a in mesh.shape)
-    return mesh, g, mesh.shape.get("model", 1)
+        return None, (), 1, 1
+    mesh, data = rules.mesh, _data_axes(rules)
+    g = math.prod(mesh.shape[a] for a in data)
+    return mesh, data, g, mesh.shape.get("model", 1)
 
 
-def _group_axes(mesh, include_model: bool):
+def _group_axes(mesh, data, include_model: bool):
     """The mesh axes the dispatch groups run along."""
-    fs = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    fs = data
     if include_model and "model" in mesh.axis_names:
         fs = fs + ("model",)
     return fs if fs else None
+
+
+def _one_group(params, x, mesh, data, model_cut, **kw):
+    """JAX's fallback where the dispatch groups do not split a data
+    group's tokens: one group over every token.  Each rank gathers the
+    tokens of the data groups (their gradient summed back to the rank
+    that holds them) and the expert weights whole over ``model`` (its
+    ranks do the same work and keep their blocks of the gradient), runs
+    the group as one process does and keeps its data group's rows.  Every
+    data group computes the whole aux loss, so each passes back its share
+    of the aux loss's gradient."""
+    from repro_torch.dist.context import install_rules
+
+    cut = {"experts": {"w_gate": 0, "w_up": 0, "w_down": 0},
+           "ff": {"w_gate": 2, "w_up": 2, "w_down": 1}}.get(model_cut, {})
+    whole = {k: S.all_gather(v, cut[k], mesh, "model", backward="split")
+             if k in cut else v for k, v in params.items()}
+    with install_rules(None):
+        out, aux = moe_ffn(whole, S.all_gather(x, 0, mesh, data), n_groups=1,
+                           **kw)
+    groups = mesh.axis_size(data)
+    return S.local_block(out, 0, mesh, data), \
+        aux.detach() + (aux - aux.detach()) / groups
 
 
 def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
@@ -155,9 +187,9 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
     mean_probs)`` over the first choices.
 
     Under an SPMD mesh ``x`` is this rank's data group's tokens, the
-    groups are counted over the whole mesh, and each data group must hold
-    whole groups (a T the groups do not divide raises: a single global
-    group would need every token on every rank).  ``model_cut`` says
+    groups are counted over the whole mesh, and each data group runs its
+    whole groups; where the groups do not split its tokens the mesh runs
+    JAX's one group (:func:`_one_group`).  ``model_cut`` says
     which dim of the expert weights the rules cut over ``model`` when
     they are this rank's blocks (their ``embed`` dim gathered, as the
     sharded transformer passes them): ``"experts"``, this rank's ``E /
@@ -168,7 +200,7 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
     before the combine.  ``None``: whole experts on every rank."""
     t, d = x.shape
     n_experts = params["router"].shape[-1]
-    mesh, g_mesh, n_model = _mesh_info()
+    mesh, data, g_mesh, n_model = _mesh_info()
     use_ep = n_model > 1 and n_experts % n_model == 0
     g = n_groups or (g_mesh if use_ep else g_mesh * n_model)
     spmd = isinstance(mesh, SpmdMesh)
@@ -182,10 +214,9 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
         # the groups of this data group, then this rank's share of them
         local = g // g_mesh
         if g % g_mesh or t % local or (not use_ep and local % n_model):
-            raise ValueError(
-                f"moe_ffn: {g} dispatch groups over {g_mesh} data groups "
-                f"of {t} tokens and {n_model} model ranks do not split "
-                f"evenly")
+            return _one_group(params, x, mesh, data, model_cut, top_k=top_k,
+                              capacity_factor=capacity_factor,
+                              activation=activation)
         j = axis_index(mesh, "model") if "model" in mesh.shape else 0
         if "model" in mesh.shape:
             model = ("model",)
@@ -201,7 +232,7 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
                                                   d)[j]
             local //= n_model
         g, t_all = local, t * g_mesh
-        token_axes = _group_axes(mesh, not (use_ep or col_split))
+        token_axes = _group_axes(mesh, data, not (use_ep or col_split))
     elif t % g:
         g = 1
     tg = x.shape[0] // g

@@ -16,9 +16,13 @@ slots sit anywhere, which the kernel's static ``seg_boundary`` cannot
 express: on ``"cuda"`` it raises (``transformer._run_layers``), as the
 JAX ``pallas`` impl does; it runs on ``"plain"``.
 
-The vocab-sharded top-k of the JAX package is a plain two-stage
-``torch.topk`` here (:func:`two_stage_topk`); a device mesh is ROADMAP.md
-Queue 1 item 7.
+Under rules over an SPMD mesh the backbone takes the sharded
+transformer's route (``models.transformer_spmd``): the tied head is
+vocab-sharded over ``model``, :func:`cloze_loss` takes a vocab-parallel
+cross-entropy, and :func:`serve_topk` scores only the rank's vocab block
+and gathers just the ``[B, m k]`` candidates over ``model``, JAX's
+two-stage top-k with the network between its stages.  In one process
+the two stages are :func:`two_stage_topk`.
 """
 from __future__ import annotations
 
@@ -80,9 +84,13 @@ def _mask_hidden(hidden, pos):
 def forward_hidden(params, cfg: Bert4RecConfig, item_seq, valid):
     """item_seq: [B, S] (0 = pad, 1 = [MASK]) -> hidden [B, S, d]; [MASK]
     slots are segment 0, the rest segment 1."""
+    return _hidden(params, cfg, item_seq, valid, T._route(cfg.backbone()))
+
+
+def _hidden(params, cfg, item_seq, valid, route):
     segs = (item_seq != MASK_ITEM).long()
-    hidden, _, _ = T.forward(params, cfg.backbone(), item_seq, segs=segs,
-                             valid=valid)
+    hidden, _, _ = T._forward(params, cfg.backbone(), item_seq, route,
+                              segs=segs, valid=valid)
     return hidden
 
 
@@ -96,7 +104,8 @@ def cloze_loss(params, cfg: Bert4RecConfig, batch, *, max_masked: int = 32,
     from torch.utils.checkpoint import checkpoint
 
     bcfg = cfg.backbone()
-    hidden = forward_hidden(params, cfg, batch["item_seq"], batch["valid"])
+    route = T._route(bcfg)
+    hidden = _hidden(params, cfg, batch["item_seq"], batch["valid"], route)
     targets = batch["targets"]
     s = targets.shape[1]
     is_masked = (targets > 0).float()
@@ -107,13 +116,16 @@ def cloze_loss(params, cfg: Bert4RecConfig, batch, *, max_masked: int = 32,
     h_sel = torch.take_along_dim(hidden, idx[..., None], dim=1)
     t_sel = torch.take_along_dim(targets, idx, dim=1)
     w_sel = torch.take_along_dim(is_masked, idx, dim=1)
-    head = T._head(params, bcfg)                   # tied: [d, V]
+    head = route.head(params, bcfg)        # tied: [d, V] (a rank's block)
+    h_sel = route.enter(h_sel, "vocab")
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(0, max_masked, logits_chunk):
         sl = slice(c, c + logits_chunk)
         total = total + checkpoint(T._chunk_nll, h_sel[:, sl], t_sel[:, sl],
-                                   w_sel[:, sl], head, use_reentrant=False)
-    return total / torch.clamp(w_sel.sum(), min=1.0)
+                                   w_sel[:, sl], head, route,
+                                   use_reentrant=False)
+    return route.data_sum(total) / torch.clamp(route.data_sum(w_sel.sum()),
+                                               min=1.0)
 
 
 def two_stage_topk(scores, k: int, n_shards: int):
@@ -137,20 +149,47 @@ def serve_topk(params, cfg: Bert4RecConfig, item_seq, valid, *, k: int = 100,
     """Next-item serving: each row's last valid slot holds [MASK] ->
     (scores [B, k] float32, item ids [B, k]).  The encoder, the scores
     and the top-k run ``batch_chunk`` rows at a time, so at serve_bulk the
-    ``[B, V]`` scores never exist at once."""
-    head = params["embed"]["tokens"].to(cfg.compute_dtype)
+    ``[B, V]`` scores never exist at once.  Under rules over an SPMD mesh
+    (module docstring) the rows are the rank's data rows, and each rank
+    of ``model`` scores its vocab block: :func:`_sharded_topk`."""
+    bcfg = cfg.backbone()
+    route = T._route(bcfg)
+    head = route.head(params, bcfg)                # [d, V or V_local]
     b = item_seq.shape[0]
-    shards = vocab_shards if head.shape[0] % vocab_shards == 0 else 1
+    shards = vocab_shards if head.shape[1] % vocab_shards == 0 else 1
     vals, ids = [], []
     for lo in range(0, b, batch_chunk):
         seq, val = item_seq[lo:lo + batch_chunk], valid[lo:lo + batch_chunk]
-        hidden = forward_hidden(params, cfg, seq, val)
+        hidden = _hidden(params, cfg, seq, val, route)
         mask_pos = torch.clamp(val.long().sum(-1) - 1, min=0)
         h = _mask_hidden(hidden, mask_pos)[:, 0]
-        v, i = two_stage_topk(L.mm_f32(h, head.T), k, shards)
+        lg = L.mm_f32(h, head)
+        v, i = _sharded_topk(lg, k, route) if route is not T.LOCAL \
+            and route.p.vocab_split else two_stage_topk(lg, k, shards)
         vals.append(v)
         ids.append(i)
     return torch.cat(vals), torch.cat(ids)
+
+
+def _sharded_topk(lg, k: int, route):
+    """The global top-k from each ``model`` rank's ``[B, V_local]``
+    scores of its vocab block (rows from ``route.v0``): the local top-k,
+    its ``[B, k]`` values and global ids gathered over ``model`` (a block
+    shorter than ``k`` padded with -inf), then the top-k of the ``[B, m
+    k]`` candidates."""
+    from repro_torch.dist import spmd as S
+
+    kk = min(k, lg.shape[1])
+    v1, i1 = torch.topk(lg, kk, dim=-1)
+    if kk < k:
+        v1 = torch.cat([v1, v1.new_full((lg.shape[0], k - kk),
+                                        float("-inf"))], 1)
+        i1 = torch.cat([i1, i1.new_zeros((lg.shape[0], k - kk))], 1)
+    with torch.no_grad():
+        v_all = S._gather(v1, 1, route.mesh, ("model",))
+        i_all = S._gather(i1 + route.v0, 1, route.mesh, ("model",))
+    v2, i2 = torch.topk(v_all, k, dim=-1)
+    return v2, torch.take_along_dim(i_all, i2, dim=1)
 
 
 def serve_scores(params, cfg: Bert4RecConfig, item_seq, valid):

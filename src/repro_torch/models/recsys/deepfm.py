@@ -14,9 +14,12 @@ Lookups run through :func:`embedding.padded_bag`: the field embeddings as
 bags of one whose rows the kernel rounds to the compute dtype (the JAX
 ``table.astype(compute_dtype)`` without casting the table), the
 first-order term as one sum bag over the fields of the width-1 ``w1``
-table, the retrieval partial sums as sum bags.  ``bce_loss`` is the
-training loss; it trains with ``bag_impl="plain"`` (the kernel wrapper
-refuses a table that requires grad).
+table, the retrieval partial sums as sum bags (:func:`embedding.bag_rows`:
+under row sharding every table and ``w1`` read goes through
+``take_rows`` and the sharded lookup, then the sum over the fields, as
+the JAX package reads them).  ``bce_loss`` is the training loss; under
+``bag_impl="cuda"`` its lookups launch the kernel forward and take the
+plain version's gradient backward (``embedding.padded_bag``).
 """
 from __future__ import annotations
 
@@ -121,7 +124,7 @@ def deepfm_forward(params, cfg: DeepFMConfig, sparse_ids):
     flat = E.field_ids(sparse_ids, E.fused_table_offsets(cfg.vocab_sizes))
     emb = E.take_rows(params["table"], flat, out_dtype=cd,
                       impl=cfg.bag_impl)                    # [B, F, D]
-    first = E.padded_bag(params["w1"], flat, impl=cfg.bag_impl)[:, 0]
+    first = E.bag_rows(params["w1"], flat, impl=cfg.bag_impl)[:, 0]
     b = sparse_ids.shape[0]
     deep = _mlp(_cast(params["dnn"], cd), emb.reshape(b, -1))[:, 0]
     logit = params["b0"] + first + deep.float()
@@ -144,8 +147,8 @@ def item_vectors(params, cfg: DeepFMConfig, item_ids):
     [N] first-order partial), in the table's dtype."""
     offsets = E.fused_table_offsets(cfg.vocab_sizes)
     flat = E.field_ids(item_ids, offsets[list(cfg.item_fields)])
-    return (E.padded_bag(params["table"], flat, impl=cfg.bag_impl),
-            E.padded_bag(params["w1"], flat, impl=cfg.bag_impl)[:, 0])
+    return (E.bag_rows(params["table"], flat, impl=cfg.bag_impl),
+            E.bag_rows(params["w1"], flat, impl=cfg.bag_impl)[:, 0])
 
 
 def retrieval_scores(params, cfg: DeepFMConfig, user_ids, item_vecs,
@@ -156,7 +159,7 @@ def retrieval_scores(params, cfg: DeepFMConfig, user_ids, item_vecs,
     user_ids: [B, n_user_fields]; item_vecs: [N, D] -> [B, N]."""
     offsets = E.fused_table_offsets(cfg.vocab_sizes)
     flat = E.field_ids(user_ids, offsets[cfg.user_fields])
-    emb_u = E.padded_bag(params["table"], flat, impl=cfg.bag_impl)  # [B, D]
-    first_u = E.padded_bag(params["w1"], flat, impl=cfg.bag_impl)[:, 0]
+    emb_u = E.bag_rows(params["table"], flat, impl=cfg.bag_impl)    # [B, D]
+    first_u = E.bag_rows(params["w1"], flat, impl=cfg.bag_impl)[:, 0]
     cross = L.mm_f32(emb_u, item_vecs.t())
     return params["b0"] + first_u[:, None] + item_first[None, :] + cross

@@ -15,8 +15,11 @@ runs the embedding-bag kernel (``cfg.bag_impl == "cuda"``).  Parameters
 are cast to ``compute_dtype`` at the use site, as in the JAX package; the
 table's cast is fused into the kernel's gather, so bf16 storage
 (``param_dtype=torch.bfloat16``) gives the same bits as float32 storage.
-``bce_loss`` is the training loss; it trains with ``bag_impl="plain"``
-(the kernel wrapper refuses a table that requires grad).
+The towers' mean bags are :func:`embedding.bag_rows`: under row sharding
+``take_rows`` through the sharded lookup, then the mean over the fields,
+as the JAX package reads them.  ``bce_loss`` is the training loss; under
+``bag_impl="cuda"`` its lookup launches the kernel forward and takes the
+plain version's gradient backward (``embedding.padded_bag``).
 """
 from __future__ import annotations
 
@@ -170,8 +173,7 @@ def item_tower(params, cfg: DLRMConfig, item_ids):
     in the table's dtype, the mean of the item-field embeddings."""
     offsets = E.fused_table_offsets(cfg.vocab_sizes)
     flat = E.field_ids(item_ids, offsets[list(cfg.item_fields)])
-    return E.padded_bag(params["table"], flat, mode="mean",
-                        impl=cfg.bag_impl)
+    return E.bag_rows(params["table"], flat, mode="mean", impl=cfg.bag_impl)
 
 
 def user_tower(params, cfg: DLRMConfig, dense, user_sparse_ids):
@@ -180,8 +182,8 @@ def user_tower(params, cfg: DLRMConfig, dense, user_sparse_ids):
     offsets = E.fused_table_offsets(cfg.vocab_sizes)
     bot = _mlp(_cast(params["bot"], cd), dense.to(cd), final_act=True)
     flat = E.field_ids(user_sparse_ids, offsets[cfg.user_fields])
-    return bot + E.padded_bag(params["table"], flat, mode="mean",
-                              out_dtype=cd, impl=cfg.bag_impl)
+    return bot + E.bag_rows(params["table"], flat, mode="mean", out_dtype=cd,
+                            impl=cfg.bag_impl)
 
 
 def retrieval_scores(params, cfg: DLRMConfig, dense, user_sparse_ids,

@@ -32,6 +32,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.embedding_bag import (embedding_bag_op,
                                                embedding_bag_ref)
+from repro_torch.models.backend import _trainable
 
 IMPLS = ("cuda", "plain")
 # float32 elements drawn at a time by init_fused_table (256 MB)
@@ -74,11 +75,34 @@ def padded_bag(table, ids, weights=None, *, mode: str = "sum",
     """The gather-reduce of every lookup: ids ``[n_bags, max_nnz]``
     (weights 0 for pads, None for 1) -> ``[n_bags, dim]`` in ``out_dtype``
     (default the table's; each row converted to it first, as
-    ``table.astype(out_dtype)`` before a gather)."""
+    ``table.astype(out_dtype)`` before a gather).  Under autograd
+    through the table, ``"cuda"`` launches the kernel forward and takes
+    the plain version's gradient backward (``backend._PlainGradient``: a
+    scatter-add into a table-sized zero, the gradient of JAX's
+    ``take``)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown embedding impl {impl!r}; impls: {IMPLS}")
-    fn = embedding_bag_op if impl == "cuda" else embedding_bag_ref
-    return fn(table, ids, weights, mode=mode, out_dtype=out_dtype)
+    bag = lambda fn: lambda t: fn(t, ids, weights, mode=mode,
+                                  out_dtype=out_dtype)
+    if impl == "plain":
+        return bag(embedding_bag_ref)(table)
+    return _trainable(bag(embedding_bag_op), bag(embedding_bag_ref), table)
+
+
+def bag_rows(table, flat_ids, *, mode: str = "sum", out_dtype=None,
+             impl: str = "cuda"):
+    """The sum or mean over the last axis of fused-table rows ``flat_ids
+    [N, F]`` -> ``[N, dim]`` in ``out_dtype`` (default the table's), the
+    reference's ``take_rows(...).sum(1)`` / ``.mean(1)``: one padded bag
+    a row in one process; under row sharding (module docstring)
+    :func:`take_rows`, then the float32 reduction of the rows converted
+    to ``out_dtype``."""
+    if _row_sharding_mesh() is None:
+        return padded_bag(table, flat_ids, mode=mode, out_dtype=out_dtype,
+                          impl=impl)
+    rows = take_rows(table, flat_ids, out_dtype=out_dtype, impl=impl)
+    red = rows.float().sum(1) if mode == "sum" else rows.float().mean(1)
+    return red.to(rows.dtype)
 
 
 def field_ids(ids, offsets):
@@ -176,36 +200,87 @@ def sharded_lookup(table, flat_ids, mesh, *, capacity_factor: float = 4.0,
     3. *return + combine*: a second all-to-all sends the vectors back,
        and each id takes ``vecs[owner, slot] * keep``.
 
-    Ids past an owner's capacity (Zipf skew) come back as zero rows."""
-    import torch.distributed as dist
+    Ids past an owner's capacity (Zipf skew) come back as zero rows.
 
-    from repro_torch.dist.compat import axis_index
-
+    The table's gradient goes the same way back (:class:`_ShardedLookup`):
+    each id's output gradient to its ``(owner, slot)``, the reverse
+    all-to-all to the owners, a float32 ``index_add_`` into the local
+    block at the gathered rows.  Dropped ids get none, as their zeros
+    took none.  The ranks along ``model`` of a data group looked up the
+    same ids for the same work, so an owner receives each group's
+    gradient once from every one of them: it keeps the copy of the
+    group's rank at ``model`` coordinate 0 (``all_gather``'s ``"split"``
+    rule in ``dist.spmd``), and sums over the data groups, which looked
+    up different rows.  A table row's gradient is then one process's."""
     axes = tuple(a for a in ("pod", "data", "model") if a in mesh.axis_names)
     if len(axes) != len(mesh.axis_names):
         raise ValueError(f"sharded_lookup: mesh axes {mesh.axis_names} are "
                          f"not of ('pod', 'data', 'model')")
-    n_shards = mesh.size
-    rows_per, d = table.shape
-    capacity = lookup_capacity(flat_ids.shape[0], n_shards, capacity_factor)
-    bucket, owner, slot, keep = _bucket_group(flat_ids, n_shards, rows_per,
-                                              capacity)
-    # owner coordinate of each rank (the all-to-all's chunks go by rank)
-    coord_of_rank = mesh.ranks.transpose(
-        [mesh.axis_names.index(a) for a in axes]).reshape(-1).argsort()
-    coord_of_rank = torch.as_tensor(coord_of_rank, device=flat_ids.device)
-    recv = torch.empty_like(bucket)
-    dist.all_to_all_single(recv, bucket[coord_of_rank].contiguous())
-    local = torch.clamp(recv - axis_index(mesh, axes) * rows_per, 0,
-                        rows_per - 1)
-    rows = padded_bag(table, local.reshape(-1, 1), impl=impl)
-    vecs = torch.empty_like(rows)
-    dist.all_to_all_single(vecs, rows)
-    vecs = vecs.reshape(n_shards, capacity, d)
-    by_owner = torch.empty_like(vecs)
-    by_owner[coord_of_rank] = vecs
-    out = by_owner[owner, torch.where(keep, slot, 0)]
-    return out * keep[:, None].to(out.dtype)
+    capacity = lookup_capacity(flat_ids.shape[0], mesh.size, capacity_factor)
+    bucket, owner, slot, keep = _bucket_group(flat_ids, mesh.size,
+                                              table.shape[0], capacity)
+    return _ShardedLookup.apply(table, bucket, owner, slot, keep, mesh, axes,
+                                impl)
+
+
+def _all_to_all(x):
+    import torch.distributed as dist
+
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous())
+    return out
+
+
+class _ShardedLookup(torch.autograd.Function):
+    """:func:`sharded_lookup`'s exchange, gather and combine, with the
+    table's gradient (its docstring)."""
+
+    @staticmethod
+    def forward(ctx, table, bucket, owner, slot, keep, mesh, axes, impl):
+        from repro_torch.dist.compat import axis_index
+
+        n_shards, capacity = bucket.shape
+        rows_per, d = table.shape
+        # owner coordinate of each rank (the all-to-all's chunks go by
+        # rank)
+        order = torch.as_tensor(mesh.ranks.transpose(
+            [mesh.axis_names.index(a) for a in axes]).reshape(-1).argsort(),
+            device=bucket.device)
+        recv = _all_to_all(bucket[order])
+        local = torch.clamp(recv - axis_index(mesh, axes) * rows_per, 0,
+                            rows_per - 1)
+        rows = padded_bag(table, local.reshape(-1, 1), impl=impl)
+        vecs = _all_to_all(rows).reshape(n_shards, capacity, d)
+        by_owner = torch.empty_like(vecs)
+        by_owner[order] = vecs
+        out = by_owner[owner, torch.where(keep, slot, 0)]
+        ctx.save_for_backward(local, owner, slot, order)
+        ctx.mesh, ctx.table = mesh, (table.shape, table.dtype)
+        return out * keep[:, None].to(out.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 8
+        local, owner, slot, order = ctx.saved_tensors
+        mesh = ctx.mesh
+        (rows_per, d), dtype = ctx.table
+        n_shards, capacity = local.shape
+        # dropped ids (slot C) land in a spare column that is sliced off
+        buf = grad.new_zeros((n_shards, capacity + 1, d))
+        buf[owner, slot] = grad
+        recv = _all_to_all(buf[:, :capacity][order])
+        if "model" in mesh.axis_names:
+            coord = np.indices(mesh.ranks.shape)[
+                mesh.axis_names.index("model")]
+            from_first = np.empty(mesh.size, bool)
+            from_first[mesh.ranks.reshape(-1)] = coord.reshape(-1) == 0
+            recv = recv * torch.as_tensor(from_first, device=recv.device)[
+                :, None, None].to(recv.dtype)
+        g = torch.zeros((rows_per, d), dtype=torch.float32,
+                        device=grad.device)
+        g.index_add_(0, local.reshape(-1), recv.reshape(-1, d).float())
+        return (g.to(dtype),) + (None,) * 7
 
 
 def embedding_bag(table, offsets, ids, bag_field, *, n_bags, mode="sum",

@@ -172,8 +172,10 @@ def cache_block(x, cfg, mesh):
     group's rows and the kv heads its query heads read (a kv head that
     several ranks read held whole by each).  The layout that
     ``forward(collect_cache=True)`` returns and ``decode_step`` takes
-    under the sharded route."""
-    x = S.data_block(x, mesh, dim=1)
+    under the sharded route.  A batch the data axes do not divide is
+    whole on every rank (its spec replicates it)."""
+    if x.shape[1] % mesh.axis_size(S.data_axes(mesh)) == 0:
+        x = S.data_block(x, mesh, dim=1)
     return _take(x, 3, _kv_heads(plan(cfg, mesh), cfg.dh)).contiguous()
 
 
@@ -186,24 +188,6 @@ def _take(w, dim, index):
     if isinstance(index, tuple):
         return w.narrow(dim, *index)
     return w.index_select(dim, index.to(w.device))
-
-
-def _gather_data(w, spec, mesh):
-    """``w`` with every dim sharded over the data axes gathered (FSDP);
-    the gradient is reduce-scattered back, and summed over the data axes
-    that no dim takes (each data group adds its own tokens' part)."""
-    used = set()
-    for d, entry in enumerate(spec):
-        axes = S.entry_axes(entry)
-        if axes and "model" in axes and axes != MODEL:
-            raise ValueError(f"a dim sharded over {axes}: the sharded "
-                             f"transformer takes the data axes or 'model' "
-                             f"on a dim, not both")
-        if axes and axes != MODEL:
-            w = S.all_gather(w, d, mesh, axes, backward="sum")
-            used.update(axes)
-    rest = tuple(a for a in S.data_axes(mesh) if a not in used)
-    return S.copy_to(w, mesh, rest) if rest else w
 
 
 def _model_view(w, spec, p: Plan, *, split: bool, dim=None, index=None):
@@ -231,7 +215,7 @@ def _model_view(w, spec, p: Plan, *, split: bool, dim=None, index=None):
 
 
 def _view(w, spec, p: Plan, **kw):
-    return _model_view(_gather_data(w, spec, p.mesh), spec, p, **kw)
+    return _model_view(S.gather_data_dims(w, spec, p.mesh), spec, p, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +277,7 @@ class Route(T.Local):
     def _whole(self, tree, specs):
         """Leaves every model rank uses alike, their data dims
         gathered."""
-        return {k: _view(v, specs[k], self.p, split=False)
+        return {k: S.whole_leaf(v, specs[k], self.mesh)
                 for k, v in tree.items()}
 
     def layer(self, i, lp):
@@ -309,7 +293,7 @@ class Route(T.Local):
                                    if p.attn_split and k in cols else {}))
                        for k, v in lp["attn"].items()}
         if "moe" in lp:
-            out["moe"] = {k: _gather_data(v, specs["moe"][k], self.mesh)
+            out["moe"] = {k: S.gather_data_dims(v, specs["moe"][k], self.mesh)
                           for k, v in lp["moe"].items()}
         else:
             rows = {"w_gate": 1, "w_up": 1, "w_in": 1, "b_in": 0,
@@ -326,7 +310,7 @@ class Route(T.Local):
         rows where the rules cut the vocab over ``model``, else the whole
         table."""
         if self._table is None:
-            self._table = _gather_data(params["embed"]["tokens"],
+            self._table = S.gather_data_dims(params["embed"]["tokens"],
                                        self.specs["embed"]["tokens"],
                                        self.mesh)
         return self._table
@@ -382,7 +366,7 @@ class Route(T.Local):
     def whole(self, tree, key):
         """``tree`` (this rank's shards of the params ``extra[key]``
         specifies) with every dim gathered, as each rank uses it alike."""
-        return tree_map(lambda v, spec: _view(v, spec, self.p, split=False),
+        return tree_map(lambda v, spec: S.whole_leaf(v, spec, self.mesh),
                         tree, self.extra[key])
 
     def logsumexp(self, lg):

@@ -11,8 +11,10 @@ Run by ``chip_smoke.py`` (the cells phase) through
     run_spmd(cell_checks, shape, ("data", "model"), args=(spec,))
 
 ``spec`` maps a key to ``(arch, shape, cuts)``; ``cuts`` are
-``build_cell``'s (``batch``, ``seq``, ``n_layers``; ``smoke`` for a run
-on the CPU, where the wrappers run their plain versions).  A decode cell
+``build_cell``'s (``batch``, ``seq``, ``n_layers``, ``rows_per_field``;
+``smoke`` for a run on the CPU, where the wrappers run their plain
+versions).  A recsys config has no backend knob: its plain control also
+takes ``bag_impl="plain"``.  A decode cell
 runs ``DECODE_STEPS`` teacher-forced steps from position ``seq -
 DECODE_STEPS`` of its seeded cache.  ``count(fn) -> (fn(), launches)``
 counts the kernel launches of the cell's run.
@@ -24,7 +26,10 @@ on the rank's block: ``diff`` (the kernels against the plain impls),
 compute on the same inputs, the control) and ``plain_bf16_vs_f32``
 (the plain impls against that control: the bf16 rounding of the
 reference itself); the card check holds the second within a small
-factor of the third.
+factor of the third.  BERT4Rec's top-k ids are not a difference:
+``ids_mismatch`` counts those that differ from the plain run's where the
+values are not tied (:func:`_ids_mismatch`).  A retrieval cell's
+scores are the rank's block of the candidates.
 
 A train cell runs at float32 compute (``overrides`` on its result; its
 configured bf16 step is held by no check here): the kernels' forward and
@@ -99,36 +104,61 @@ def _rows(x, mesh, axes):
     return S.local_block(x, 0, mesh, axes) if axes else x
 
 
+TRAIN_KINDS = ("train", "prettr_train", "rec_train")
+
+
+def _config(arch, cuts):
+    """The config a cell's check reads its fields from: the transformer
+    config of an LM or PreTTR arch, else the arch's own (recsys)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.backend import transformer_config_of
+
+    spec = get_arch(arch)
+    cfg = spec.smoke if cuts.get("smoke") else spec.config
+    return transformer_config_of(cfg) or cfg
+
+
 def _overrides(arch, shape, cuts, world) -> dict:
     """The config fields a cell's check replaces: a train cell's compute
     dtype (float32, where the kernels' forward meets the plain one to
     rounding), and off a world of 1 an MoE config's capacity factor
     (E / k)."""
     from repro_torch.configs import get_arch
-    from repro_torch.models.backend import transformer_config_of
 
     spec = get_arch(arch)
-    cfg = transformer_config_of(spec.smoke if cuts.get("smoke")
-                                else spec.config)
+    cfg = _config(arch, cuts)
     over = {}
     if world > 1 and getattr(cfg, "n_experts", 0):
         over["capacity_factor"] = cfg.n_experts / cfg.top_k
     if shape == "rank_train" or spec.shapes.get(shape, {}).get("kind") \
-            == "train":
+            in TRAIN_KINDS:
         over["compute_dtype"] = torch.float32
     return over
 
 
+def _plain(arch) -> dict:
+    """What the plain control replaces besides the backend: a DLRM or
+    DeepFM config's ``bag_impl`` (the recsys configs have no backend
+    knob)."""
+    from repro_torch.configs import get_arch
+
+    return {"bag_impl": "plain"} \
+        if hasattr(get_arch(arch).config, "bag_impl") else {}
+
+
 def _spec(arch, over):
     """``arch``'s ArchSpec with ``over``'s fields replaced in its
-    transformer configs (a PreTTR config's backbone)."""
+    transformer configs (a PreTTR config's backbone), or in a recsys
+    config itself."""
     from repro_torch.configs import get_arch
     from repro_torch.models.backend import transformer_config_of
 
     def swap(cfg):
-        tcfg = transformer_config_of(cfg)
-        if cfg is None or tcfg is None or not over:
+        if cfg is None or not over:
             return cfg
+        tcfg = transformer_config_of(cfg)
+        if tcfg is None:
+            return dataclasses.replace(cfg, **over)
         new = dataclasses.replace(tcfg, **over)
         return new if tcfg is cfg else dataclasses.replace(cfg, backbone=new)
 
@@ -151,7 +181,8 @@ def _held(grads):
 
 def _outputs(kind, fn, whole, steps_from=None, fed=None):
     """The cell's outputs on ``whole``, as a dict of tensors (a decode
-    cell's ``DECODE_STEPS`` logits from ``steps_from``, fed ``fed``)."""
+    cell's ``DECODE_STEPS`` logits from ``steps_from``, fed ``fed``;
+    BERT4Rec's top-k as ``values`` and ``ids``)."""
     if kind == "decode":
         params, _, cache, _ = whole
         return {f"step{i}": fn(params, fed[:, i:i + 1], cache,
@@ -162,8 +193,11 @@ def _outputs(kind, fn, whole, steps_from=None, fed=None):
         return {"logits": out[0], "k": out[1][0], "v": out[1][1]}
     if kind == "prettr_index":
         return {"reps": out}
-    if kind == "prettr_serve":
+    if kind in ("prettr_serve", "rec_retrieval"):
         return {"scores": out}
+    if kind == "rec_serve":
+        return dict(zip(("values", "ids"), out)) if isinstance(out, tuple) \
+            else {"logits": out}
     return {"state": out[0], "loss": out[1]["loss"],
             "grad_norm": out[1]["grad_norm"]}
 
@@ -171,27 +205,25 @@ def _outputs(kind, fn, whole, steps_from=None, fed=None):
 def cell_check(mesh, arch: str, shape: str, cuts: dict, *, seed: int = 0,
                count=_uncounted) -> dict:
     """One cell against its one-process plain run (module docstring)."""
-    from repro_torch.configs import get_arch
     from repro_torch.dist import default_rules
     from repro_torch.dist import spmd as S
     from repro_torch.dist.compat import AbstractMesh
     from repro_torch.launch.steps import build_spec_cell
     from repro_torch.models import transformer_spmd as SP
-    from repro_torch.models.backend import transformer_config_of
     from repro_torch.tree import leaves, leaves_with_paths
 
     dev = mesh.device
     over = _overrides(arch, shape, cuts, mesh.size)
-    spec = _spec(arch, over)
+    plain = {**over, **_plain(arch)}
     one = default_rules(AbstractMesh((1, 1), ("data", "model")))
-    cell = build_spec_cell(spec, shape, default_rules(mesh), "cuda", **cuts)
-    ref = build_spec_cell(spec, shape, one, "plain", **cuts)
+    cell = build_spec_cell(_spec(arch, over), shape, default_rules(mesh),
+                           "cuda", **cuts)
+    ref = build_spec_cell(_spec(arch, plain), shape, one, "plain", **cuts)
     gen = torch.Generator(device=dev).manual_seed(seed)
     whole = cell.inputs(gen, dev)
     kind = cell.kind
-    train = kind in ("train", "prettr_train")
-    pcfg = transformer_config_of(get_arch(arch).smoke if cuts.get("smoke")
-                                 else get_arch(arch).config)
+    train = kind in TRAIN_KINDS
+    pcfg = _config(arch, cuts)
     out = {"arch": arch, "shape": shape, "kind": kind, "notes": cell.notes,
            "model_flops": cell.model_flops,
            "overrides": {k: {"run": str(v), "published": str(getattr(pcfg, k))}
@@ -220,7 +252,7 @@ def cell_check(mesh, arch: str, shape: str, cuts: dict, *, seed: int = 0,
     ctl = None
     if not train and not cuts.get("smoke"):
         # the control: the plain impls at float32 compute
-        f32 = build_spec_cell(_spec(arch, {**over, "compute_dtype":
+        f32 = build_spec_cell(_spec(arch, {**plain, "compute_dtype":
                                            torch.float32}),
                               shape, one, "plain", **cuts)
         ctl = _outputs(kind, f32.fn, copy(torch.float32), **kw)
@@ -260,11 +292,14 @@ def cell_check(mesh, arch: str, shape: str, cuts: dict, *, seed: int = 0,
         out["loss"] = float(got["loss"])
         out["grad_norm"] = float(got["grad_norm"])
         return out
-    cfg = spec.smoke if cuts.get("smoke") else spec.config
+    cfg = _config(arch, cuts)
     block = {"logits": lambda x: _rows(x, mesh, data),
              "k": lambda x: SP.cache_block(x, cfg, mesh),
              "v": lambda x: SP.cache_block(x, cfg, mesh),
-             "scores": lambda x: _rows(x, mesh, every)}
+             # a retrieval cell's candidates are cut over every axis
+             "scores": (lambda x: S.local_block(x, 1, mesh, every))
+             if kind == "rec_retrieval" else
+             (lambda x: _rows(x, mesh, every))}
     if kind == "prettr_index":
         valid = _rows(whole[2], mesh, every)
         block["reps"] = lambda x: _rows(x, mesh, every)[valid]
@@ -272,13 +307,29 @@ def cell_check(mesh, arch: str, shape: str, cuts: dict, *, seed: int = 0,
     mine = lambda d: {k: block.get(k, block["logits"])(x)
                       for k, x in d.items()}
     want = mine(want)
+    if "ids" in got:
+        out["ids_mismatch"] = _ids_mismatch(got.pop("ids"), want.pop("ids"),
+                                            want["values"])
     out["diff"] = {k: _rel(g, want[k]) for k, g in got.items()}
     if ctl is not None:
         ctl = mine(ctl)
+        ctl.pop("ids", None)
         out["kernel_vs_f32"] = {k: _rel(g, ctl[k]) for k, g in got.items()}
         out["plain_bf16_vs_f32"] = {k: _rel(w, ctl[k])
                                     for k, w in want.items()}
     return out
+
+
+def _ids_mismatch(got, want, values) -> int:
+    """Top-k ids that differ where the values are not tied within
+    rounding (a gap to either neighbour above 2^-20 of the largest
+    value)."""
+    v = values.float()
+    inf = torch.full_like(v[:, :1], float("inf"))
+    gap = torch.minimum((torch.cat([inf, v], 1)[:, :-1] - v).abs(),
+                        (v - torch.cat([v, -inf], 1)[:, 1:]).abs())
+    apart = gap > 2 ** -20 * float(v.abs().max())
+    return int((got != want)[apart].sum())
 
 
 def cell_checks(mesh, spec: dict, count=_uncounted) -> dict:

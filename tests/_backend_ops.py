@@ -1,5 +1,6 @@
 """Small calls of the backend ops that training differentiates
-(``attention``, ``decode_attention``, ``compress``, ``decompress``), for
+(``attention``, ``decode_attention``, ``compress``, ``decompress``) and of
+the recsys lookups' ``padded_bag`` (its ``impl`` for the backend), for
 the tests that hold the ``"cuda"`` ops' gradient against the plain ops'
 (``test_torch_train.py`` on the CPU, ``test_torch_cuda.py`` on the
 card): torch and the port only."""
@@ -8,9 +9,11 @@ import types
 import torch
 
 from repro_torch.kernels.decode_attention import flash_decode_attention
+from repro_torch.kernels.embedding_bag import embedding_bag_op
 from repro_torch.kernels.fused_compress import fused_compress, fused_decompress
 from repro_torch.kernels.split_attention import split_flash_attention
 from repro_torch.models import backend as B
+from repro_torch.models.recsys import embedding as E
 
 B_, S_, H_, D_, E_ = 2, 24, 2, 16, 8
 LQ = 8                         # the split cases' query segment
@@ -64,6 +67,15 @@ def _decompress(gen, device):
     return fn, xs
 
 
+def _bag(gen, device):
+    r, _ = _inputs(gen, device)
+    ids = torch.randint(0, 40, (B_ * S_, 3), generator=gen).to(device)
+    weights = (torch.rand((B_ * S_, 3), generator=gen) < 0.8).float() \
+        .to(device)
+    fn = lambda impl, table: E.padded_bag(table, ids, weights, impl=impl)
+    return fn, [r(40, D_)]
+
+
 #: name -> (call(gen, device) -> (fn(impl, *xs), xs), the launch counter
 #: the call moves on the card)
 CASES = {
@@ -76,6 +88,7 @@ CASES = {
     "decode_attention": (_decode, (flash_decode_attention, "launches")),
     "compress": (_compress, (fused_compress, "launches")),
     "decompress": (_decompress, (fused_decompress, "launches")),
+    "embedding_bag": (_bag, (embedding_bag_op, "launches")),
 }
 
 

@@ -56,15 +56,21 @@ def world4(mesh, table, id_cases, moe_cases, dlrm_case):
         out[f"moe/{name}"] = (y.numpy(), float(aux))
     # the gradient of sum(y^2) over every token plus the aux loss (the
     # last case's capacity factor: no slot drops): d/dx of this rank's
-    # rows, and each parameter's part from this data group's tokens
-    trainable = {k: v.clone().requires_grad_() for k, v in p.items()}
-    xg = torch.from_numpy(_group_rows(mesh, x)).requires_grad_()
-    with install_rules(rules):
-        y, aux = moe_ffn(trainable, xg, top_k=top_k, capacity_factor=cf)
-        loss = all_reduce_sum(y.square().sum(), mesh, "data") + aux
-        grads = torch.autograd.grad(loss, [xg, *trainable.values()])
-    out["moe_grad"] = (float(loss), grads[0].numpy(),
-                       {k: g.numpy() for k, g in zip(trainable, grads[1:])})
+    # rows, and each parameter's part from this data group's tokens; then
+    # the same where the groups do not split the tokens (one group)
+    grad_cases = {"moe_grad": moe_cases[name]}
+    if "one_group_E5" in moe_cases:
+        grad_cases["moe_one_group_grad"] = moe_cases["one_group_E5"]
+    for key, (params, x, top_k, cf) in grad_cases.items():
+        trainable = {k: torch.from_numpy(v).requires_grad_()
+                     for k, v in params.items()}
+        xg = torch.from_numpy(_group_rows(mesh, x)).requires_grad_()
+        with install_rules(rules):
+            y, aux = moe_ffn(trainable, xg, top_k=top_k, capacity_factor=cf)
+            loss = all_reduce_sum(y.square().sum(), mesh, "data") + aux
+            grads = torch.autograd.grad(loss, [xg, *trainable.values()])
+        out[key] = (float(loss), grads[0].numpy(),
+                    {k: g.numpy() for k, g in zip(trainable, grads[1:])})
     from repro_torch.models.recsys import dlrm as D
     cfg, params, dense, sparse = dlrm_case
     p = dict(params)

@@ -1,14 +1,14 @@
 """The port's cells (``launch.steps``) against the JAX package's, in one
 process on the CPU.
 
-* Every (arch, shape) of ``cell_names()`` outside the recsys family (the
-  LMs, DimeNet, PreTTR): ``kind``, ``notes``, ``donate`` and
+* Every (arch, shape) of ``cell_names()`` (the LMs, DimeNet, PreTTR and
+  the recsys cells): ``kind``, ``notes``, ``donate`` and
   ``model_flops`` (rel 1e-12) equal JAX's ``build_cell``, and every arg's
   shape, dtype and ``PartitionSpec`` under ``default_rules`` on the
   production 16 x 16 mesh and a (2, 2) mesh (layer by layer: the port
   keeps a list of layer dicts; the port's PreTTR tree has no
   ``lm_head``, so JAX's is compared without it).  ``cell_names()`` is
-  JAX's list, and ``build_cell`` raises on each recsys cell.
+  JAX's list.
 * ``backend_support`` equals JAX's for every arch, ``"cuda"`` standing
   for JAX's ``"pallas"``, but for one stated difference: a layer range
   that mixes windows (gemma3-4b) is ``"applied"`` under ``"cuda"`` (the
@@ -53,8 +53,7 @@ from repro_torch.tree import leaves_with_paths, tree_map
 
 MESHES = {"production_16x16": ((16, 16), ("data", "model")),
           "2x2": ((2, 2), ("data", "model"))}
-CELLS = [c for c in ST.cell_names() if get_arch(c[0]).family != "recsys"]
-RECSYS = [c for c in ST.cell_names() if get_arch(c[0]).family == "recsys"]
+CELLS = ST.cell_names()
 # the archs whose layers mix windows: "applied" under the port's "cuda",
 # "unsupported" under JAX's "pallas"
 MIXED_WINDOWS = ("gemma3-4b",)
@@ -155,12 +154,6 @@ def test_cell_arg_specs_equal_jax(both, cell):
     assert sorted(g) == sorted(w)
     for k in w:
         assert g[k] == w[k], k
-
-
-@pytest.mark.parametrize("cell", RECSYS, ids="/".join)
-def test_build_cell_raises_on_recsys(cell):
-    with pytest.raises(NotImplementedError, match="7.2b"):
-        ST.build_cell(*cell, default_rules(AbstractMesh(*MESHES["2x2"])))
 
 
 # ---------------------------------------------------------------------------

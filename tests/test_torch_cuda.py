@@ -4,7 +4,8 @@ the smoke-size service through the kernels against the plain impl (fused
 and legacy concat joins, prefetched and synchronous drains, an injected
 staging fault), gemma3's smoke_config forward and decode through the
 kernels against the plain impl, the embedding-bag kernel with the
-recsys smoke models through it, the sharded router against the service
+recsys smoke models through it (a train cell among them: the kernel
+forward, the plain gradient), the sharded router against the service
 and the split kernel at BERT4Rec's head dim 32.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
@@ -2030,10 +2031,11 @@ def test_moe_train_cell_gradient_on_one_card_over_nccl(dev, tmp_path):
 
 @pytest.mark.parametrize("case", ["attention_split", "attention_causal",
                                   "attention_window", "decode_attention",
-                                  "compress", "decompress"])
+                                  "compress", "decompress", "embedding_bag"])
 def test_cuda_backend_ops_train_through_the_kernels(dev, case):
-    """Under autograd the "cuda" backend ops launch their kernel forward
-    (its counter moves once) and take the plain op's gradient backward:
+    """Under autograd the "cuda" backend ops (and ``padded_bag``'s "cuda"
+    impl) launch their kernel forward (its counter moves once) and take
+    the plain op's gradient backward:
     float32 output within 1e-4 of the plain op's on the card (fp16 stores
     within one fp16 step), every input's gradient within 1e-4 of its
     largest value."""
@@ -2047,3 +2049,49 @@ def test_cuda_backend_ops_train_through_the_kernels(dev, case):
     for g, w in zip(got_g, want_g):
         err = float((g.float() - w.float()).abs().max())
         assert err <= 1e-4 * float(w.float().abs().max()), (case, err)
+
+
+@pytest.mark.parametrize("arch", ["dlrm-mlperf", "xdeepfm"])
+def test_recsys_train_cell_through_the_kernels(dev, arch):
+    """A recsys train cell (smoke config, float32) with ``bag_impl``
+    "cuda": its lookups launch the embedding-bag kernel forward and take
+    the plain version's gradient backward (``embedding.padded_bag``),
+    against the same cell with ``bag_impl`` "plain", which launches none,
+    on the same seeded inputs on the card.  The train gates of the smoke's
+    cells: loss and ``grad_norm`` within 1e-5, each gradient leaf (AdamW's
+    first moment) within 1e-4 of its largest value, the updated
+    parameters within rtol = atol = 1e-5."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import default_rules
+    from repro_torch.dist.compat import AbstractMesh
+    from repro_torch.launch import steps as ST
+    from repro_torch.tree import leaves_with_paths
+
+    one = default_rules(AbstractMesh((1, 1), ("data", "model")))
+    res = {}
+    for impl in ("cuda", "plain"):
+        spec = get_arch(arch)
+        spec = dataclasses.replace(spec, smoke=dataclasses.replace(
+            spec.smoke, bag_impl=impl))
+        cell = ST.build_spec_cell(spec, "train_batch", one, smoke=True,
+                                  batch=64)
+        args = ST.cell_inputs(cell, torch.Generator(device=dev).manual_seed(0),
+                              dev, whole=True)
+        before = _all_launches()
+        new, out = cell.fn(*args)
+        torch.cuda.synchronize()
+        res[impl] = (new, out, _all_launches() - before)
+    (new, out, launched), (want, wout, plain_launched) = res["cuda"], \
+        res["plain"]
+    assert launched > 0 and plain_launched == 0
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(out[k], wout[k], rtol=1e-5, atol=1e-5)
+    g = dict(leaves_with_paths(new["opt"]["m"]))
+    for k, w in leaves_with_paths(want["opt"]["m"]):
+        err = float((g[k] - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (k, err)
+    p = dict(leaves_with_paths(new["params"]))
+    for k, w in leaves_with_paths(want["params"]):
+        torch.testing.assert_close(p[k], w, rtol=1e-5, atol=1e-5)

@@ -4,7 +4,8 @@ under ``shard_map`` on 8 host devices (three steps, the residual carried);
 ``sharded_lookup`` on (2, 2) and (4,) worlds against ``take * keep`` from
 JAX's ``_bucket_group`` and against JAX's ``sharded_lookup`` itself
 (under ``jax.set_mesh``); ``moe_ffn`` on a (2, 2) world against JAX's
-``moe_ffn(..., n_groups=G)``; DLRM's forward with rules installed
+``moe_ffn(..., n_groups=G)``, one token a data group among the cases (one
+group over every token, JAX's fallback); DLRM's forward with rules installed
 against one device.
 
 The ranks start once per world through module-scoped fixtures
@@ -43,6 +44,10 @@ ID_CASES = {"uniform_cf8": 8.0, "zipf_cf1": 1.0, "uniform_cf4": 4.0}
 LOOKUP_MESHES = {"2x2": 2, "4_data": 4, "4_model": 1}
 MOE_CASES = {f"E{e}_cf{cf}": (e, cf) for e in (8, 5) for cf in (1.25, 8.0)}
 MOE_D, MOE_F, MOE_T = 32, 48, 64
+# one token a data group: fewer than a data group's dispatch groups, so
+# the mesh runs one group over every token (JAX's fallback)
+ONE_GROUP_CASES = {"one_group_E5": (5, 1.25)}
+ONE_GROUP_T = 2
 
 JAX_SCRIPT = textwrap.dedent("""
     import sys
@@ -148,8 +153,12 @@ def runs(tmp_path_factory):
         psum = run_spmd(R.psum_steps, (8,), ("pod",), device_type="cpu",
                         args=(grads, "pod"), timeout_s=TIMEOUT_S,
                         store_dir=str(tmp), threads=1)
-        moe = {name: (_moe_params(e), _moe_x(), 2, cf)
-               for name, (e, cf) in MOE_CASES.items()}
+        # the groups that do not split the tokens first: the last case
+        # is the gradient's (tests/_spmd_ranks.py)
+        moe = {**{name: (_moe_params(e), _moe_x()[:ONE_GROUP_T], 2, cf)
+                  for name, (e, cf) in ONE_GROUP_CASES.items()},
+               **{name: (_moe_params(e), _moe_x(), 2, cf)
+                  for name, (e, cf) in MOE_CASES.items()}}
         dlrm = _dlrm_case()
         ids = {c: (inp[f"ids/{c}"], cf) for c, cf in ID_CASES.items()}
         world4 = run_spmd(R.world4, (2, 2), ("data", "model"),
@@ -305,6 +314,41 @@ def test_moe_ffn_model_ranks_agree(runs, name):
         a, b = (runs["world4"][2 * g + j][f"moe/{name}"] for j in (0, 1))
         np.testing.assert_array_equal(a[0], b[0])
         assert a[1] == b[1]
+
+
+def test_moe_ffn_runs_one_group_where_the_groups_do_not_split(runs):
+    """One token a data group and 5 experts: 4 dispatch groups, 2 a data
+    group, do not split its token, so the mesh runs one group over both
+    tokens, JAX's fallback for a T its groups do not divide: every rank's
+    row, the aux loss and the gradient of ``sum(y^2) + aux`` (d/dx of the
+    rank's row; each parameter's summed over the two data groups) against
+    JAX's ``moe_ffn(..., n_groups=4)`` within rtol = atol = 2e-5."""
+    params, x, top_k, cf = runs["moe"]["one_group_E5"]
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+
+    def loss(p, xx):
+        y, aux = JM.moe_ffn(p, xx, top_k=top_k, capacity_factor=cf,
+                            n_groups=4)
+        return jnp.sum(jnp.square(y)) + aux, (y, aux)
+
+    (want, (y, aux)), (gp, gx) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(jp, jnp.asarray(x))
+    ranks = [runs["world4"][r] for r in range(4)]
+    for rank, r in enumerate(ranks):
+        g = rank // 2
+        got, got_aux = r["moe/one_group_E5"]
+        np.testing.assert_allclose(got, np.asarray(y)[g:g + 1], rtol=2e-5,
+                                   atol=2e-5)
+        assert got_aux == pytest.approx(float(aux), rel=2e-5, abs=2e-5)
+        l, g_x, _ = r["moe_one_group_grad"]
+        assert l == pytest.approx(float(want), rel=2e-5)
+        np.testing.assert_allclose(g_x, np.asarray(gx)[g:g + 1], rtol=2e-5,
+                                   atol=2e-5)
+    for k in params:
+        np.testing.assert_allclose(
+            ranks[0]["moe_one_group_grad"][2][k]
+            + ranks[2]["moe_one_group_grad"][2][k], np.asarray(gp[k]),
+            rtol=2e-5, atol=2e-5, err_msg=k)
 
 
 def test_moe_ffn_under_an_spmd_mesh_refuses_a_gradient(runs):

@@ -394,10 +394,11 @@ def test_kernel_wrappers_refuse_a_gradient(wrapper):
 
 @pytest.mark.parametrize("case", ["attention_split", "attention_causal",
                                   "attention_window", "decode_attention",
-                                  "compress", "decompress"])
+                                  "compress", "decompress", "embedding_bag"])
 def test_cuda_backend_ops_take_the_plain_gradient(case):
-    """Under autograd the "cuda" backend ops run the kernel wrapper
-    forward (its plain version on these CPU tensors) and the plain op's
+    """Under autograd the "cuda" backend ops (and ``padded_bag``'s "cuda"
+    impl) run the kernel wrapper forward (its plain version on these CPU
+    tensors) and the plain op's
     gradient backward (``models.backend._PlainGradient``): output within
     TOL of the plain op's (fp16 stores within one fp16 step), and the
     gradient by every float input equal to it, recomputed from the same
