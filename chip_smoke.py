@@ -252,7 +252,19 @@ and DimeNet at three of its cells:
    float32 loss as the control); granite-moe's float32 loss through the kernels
    (MoE at capacity factor E / k); each line gives its tolerance and
    the split kernel's launches, and the phase fails unless they launched;
-   each with its ms a call (``repro_torch.tools.mesh_check``).
+   each with its ms a call (``repro_torch.tools.mesh_check``);
+   ``spmd_gnn``, DimeNet's edge-sharded route
+   (``models/gnn/dimenet_spmd.py``: each rank a contiguous block of the
+   edges and triplets, the messages all-gathered, the node sums
+   all-reduced) at ``ogb_products`` cut by GNN_SPMD's graph_cut (the
+   full config, bf16 messages as the cell picks them; ``reduced`` gives
+   the cut), built by ``build_cell`` and taken by ``cell.local``: the
+   float32 loss and every gradient leaf against one process on the same
+   card within DIMENET_LOSS_REL / DIMENET_GRAD_REL (one process against
+   itself run again as the control), GNN_STEPS of the cell's bf16 train
+   step (the loss must fall, the first within CELLS_BF16_FACTOR x one
+   process's bf16-vs-float32 distance of its float32 loss), ms a step,
+   peak bytes, the host build's seconds; no kernel may launch.
 9c. cells -- the cells of ``launch.steps`` (``tools/cell_check.py``),
    one rank a visible card over NCCL as in 9b, each built with
    ``build_cell(..., backend="cuda")`` at full width under
@@ -369,6 +381,10 @@ MESH_TIMEOUT_S = 600
 # 3.2e-5 on four cards: PERF.md)
 LM_SPMD_TOKENS, LM_SPMD_RTOL, LM_SPMD_BF16_RTOL = (2, 2048), 1e-5, 1e-4
 LM_SPMD_GRAD_LEAF_REL = 1e-4
+# DimeNet's edge-sharded check: the cell and its graph_cut (51,021 nodes,
+# 1,288,732 edges padded to 1,288,960: bf16 messages, as the published
+# cell's), the cell's train steps
+GNN_SPMD, GNN_STEPS = ("ogb_products", 48), 6
 # the cells phase (launch.steps' cells, one rank a card): (key, arch,
 # shape, cuts); full width, the batch and depth cut so that the phase
 # adds about two minutes.  Each is held against the same cell through the
@@ -548,7 +564,9 @@ REC_REL = {"bits": 0.0, "bfloat16": 2.0 ** -7, "float32": 2.0 ** -16}
 # (full_graph_sm), 128 molecules (molecule) and one neighbour-sampled
 # batch of Reddit's graph (minibatch_lg: 1024 seed nodes at fanout (15,
 # 10), its triplets capped at 8 an edge, the loss over the seeds);
-# ogb_products (495 M triplet slots) waits for the mesh.  DIMENET_STEPS
+# ogb_products (495 M triplet slots) runs cut on the mesh phase's
+# spmd_gnn check (GNN_SPMD); its whole graph needs several cards and a
+# host build of ~23 minutes (PERF.md).  DIMENET_STEPS
 # AdamW steps at OptimizerConfig()'s defaults, times the median after
 # DIMENET_WARMUP; the mean of the last DIMENET_LOSS_WINDOW losses must
 # fall below the first's
@@ -1537,6 +1555,9 @@ PATH_KERNELS = {
     # all-reduce run no kernel of the port
     "spmd_lookup": ("embedding_bag", "embedding_bag_wide"),
     "spmd_moe": (), "spmd_psum": (),
+    # DimeNet's edge-sharded train cell: gathers, index_add and dense
+    # products, no kernel of the port
+    "spmd_gnn": (),
     # the sharded transformer: float32 on the CUDA-core split kernel,
     # gemma3's bf16 loss on the tensor-core one
     "spmd_lm_gemma3": ("split_attention_causal", "split_attention_window",
@@ -1658,7 +1679,7 @@ MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               *(f"dimenet_{c}" for c in DIMENET_CELLS),
               "index_dp", "serve_mesh_fp16",
               "serve_mesh_int8_kv", "serve_mesh_cached", "spmd_lookup",
-              "spmd_moe", "spmd_psum", "spmd_lm_gemma3",
+              "spmd_moe", "spmd_psum", "spmd_lm_gemma3", "spmd_gnn",
               *(f"cells_{key}" for key, *_ in CELLS))
 
 
@@ -2073,7 +2094,7 @@ def mesh_spec():
     """The SPMD checks' sizes: DLRM's width (bf16) over serve_bulk's ids,
     granite-moe's and qwen3-moe's MoE layer widths at 4 x 2048 tokens,
     PreTTR-BERT's gradient tree, gemma3-4b and granite-moe at full width
-    over LM_SPMD_TOKENS."""
+    over LM_SPMD_TOKENS, DimeNet's GNN_SPMD cell."""
     from repro_torch.configs import dlrm_mlperf, gemma3_4b, granite_moe_3b, \
         qwen3_moe_235b
     from repro_torch.configs import RECSYS_SHAPES
@@ -2095,7 +2116,9 @@ def mesh_spec():
                               "bf16": True},
                    "granite": {"config": granite_moe_3b.full_config(),
                                "batch": b, "seq": s, "grad": False,
-                               "bf16": False}}}
+                               "bf16": False}},
+            "gnn": {"shape": GNN_SPMD[0], "graph_cut": GNN_SPMD[1],
+                    "steps": GNN_STEPS}}
 
 
 def spmd_phase(torch, name, launches):
@@ -2169,10 +2192,42 @@ def spmd_phase(torch, name, launches):
             h = r.get("bf16")
             if h is not None and not h["rel"] <= LM_SPMD_BF16_RTOL:
                 bad.append(f"{key} bf16: {h}")
+    bad += gnn_line(name, world, results, launches)
     emit({"phase": "spmd_wall", "device": name, "world": world,
           "seconds": wall})
     if bad:
         raise AssertionError(f"spmd checks: {bad}")
+
+
+def gnn_line(name, world, results, launches):
+    """The ``spmd_gnn`` line from every rank's DimeNet check; its
+    failures."""
+    per_rank = [r["gnn"] for r in results]
+    path = "spmd_gnn"
+    launches[path] = {}
+    for r in per_rank:
+        for k, n in r["launches"].items():
+            launches[path][k] = launches[path].get(k, 0) + n
+    limits = {"f32_loss_rel": DIMENET_LOSS_REL,
+              "f32_max_leaf_rel": DIMENET_GRAD_REL,
+              "bf16_apart": f"{CELLS_BF16_FACTOR} x control",
+              "bf16_losses": "last below first"}
+    emit({"phase": path, "device": name, "world": world,
+          "mesh": results[0]["mesh"], "reduced": per_rank[0]["reduced"],
+          "limits": limits, "launches": {k: n for k, n in
+                                         launches[path].items() if n},
+          "ranks": per_rank})
+    bad = []
+    for i, r in enumerate(per_rank):
+        f, h = r["f32"], r["bf16"]
+        if not (f["loss_rel"] <= DIMENET_LOSS_REL
+                and f["max_leaf_rel"] <= DIMENET_GRAD_REL):
+            bad.append(f"{path} rank {i} float32: {f}")
+        finite = all(math.isfinite(x) for x in h["losses"])
+        if not (finite and h["losses"][-1] < h["losses"][0]
+                and h["apart"] <= CELLS_BF16_FACTOR * h["control"]):
+            bad.append(f"{path} rank {i} bf16: {h}")
+    return bad
 
 
 def cells_rank(mesh, spec):
@@ -3598,49 +3653,14 @@ def bert4rec_phase(torch, name, launches):
 
 
 def dimenet_graph(cell):
-    """The cell's graph (a numpy ``GraphBatch``), the host seconds it took
-    and the line's notes on how it was made."""
-    import numpy as np
-    from repro_torch.configs import GNN_SHAPES
-    from repro_torch.data import graphs as G
-    from repro_torch.launch.steps import FANOUT_CAP
+    """The cell's graph (a numpy ``GraphBatch``, ``launch.steps.gnn_graph``
+    at the published sizes), the host seconds it took and the line's
+    notes on how it was made."""
+    from repro_torch.configs import dimenet as DC
+    from repro_torch.launch.steps import gnn_graph
 
-    t0 = time.perf_counter()
-    if cell == "full_graph_sm":
-        info = GNN_SHAPES[cell]
-        g = G.make_graph_batch(info["n_nodes"], info["n_edges"],
-                               d_feat=info["d_feat"], fanout_cap=FANOUT_CAP,
-                               n_classes=16, seed=SEED)
-        return g, time.perf_counter() - t0, {}
-    if cell == "molecule":
-        info = GNN_SHAPES[cell]
-        g = G.make_molecule_batch(info["batch"], info["n_nodes"],
-                                  info["n_edges"], fanout_cap=FANOUT_CAP,
-                                  seed=SEED)
-        return g, time.perf_counter() - t0, {}
-    info = GNN_SHAPES["minibatch_lg"]
-    n = info["n_nodes"]
-    feat, pos, src, dst, labels = G.random_graph(
-        n, info["n_edges"], d_feat=602, n_classes=41, seed=SEED)
-    t1 = time.perf_counter()
-    sampler = G.NeighborSampler(src, dst, n, seed=SEED)
-    del src, dst
-    t2 = time.perf_counter()
-    seeds = np.random.default_rng(SEED).choice(n, info["batch_nodes"],
-                                               replace=False)
-    s_src, s_dst, node_map = sampler.sample(seeds, info["fanout"])
-    del sampler
-    t3 = time.perf_counter()
-    t_kj, t_ji, t_valid = G.build_triplets(s_src, s_dst, FANOUT_CAP)
-    g = G.GraphBatch(feat[node_map], pos[node_map], s_src, s_dst,
-                     np.ones(len(s_src), bool), t_kj, t_ji, t_valid,
-                     labels[node_map])
-    t4 = time.perf_counter()
-    return g, t4 - t0, {
-        "source_nodes": n, "source_edges": info["n_edges"],
-        "seed_nodes": info["batch_nodes"], "fanout": list(info["fanout"]),
-        "host_s": {"random_graph": t1 - t0, "sampler_init": t2 - t1,
-                   "sample": t3 - t2, "build_triplets": t4 - t3}}
+    g, notes = gnn_graph(DC.spec(), cell, seed=SEED)
+    return g, sum(notes["host_s"].values()), notes
 
 
 def _dimenet_forward(D, params, cfg, b):

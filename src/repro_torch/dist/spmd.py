@@ -21,8 +21,13 @@ calls the collectives by hand:
 * :func:`copy_to` -- the identity, whose backward sums the ranks'
   gradients: a replicated tensor that each rank uses for a different
   part of the work (the input of a column-parallel product).
+* :func:`reduce_scatter` -- this rank's block of the sum of the ranks'
+  tensors (each rank summed its own work into the whole); the backward
+  gathers the blocks' gradients.
 * :func:`gather_data_dims` / :func:`whole_leaf` -- a leaf's data dims
-  (FSDP), or every dim, gathered for a rank's data rows.
+  (FSDP), or every dim, gathered for a rank's data rows;
+  :func:`summed_leaf` -- every dim gathered for a rank's own share of the
+  work, the gradient summed over every rank (DimeNet's edge blocks).
 
 :func:`global_norm` is the gradient norm of a tree of blocks, which
 AdamW's clipping needs whole.
@@ -30,7 +35,8 @@ AdamW's clipping needs whole.
 Every collective is the identity over a group of one rank, so a world
 of one runs the same code with no communication.  Gloo has no
 reduce-scatter: there the sum is an all-reduce and the slice is taken
-after (NCCL runs ``reduce_scatter_tensor``).
+after (NCCL, and the dry run's fake process group, run
+``reduce_scatter_tensor``).
 """
 from __future__ import annotations
 
@@ -146,7 +152,8 @@ def _reduce_scatter(x, dim: int, mesh, axes):
     import torch.distributed as dist
 
     group = mesh.group(_mesh_order(mesh, axes))
-    if dist.get_backend(group) != "nccl":
+    # NCCL and the dry run's fake group (which stands in for it) have one
+    if dist.get_backend(group) not in ("nccl", "fake"):
         # a copy of the block, so the whole sum may be freed
         return local_block(_reduce(x.clone(), mesh, axes), dim, mesh,
                            axes).clone()
@@ -168,6 +175,18 @@ class _AllGather(torch.autograd.Function):
         g = local_block(g, ctx.dim, ctx.mesh, ctx.axes) if ctx.split \
             else _reduce_scatter(g, ctx.dim, ctx.mesh, ctx.axes)
         return g.contiguous(), None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        return _reduce_scatter(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.dim, ctx.mesh, ctx.axes), None, \
+            None, None
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -204,6 +223,20 @@ def all_gather(x, dim: int, mesh, axes, *, backward: str = "sum"):
     if not axes or mesh.axis_size(axes) == 1:
         return x
     return _AllGather.apply(x, dim, mesh, axes, backward == "split")
+
+
+def reduce_scatter(x, dim: int, mesh, axes):
+    """This rank's block along ``dim`` of the sum of ``x`` over the ranks
+    of ``axes`` (each rank holds its partial sum of the whole); the
+    gradient of the block is gathered back whole, as every rank's partial
+    reaches every block."""
+    axes = entry_axes(axes)
+    if not axes or mesh.axis_size(axes) == 1:
+        return x
+    if x.shape[dim] % mesh.axis_size(axes):
+        raise ValueError(f"a dim of {x.shape[dim]} reduce-scattered over "
+                         f"{mesh.axis_size(axes)} ranks")
+    return _ReduceScatter.apply(x, dim, mesh, axes)
 
 
 def all_reduce_sum(x, mesh, axes):
@@ -252,6 +285,22 @@ def whole_leaf(w, spec, mesh):
         if entry_axes(entry) == ("model",):
             w = all_gather(w, d, mesh, "model", backward="split")
     return w
+
+
+def summed_leaf(w, spec, mesh):
+    """A leaf that each rank uses for its own share of the work (its
+    edges, its nodes), whole: every dim cut under ``spec`` gathered, and
+    the gradient summed over every rank of the mesh, then this rank's
+    block kept.  Unlike :func:`whole_leaf`, the ranks of ``model`` did
+    different work too, so their gradients add."""
+    used = set()
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if axes:
+            w = all_gather(w, d, mesh, axes, backward="sum")
+            used.update(axes)
+    rest = tuple(a for a in mesh.axis_names if a not in used)
+    return copy_to(w, mesh, rest) if rest else w
 
 
 def all_reduce_max(x, mesh, axes):

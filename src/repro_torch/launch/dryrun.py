@@ -28,9 +28,10 @@ its ops made; ``collective_bytes_per_device`` from the c10d ops), with
 ``compile_s`` and ``fits_80gb``.  The roofline's denominators are one H100
 SXM's published peaks at 700 W.
 
-The DimeNet cells are recorded ``ok: false``: their edge sharding is not
-ported yet (ROADMAP Queue 1 item 7.4), and a rank's edge block without the
-collectives it lacks would give a false count.
+The DimeNet cells trace like every other: each rank's block of edges and
+triplets through the edge-sharded route (``models.gnn.dimenet_spmd``),
+its message all-gathers, reduce-scatters and node all-reduce among the
+c10d bytes.
 
 Results land in ``results/dryrun_torch/<arch>__<shape>__<mesh>.json``::
 
@@ -57,9 +58,6 @@ HBM_BYTES = 80e9          # the card's memory, 80 GB
 LINK_BW = 50e9            # bytes/s a card
 
 MESHES = ("single", "multi")
-EDGE_SHARDING = ("the DimeNet cells' edge sharding is not ported yet "
-                 "(ROADMAP Queue 1 item 7.4): a rank's edge block without "
-                 "the collectives it lacks would give a false count")
 
 
 def mesh_shape(mesh_kind: str):
@@ -132,8 +130,6 @@ def run_cell(arch: str, shape: str, axis_sizes, axis_names,
     spec = get_arch(arch)
     applied = backend if backend_support(spec.config, backend) \
         == "applied" else "default"
-    if spec.family == "gnn":
-        return {**rec, "ok": False, "error": EDGE_SHARDING}
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=n_dev)
     try:

@@ -12,8 +12,9 @@ fake tensors.  The port runs its cells:
 :func:`cell_inputs` makes a cell's args from a seed, whole or as this
 rank's part, and the step functions take real tensors, on one device or
 on a rank of an SPMD mesh (``launch.mesh.run_spmd``), where the sharded
-transformer (``models.transformer_spmd``) and the sharded lookup
-(``models.recsys.embedding``) do what GSPMD does for the reference.
+transformer (``models.transformer_spmd``), the sharded lookup
+(``models.recsys.embedding``) and DimeNet's edge-sharded route
+(``models.gnn.dimenet_spmd``) do what GSPMD does for the reference.
 """
 from __future__ import annotations
 
@@ -215,7 +216,8 @@ def _dimenet_flops(cfg, n_edges: int, n_trip: int, n_nodes: int,
 class GnnCell:
     """One DimeNet cell: its config and sizes as ``make_gnn_cell`` sets
     them (edges padded to a multiple of 256, FANOUT_CAP triplet slots an
-    edge) and its model FLOPs a training step (3x the forward's)."""
+    edge) and its model FLOPs a training step (3x the forward's);
+    ``graph_cut`` the port's cut of the graph (1: as published)."""
     shape: str
     kind: str
     cfg: DimeNetConfig
@@ -224,67 +226,169 @@ class GnnCell:
     n_trip: int
     n_graphs: int
     model_flops: float
+    graph_cut: int = 1
 
 
-def gnn_cell_config(spec: ArchSpec, shape_name: str) -> GnnCell:
+def gnn_cell_config(spec: ArchSpec, shape_name: str,
+                    graph_cut: int | None = None) -> GnnCell:
     """The per-shape choices of the reference's ``make_gnn_cell``:
     ``graph_sampled`` sizes its nodes and edges by the fanouts, with
     Reddit's 602 features and 41 classes; ``graph_energy`` packs
     ``batch`` molecules for the energy task; ``ogb_products`` has 47
-    classes; float32 compute up to 1 M padded edges, bf16 above."""
+    classes; float32 compute up to 1 M padded edges, bf16 above.
+
+    ``graph_cut`` (the port's cut) divides a whole graph's nodes and
+    edges (``graph_train``: the cell's own; ``graph_sampled``: the source
+    graph the batch is sampled from, whose batch keeps its published
+    sizes) and keeps the rest as published: the average degree, the
+    features, classes and fanout cap, the config and the compute dtype
+    that the published edge count picks.  The molecule cell takes none."""
     info = spec.shapes[shape_name]
     kind = info["kind"]
     n_graphs = 0
+    cut = 1 if graph_cut is None else int(graph_cut)
+    if cut < 1 or (cut > 1 and kind == "graph_energy"):
+        raise ValueError(f"{shape_name}: graph_cut divides a graph's nodes "
+                         f"and edges (a cut >= 1 of a graph_train or "
+                         f"graph_sampled cell), got {graph_cut}")
     if kind == "graph_sampled":
         bn = info["batch_nodes"]
         f1, f2 = info["fanout"]
         n_nodes = bn * (1 + f1 + f1 * f2)
         n_edges = bn * (f1 + f1 * f2)
         d_feat, n_classes, task = 602, 41, "node_cls"    # Reddit-like
+        if info["n_nodes"] // cut < bn:
+            raise ValueError(f"{shape_name}: a graph cut to "
+                             f"{info['n_nodes'] // cut} nodes cannot seed "
+                             f"{bn} of them")
+        published = n_edges
     elif kind == "graph_energy":
         n_graphs = info["batch"]
         n_nodes = info["n_nodes"] * n_graphs
         n_edges = info["n_edges"] * n_graphs
         d_feat, n_classes, task = 0, 1, "energy"
+        published = n_edges
     else:
-        n_nodes, n_edges = info["n_nodes"], info["n_edges"]
+        n_nodes, n_edges = info["n_nodes"] // cut, info["n_edges"] // cut
         d_feat = info.get("d_feat", 0)
         n_classes = 47 if shape_name == "ogb_products" else 16
         task = "node_cls"
+        published = info["n_edges"]
     n_edges_p = _pad_mult(n_edges)
     n_trip = n_edges_p * FANOUT_CAP
     # bf16 messages for the web-scale graphs (f32 for molecular energies)
-    cd = torch.bfloat16 if n_edges_p > 1_000_000 else torch.float32
+    cd = torch.bfloat16 if _pad_mult(published) > 1_000_000 \
+        else torch.float32
     cfg = dataclasses.replace(spec.config, d_feat=d_feat,
                               n_classes=n_classes, task=task,
                               compute_dtype=cd)
     return GnnCell(shape_name, kind, cfg, n_nodes, n_edges_p, n_trip,
                    n_graphs, 3 * _dimenet_flops(cfg, n_edges_p, n_trip,
-                                                n_nodes, d_feat))
+                                                n_nodes, d_feat), cut)
 
 
-def gnn_train_step(params, opt, cfg: DimeNetConfig, opt_cfg, batch):
-    """One AdamW step of the cell's loss (``energy_loss`` for the energy
-    task, else ``node_cls_loss``) on a batch of tensors
-    (``data.graphs.graph_batch_tensors``), the reference's ``train_step``.
-    Returns ``(params, opt, {"loss", "grad_norm"})``; the inputs are not
-    modified."""
-    loss_fn = energy_loss if cfg.task == "energy" else node_cls_loss
-    loss, grads = value_and_grad(lambda p: loss_fn(p, cfg, batch), params)
-    params, opt, gn = adam_update(grads, opt, params, opt_cfg,
-                                  lr=opt_cfg.lr)
-    return params, opt, {"loss": loss, "grad_norm": gn}
+def gnn_graph(spec: ArchSpec, shape_name: str, *, graph_cut: int = 1,
+              seed: int = 0):
+    """The graph of a DimeNet cell from ``data.graphs`` (a numpy
+    ``GraphBatch``, unpadded) and notes on how it was made, its host
+    seconds by step under ``host_s``: ``graph_train`` a random graph at
+    the shape's sizes divided by ``graph_cut``, ``graph_energy`` the
+    shape's molecules, ``graph_sampled`` one neighbour-sampled batch of
+    ``batch_nodes`` seeds at the shape's fanouts from a random graph of
+    the shape's (cut) sizes; triplets capped at FANOUT_CAP an edge."""
+    import time
+
+    import numpy as np
+
+    from repro_torch.data import graphs as G
+
+    info = spec.shapes[shape_name]
+    c = gnn_cell_config(spec, shape_name, graph_cut)
+    t0 = time.perf_counter()
+    if c.kind == "graph_energy":
+        g = G.make_molecule_batch(info["batch"], info["n_nodes"],
+                                  info["n_edges"], fanout_cap=FANOUT_CAP,
+                                  seed=seed)
+        return g, {"host_s": {"make_molecule_batch":
+                              time.perf_counter() - t0}}
+    if c.kind != "graph_sampled":
+        feat, pos, src, dst, labels = G.random_graph(
+            c.n_nodes, info["n_edges"] // c.graph_cut, d_feat=c.cfg.d_feat,
+            n_classes=c.cfg.n_classes, seed=seed)
+        t1 = time.perf_counter()
+        t_kj, t_ji, t_valid = G.build_triplets(src, dst, FANOUT_CAP, seed)
+        g = G.GraphBatch(feat, pos, src, dst, np.ones(len(src), bool),
+                         t_kj, t_ji, t_valid, labels)
+        return g, {"host_s": {"random_graph": t1 - t0,
+                              "build_triplets": time.perf_counter() - t1}}
+    n = info["n_nodes"] // c.graph_cut
+    n_src_edges = info["n_edges"] // c.graph_cut
+    feat, pos, src, dst, labels = G.random_graph(
+        n, n_src_edges, d_feat=c.cfg.d_feat, n_classes=c.cfg.n_classes,
+        seed=seed)
+    t1 = time.perf_counter()
+    sampler = G.NeighborSampler(src, dst, n, seed=seed)
+    del src, dst
+    t2 = time.perf_counter()
+    seeds = np.random.default_rng(seed).choice(n, info["batch_nodes"],
+                                               replace=False)
+    s_src, s_dst, node_map = sampler.sample(seeds, info["fanout"])
+    del sampler
+    t3 = time.perf_counter()
+    t_kj, t_ji, t_valid = G.build_triplets(s_src, s_dst, FANOUT_CAP)
+    g = G.GraphBatch(feat[node_map], pos[node_map], s_src, s_dst,
+                     np.ones(len(s_src), bool), t_kj, t_ji, t_valid,
+                     labels[node_map])
+    t4 = time.perf_counter()
+    return g, {"source_nodes": n, "source_edges": n_src_edges,
+               "seed_nodes": info["batch_nodes"],
+               "fanout": list(info["fanout"]),
+               "host_s": {"random_graph": t1 - t0, "sampler_init": t2 - t1,
+                          "sample": t3 - t2, "build_triplets": t4 - t3}}
 
 
-def make_gnn_cell(spec: ArchSpec, shape_name: str,
-                  rules: ShardingRules) -> Cell:
-    """The reference's DimeNet cell: the batch specs of
-    :func:`gnn_cell_config`'s sizes and one :func:`gnn_train_step` under
-    ``rules``.  Its graphs come from ``data.graphs`` (``chip_smoke.py``'s
-    dimenet phase), not from :func:`cell_inputs`."""
-    from repro_torch.models.gnn.dimenet import dimenet_axes, init_dimenet
+def gnn_cell_batch(g, c: GnnCell, device) -> dict:
+    """A graph (``gnn_graph``'s) as the cell's batch on ``device``: nodes
+    padded to the cell's node count (zero rows, no edges), edges to its
+    padded edge count and triplets to FANOUT_CAP slots an edge (invalid,
+    so the blocked layout holds), in the dtypes of the cell's specs."""
+    import numpy as np
 
-    c = gnn_cell_config(spec, shape_name)
+    def pad(a, n):
+        if len(a) > n:
+            raise ValueError(f"{c.shape}: {len(a)} rows for a cell of {n}")
+        out = np.zeros((n, *a.shape[1:]), a.dtype)
+        out[:len(a)] = a
+        return out
+
+    if len(g.trip_kj) != len(g.edge_src) * FANOUT_CAP:
+        raise ValueError(f"{c.shape}: {len(g.trip_kj)} triplet slots for "
+                         f"{len(g.edge_src)} edges at a cap of {FANOUT_CAP}")
+    n, e, t = c.n_nodes, c.n_edges, c.n_trip
+    rows = {"node_feat": n, "positions": n, "edge_src": e, "edge_dst": e,
+            "edge_valid": e, "trip_kj": t, "trip_ji": t, "trip_valid": t}
+    if c.cfg.task == "energy":
+        rows["graph_ids"] = n
+    else:
+        rows["labels"] = n
+    out = {}
+    for k, size in rows.items():
+        a = pad(getattr(g, k), size)
+        if a.dtype.kind == "f":
+            a = a.astype(np.float32)
+        elif a.dtype != bool:
+            a = a.astype(np.int32)
+        out[k] = torch.from_numpy(a).to(device)
+    if c.cfg.task == "energy":
+        out["labels"] = torch.from_numpy(
+            g.labels.astype(np.float32)).to(device)
+    return out
+
+
+def gnn_batch_specs(c: GnnCell, rules: ShardingRules) -> dict:
+    """The reference's batch specs of a DimeNet cell: the edges and
+    triplets over ``"edges"``, the node features over ``"table_rows"``,
+    the rest whole."""
     cfg, n_nodes, ne, nt = c.cfg, c.n_nodes, c.n_edges, c.n_trip
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     batch = {
@@ -304,6 +408,59 @@ def make_gnn_cell(spec: ArchSpec, shape_name: str,
         batch["labels"] = sds((c.n_graphs,), f32, rules, (None,))
     else:
         batch["labels"] = sds((n_nodes,), i32, rules, (None,))
+    return batch
+
+
+def gnn_train_step(params, opt, cfg: DimeNetConfig, opt_cfg, batch):
+    """One AdamW step of the cell's loss (``energy_loss`` for the energy
+    task, else ``node_cls_loss``) on a batch of tensors
+    (``data.graphs.graph_batch_tensors``), the reference's ``train_step``.
+    Under rules over an SPMD mesh ``params``, ``opt`` and ``batch`` are a
+    rank's blocks (``models.gnn.dimenet_spmd``) and the clipping norm is
+    summed over the ranks that hold a leaf's other blocks.  Returns
+    ``(params, opt, {"loss", "grad_norm"})``; the inputs are not
+    modified."""
+    from repro_torch.dist.context import current_rules
+    from repro_torch.models.gnn import dimenet_spmd as SP
+
+    loss_fn = energy_loss if cfg.task == "energy" else node_cls_loss
+    loss, grads = value_and_grad(lambda p: loss_fn(p, cfg, batch), params)
+    mesh = SP.active_mesh()
+    norm = None
+    if mesh is not None:
+        specs = SP.param_specs(cfg, current_rules())
+        norm = lambda g: S.global_norm(g, specs, mesh)
+    params, opt, gn = adam_update(grads, opt, params, opt_cfg,
+                                  lr=opt_cfg.lr, norm_fn=norm)
+    return params, opt, {"loss": loss, "grad_norm": gn}
+
+
+# the seed of a GNN cell's graph (chip_smoke.py's SEED)
+GRAPH_SEED = 0
+
+
+def make_gnn_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
+                  *, graph_cut: int | None = None) -> Cell:
+    """The reference's DimeNet cell: the batch specs of
+    :func:`gnn_cell_config`'s sizes and one :func:`gnn_train_step` under
+    ``rules``.  ``inputs`` makes the graph of :func:`gnn_graph` (seed
+    GRAPH_SEED) padded to the cell's sizes, with the model's seeded init;
+    ``local`` takes each leaf's block under its spec.  On an SPMD mesh
+    the edges must divide over every mesh axis (the route runs
+    edge-parallel over all of them)."""
+    from repro_torch.models.gnn.dimenet import dimenet_axes, init_dimenet
+    from repro_torch.models.gnn.dimenet_spmd import edge_axes
+
+    c = gnn_cell_config(spec, shape_name, graph_cut)
+    cfg = c.cfg
+    batch = gnn_batch_specs(c, rules)
+    if isinstance(rules.mesh, SpmdMesh):
+        cut = S.entry_axes(batch["edge_src"].spec[0])
+        if tuple(a for a in cut if rules.mesh.shape[a] > 1) != tuple(
+                a for a in edge_axes(rules) if rules.mesh.shape[a] > 1):
+            raise ValueError(f"{spec.name} {shape_name}: {c.n_edges} padded "
+                             f"edges do not divide over the mesh "
+                             f"{dict(rules.mesh.shape)}")
     opt_cfg = OptimizerConfig()
     st = state_specs(lambda g, d: (init_dimenet(cfg, g, device=d),
                                    dimenet_axes(cfg)), opt_cfg, rules)
@@ -314,9 +471,19 @@ def make_gnn_cell(spec: ArchSpec, shape_name: str,
                                               cfg, opt_cfg, batch)
         return {"params": params, "opt": opt}, out
 
-    return Cell(spec.name, shape_name, c.kind, train_step, (st, batch),
+    def inputs(gen, device):
+        g, _ = gnn_graph(spec, shape_name, graph_cut=c.graph_cut,
+                         seed=GRAPH_SEED)
+        params = init_dimenet(cfg, gen, device=device)
+        return ({"params": params, "opt": init_opt_state(params, opt_cfg)},
+                gnn_cell_batch(g, c, device))
+
+    args = (st, batch)
+    return Cell(spec.name, shape_name, c.kind, train_step, args,
                 model_flops=c.model_flops,
-                notes=f"nodes={n_nodes} edges={ne} trip={nt}", donate=(0,))
+                notes=f"nodes={c.n_nodes} edges={c.n_edges} trip={c.n_trip}",
+                donate=(0,), inputs=inputs,
+                local=lambda a: _spec_local(a, args, rules.mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -979,16 +1146,20 @@ def build_cell(arch: str, shape_name: str, rules: ShardingRules,
                backend: str | None = None, *, smoke: bool = False,
                batch: int | None = None, seq: int | None = None,
                n_layers: int | None = None,
-               rows_per_field: int | None = None) -> Cell:
+               rows_per_field: int | None = None,
+               graph_cut: int | None = None) -> Cell:
     """The cell ``(arch, shape_name)`` under ``rules``, its configs routed
     through ``backend``.  The port's cuts for running a cell where its
     published size does not fit: ``smoke`` takes the arch's smoke config,
     ``n_layers`` keeps that many layers, ``batch`` / ``seq`` cut the
     shape's batch and sequence, ``rows_per_field`` caps every field's
-    vocabulary of a DLRM / DeepFM table (widths stay as published)."""
+    vocabulary of a DLRM / DeepFM table (widths stay as published),
+    ``graph_cut`` divides a DimeNet graph's nodes and edges
+    (:func:`gnn_cell_config`)."""
     return build_spec_cell(get_arch(arch), shape_name, rules, backend,
                            smoke=smoke, batch=batch, seq=seq,
-                           n_layers=n_layers, rows_per_field=rows_per_field)
+                           n_layers=n_layers, rows_per_field=rows_per_field,
+                           graph_cut=graph_cut)
 
 
 def _cap_rows(cfg, cap: int):
@@ -1008,10 +1179,13 @@ def build_spec_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
                     backend: str | None = None, *, smoke: bool = False,
                     batch: int | None = None, seq: int | None = None,
                     n_layers: int | None = None,
-                    rows_per_field: int | None = None) -> Cell:
+                    rows_per_field: int | None = None,
+                    graph_cut: int | None = None) -> Cell:
     """:func:`build_cell` of the architecture ``spec`` describes (as
     registered, or with its configs replaced)."""
     arch = spec.name
+    if graph_cut is not None and spec.family != "gnn":
+        raise ValueError(f"{arch}: graph_cut cuts a DimeNet graph")
     spec = _with_backend(spec, backend)
     if smoke:
         spec = dataclasses.replace(spec, config=spec.smoke)
@@ -1023,6 +1197,11 @@ def build_spec_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
             raise ValueError(f"{arch}: a recsys cell takes the cuts batch "
                              f"and rows_per_field")
         return make_recsys_cell(spec, shape_name, rules, batch=batch)
+    if spec.family == "gnn":
+        if batch is not None or seq is not None or n_layers is not None:
+            raise ValueError(f"{arch}: a DimeNet cell takes the cuts smoke "
+                             f"and graph_cut")
+        return make_gnn_cell(spec, shape_name, rules, graph_cut=graph_cut)
     if n_layers is not None:
         cfg = spec.config
         if hasattr(cfg, "backbone"):
@@ -1031,9 +1210,7 @@ def build_spec_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
             cfg, n_layers=n_layers))
     if arch == "prettr-bert":
         return make_prettr_cell(spec, shape_name, rules, batch=batch)
-    if spec.family == "lm":
-        return make_lm_cell(spec, shape_name, rules, batch=batch, seq=seq)
-    return make_gnn_cell(spec, shape_name, rules)
+    return make_lm_cell(spec, shape_name, rules, batch=batch, seq=seq)
 
 
 def cell_names(include_prettr: bool = True) -> list[tuple[str, str]]:

@@ -42,9 +42,13 @@ Where parity hangs on detail, as the reference does it:
   whenever grad is enabled, so only the ``[E, d]`` carry stays live
   between blocks.
 
-The reference's ``maybe_shard`` hints are the identity without a mesh and
-are dropped; the edge-sharded layout waits for ROADMAP Queue 1 item 7.4
-(the axes tree is :func:`dimenet_axes`).
+The reference's ``maybe_shard`` hints place the messages and the gated
+triplets over ``("edges", None)`` and leave GSPMD to insert the
+collectives.  Here the model reaches its weights, its graph and its
+collectives through a route (:class:`Local`: one process, every hook
+the identity); under rules over an SPMD mesh
+:mod:`~repro_torch.models.gnn.dimenet_spmd` gives the same hooks over a
+rank's edge block, with the collectives written out.
 """
 from __future__ import annotations
 
@@ -238,19 +242,101 @@ def _segment_sum(x, ids, n: int):
         .to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Routes
+# ---------------------------------------------------------------------------
+
+
+class Local:
+    """How DimeNet reaches its weights, its graph and its collectives in
+    one process: every leaf whole, every hook the identity.
+    ``dimenet_spmd.Route`` gives the same hooks where the batch leaves are
+    a rank's blocks on an SPMD mesh (the edges and triplets cut over
+    every axis) and the params its shards."""
+
+    def weights(self, params):
+        """The params as the model computes with them."""
+        return params
+
+    def n_nodes(self, node_feat, positions) -> int:
+        return node_feat.shape[0] if node_feat.ndim else positions.shape[0]
+
+    def geometry(self, d, unit):
+        """The distances and unit vectors of every edge, from this
+        route's edges' ones."""
+        return d, unit
+
+    def nodes(self, h):
+        """The node embedding of every node, from this route's node
+        rows."""
+        return h
+
+    def edges(self, x):
+        """A per-edge tensor of every edge, from this route's edges'
+        rows."""
+        return x
+
+    def triplets_to_edges(self, gated, trip_ji, n_edges: int):
+        """Triplet rows summed onto this route's ``n_edges`` edges by
+        ``trip_ji`` (the unblocked layout)."""
+        return _segment_sum(gated, trip_ji, n_edges)
+
+    def run(self, fn, *args):
+        """One interaction block ``fn(*args)``, recomputed in the backward
+        whenever grad is enabled (only the ``[E, d]`` carry stays live
+        between blocks)."""
+        if torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def edges_to_nodes(self, x, edge_dst, n_nodes: int):
+        """The per-node sum of ``x`` over its in-edges, for the nodes
+        this route's head runs on."""
+        return _segment_sum(x, edge_dst, n_nodes)
+
+    def rows(self, x):
+        """This route's rows of a per-node tensor that is whole."""
+        return x
+
+    def to_graphs(self, x, graph_ids, n_graphs: int):
+        """Per-graph sums of the head's rows."""
+        return _segment_sum(x, graph_ids, n_graphs)
+
+    def total(self, x):
+        """A sum over this route's rows, summed over every route."""
+        return x
+
+
+LOCAL = Local()
+
+
+def _route(cfg):
+    """The installed rules' SPMD route, or :data:`LOCAL`."""
+    from repro_torch.models.gnn import dimenet_spmd as SP
+
+    return SP.Route(cfg) if SP.active_mesh() is not None else LOCAL
+
+
 def dimenet_forward(params, cfg: DimeNetConfig, *, node_feat, positions,
                     edge_src, edge_dst, edge_valid, trip_kj, trip_ji,
                     trip_valid, graph_ids=None, n_graphs: int = 0):
     """Returns per-node logits [N, n_classes] or per-graph energy [G], in
-    ``cfg.compute_dtype``.  Index tensors are int64."""
+    ``cfg.compute_dtype``.  Index tensors are int32 or int64.  Under rules
+    over an SPMD mesh the inputs and params are a rank's blocks
+    (``dimenet_spmd``) and the logits its contiguous share of the node
+    rows (``Route.node_rows``); the energies are whole."""
+    route = _route(cfg)
     cd = cfg.compute_dtype
     cast = lambda t: tree_map(lambda a: a.to(cd), t)
-    n_nodes = node_feat.shape[0] if node_feat.ndim else positions.shape[0]
+    params = route.weights(params)
+    n_nodes = route.n_nodes(node_feat, positions)
     d_ji, unit = edge_geometry(positions.float(), edge_src, edge_dst)
     rbf = radial_basis(d_ji, cfg.n_radial, cfg.cutoff,
                        cfg.envelope_p).to(cd)
-    angle = triplet_angles(unit, trip_kj, trip_ji)
-    sbf = spherical_basis(d_ji[trip_kj], angle, cfg.n_spherical,
+    # the k->j edges of a triplet may be any edge
+    d_all, unit_all = route.geometry(d_ji, unit)
+    angle = triplet_angles(unit_all, trip_kj, trip_ji)
+    sbf = spherical_basis(d_all[trip_kj], angle, cfg.n_spherical,
                           cfg.n_radial, cfg.cutoff, cfg.envelope_p).to(cd)
     sbf = sbf * trip_valid[:, None].to(cd)
     e_valid = edge_valid[:, None].to(cd)
@@ -260,6 +346,7 @@ def dimenet_forward(params, cfg: DimeNetConfig, *, node_feat, positions,
         h = node_feat.to(cd) @ params["embed"].to(cd)
     else:
         h = params["embed"].to(cd).index_select(0, node_feat)
+    h = route.nodes(h)
     rbf_e = rbf @ params["rbf_proj"].to(cd)
     m = _mlp(cast(params["msg_init"]),
              torch.cat([h.index_select(0, edge_src),
@@ -275,33 +362,29 @@ def dimenet_forward(params, cfg: DimeNetConfig, *, node_feat, positions,
         # operand is [T, n_bilinear], not [T, d_hidden]
         down = (F.silu(m @ bp["w_src"]) * (rbf @ bp["w_rbf"])) \
             @ bp["w_down"]                                     # [E, nb]
-        gated = down.index_select(0, trip_kj) * (sbf @ bp["w_sbf"])
+        gated = route.edges(down).index_select(0, trip_kj) \
+            * (sbf @ bp["w_sbf"])
         if cfg.blocked_triplets and n_trip % n_edges == 0:
             agg = gated.reshape(n_edges, n_trip // n_edges, -1).sum(dim=1)
         else:
-            agg = _segment_sum(gated, trip_ji, n_edges)
+            agg = route.triplets_to_edges(gated, trip_ji, n_edges)
         inc = agg @ bp["w_up"]                                 # [E, d]
         m = m + _mlp(bp["update"], torch.cat([m, inc], dim=-1),
                      last_act=True)
         return m * e_valid
 
     for blk in params["blocks"]:
-        bp = cast(blk)
-        if torch.is_grad_enabled():
-            # remat: only the [E, d] carry survives between blocks
-            m = checkpoint(interaction_block, m, bp, use_reentrant=False)
-        else:
-            m = interaction_block(m, bp)
+        m = route.run(interaction_block, m, cast(blk))
 
     # edges -> nodes
-    node_out = _segment_sum(m * (rbf @ params["out_rbf"].to(cd)), edge_dst,
-                            n_nodes)
+    node_out = route.edges_to_nodes(m * (rbf @ params["out_rbf"].to(cd)),
+                                    edge_dst, n_nodes)
     out = _mlp(cast(params["head"]), node_out)
     if cfg.task == "energy":
         if graph_ids is None or n_graphs <= 0:
             raise ValueError("the energy task needs graph_ids and "
                              "n_graphs > 0")
-        return _segment_sum(out[:, 0], graph_ids, n_graphs)
+        return route.to_graphs(out[:, 0], route.rows(graph_ids), n_graphs)
     return out
 
 
@@ -317,13 +400,19 @@ def _forward_batch(params, cfg, batch, **kw):
 def node_cls_loss(params, cfg, batch):
     """Mean cross-entropy of the node logits (log-softmax in float32)
     over the nodes of ``batch.get("label_mask")`` (all nodes without
-    one), divided by ``max(sum(mask), 1)``."""
+    one), divided by ``max(sum(mask), 1)``.  On a mesh each rank sums its
+    share of the nodes and the sums are all-reduced: every rank returns
+    the same loss."""
+    route = _route(cfg)
     logits = _forward_batch(params, cfg, batch)
     logp = torch.log_softmax(logits.float(), dim=-1)
-    gold = torch.gather(logp, -1, batch["labels"][:, None])[:, 0]
+    labels = route.rows(batch["labels"]).long()
+    gold = torch.gather(logp, -1, labels[:, None])[:, 0]
     mask = batch.get("label_mask")
-    mask = torch.ones_like(gold) if mask is None else mask.to(gold.dtype)
-    return -torch.sum(gold * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    mask = torch.ones_like(gold) if mask is None \
+        else route.rows(mask).to(gold.dtype)
+    return -route.total(torch.sum(gold * mask)) \
+        / torch.clamp(route.total(torch.sum(mask)), min=1.0)
 
 
 def energy_loss(params, cfg, batch):

@@ -1,7 +1,8 @@
 """The SPMD checks of the port's collective consumers, one rank a card:
-the row-sharded lookup, the MoE FFN, ``compressed_psum`` and the sharded
-transformer's loss and gradient (``lm``), each held to its one-process
-version on the same card and timed.
+the row-sharded lookup, the MoE FFN, ``compressed_psum``, the sharded
+transformer's loss and gradient (``lm``) and DimeNet's edge-sharded
+train cell (``gnn``), each held to its one-process version on the same
+card and timed.
 
 Run by ``chip_smoke.py`` (the mesh phase) and ``tests/test_torch_cuda.py``
 through :func:`repro_torch.launch.mesh.run_spmd`::
@@ -11,16 +12,18 @@ through :func:`repro_torch.launch.mesh.run_spmd`::
 ``spec`` sizes each check (see ``chip_smoke.py``: DLRM's width and
 serve_bulk's ids, granite-moe's and qwen3-moe's layer widths at 4 x 2048
 tokens, PreTTR-BERT's gradient tree, gemma3-4b and granite-moe at full
-width over 2 x 2048 tokens).  Every rank makes the same seeded
-inputs whole on its card and takes its part, so each check compares with
-the whole computation in one process.  ``count(fn) -> (fn(), launches)``
-counts the kernel launches of each check's one main call (the timing
-loops run after it).  On one card the world is 1 and the collectives
-are the identity; the results carry the world size.
+width over 2 x 2048 tokens, DimeNet at ``ogb_products`` cut by 48).
+Every rank makes the same seeded inputs whole on its card and takes its
+part, so each check compares with the whole computation in one process.
+``count(fn) -> (fn(), launches)`` counts the kernel launches of each
+check's one main call (the timing loops run after it).  On one card the
+world is 1 and the collectives are the identity; the results carry the
+world size.
 """
 from __future__ import annotations
 
 import statistics
+import time
 
 import numpy as np
 import torch
@@ -409,10 +412,139 @@ def lm_check(mesh, *, config, batch: int, seq: int, grad: bool,
     return out
 
 
+def gnn_check(mesh, *, shape: str, graph_cut: int, steps: int,
+              seed: int = 0, count=_uncounted) -> dict:
+    """DimeNet's GNN cell ``shape`` cut by ``graph_cut``
+    (``launch.steps.build_cell`` under ``default_rules`` over the mesh; the
+    full config, the published compute dtype) through the edge-sharded
+    route, against one process on the same card.  Every rank builds the
+    cell's seeded graph on the host (``host_build_s``: the generator and
+    the triplets apart), its params and AdamW state whole on its card, and
+    takes its blocks by ``cell.local``.
+
+    * ``f32``: the loss and every gradient leaf, gathered whole, at
+      float32 compute, against one process's (no rules, the whole graph):
+      ``loss_rel``, each leaf's largest error over its largest value
+      (``max_leaf_rel``, ``worst_leaf``); the control: one process against
+      itself run again (``index_add`` accumulates by atomics, in another
+      order each run);
+    * ``bf16``: ``steps`` of the cell's own train step (``cell.fn``, bf16
+      messages) on the rank's blocks: the losses, ``ms`` a step (median
+      after the first), the peak bytes; the first loss against one
+      process's float32 loss (``apart``) beside one process's own bf16
+      loss against it (``control``).
+
+    ``launches`` counts the kernel launches of the route's float32
+    gradient and the train steps (the path runs none); ``wall_s`` is the
+    check's, host build included."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import default_rules, install_rules
+    from repro_torch.dist import spmd as S
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.gnn import dimenet as D
+    from repro_torch.optim import OptimizerConfig, init_opt_state, \
+        value_and_grad
+    from repro_torch.tree import leaves_with_paths
+
+    start = time.perf_counter()
+    dev = mesh.device
+    rules = default_rules(mesh)
+    cell = ST.build_cell("dimenet", shape, rules, graph_cut=graph_cut)
+    c = ST.gnn_cell_config(get_arch("dimenet"), shape, graph_cut)
+    t0 = time.perf_counter()
+    g, notes = ST.gnn_graph(get_arch("dimenet"), shape, graph_cut=graph_cut,
+                            seed=ST.GRAPH_SEED)
+    host_s = time.perf_counter() - t0
+    batch = ST.gnn_cell_batch(g, c, dev)
+    del g
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = D.init_dimenet(c.cfg, gen, device=dev)
+    state = {"params": params, "opt": init_opt_state(params,
+                                                     OptimizerConfig())}
+    local_state, local_batch = cell.local((state, batch))
+    loss_fn = D.energy_loss if c.cfg.task == "energy" else D.node_cls_loss
+    cfg32 = dataclasses.replace(c.cfg, compute_dtype=torch.float32)
+    one = lambda cfg: value_and_grad(lambda p: loss_fn(p, cfg, batch),
+                                     params)
+    want_l, want_g = one(cfg32)
+    again_l, again_g = one(cfg32)
+    with torch.no_grad():
+        one16 = float(loss_fn(params, c.cfg, batch))
+    want = dict(leaves_with_paths(want_g))
+    specs = ST._specs_of(cell.args[0]["params"])
+
+    def leaf_errors(got_g):
+        errs = {k: _rel(gk, want[k]) for k, gk in leaves_with_paths(got_g)}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
+    control = {"loss_rel": abs(float(again_l) - float(want_l))
+               / abs(float(want_l)),
+               "max_leaf_rel": leaf_errors(again_g)[0]}
+    del again_g
+    torch.cuda.empty_cache()
+
+    def route():
+        with install_rules(rules):
+            got_l, got_g = value_and_grad(
+                lambda p: loss_fn(p, cfg32, local_batch),
+                local_state["params"])
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        st, losses, events = local_state, [], []
+        for _ in range(steps):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            st, out = cell.fn(st, local_batch)
+            b.record()
+            losses.append(out["loss"])
+            events.append((a, b))
+        torch.cuda.synchronize(dev)
+        return got_l, got_g, [float(x) for x in losses], events
+
+    (got_l, got_g, losses, events), launches = count(route)
+    peak = torch.cuda.max_memory_allocated(dev)
+    got_whole = S.gather_tree(got_g, specs, mesh)
+    max_leaf, worst = leaf_errors(got_whole)
+    del got_g, got_whole, want_g, want
+    torch.cuda.empty_cache()
+    info = get_arch("dimenet").shapes[shape]
+    one32 = float(want_l)
+    return {"shape": shape, "config": c.cfg.name,
+            "n_blocks": c.cfg.n_blocks, "d_hidden": c.cfg.d_hidden,
+            "n_bilinear": c.cfg.n_bilinear,
+            "compute_dtype": str(c.cfg.compute_dtype),
+            "reduced": {"graph_cut": {"run": graph_cut, "published": 1},
+                        "n_nodes": {"run": c.n_nodes,
+                                    "published": info["n_nodes"]},
+                        "n_edges": {"run": int(batch["edge_valid"].sum()),
+                                    "published": info["n_edges"]}},
+            "nodes": c.n_nodes, "edges_padded": c.n_edges,
+            "triplet_slots": c.n_trip,
+            "edges_a_rank": int(local_batch["edge_src"].shape[0]),
+            "triplet_slots_a_rank": int(local_batch["trip_kj"].shape[0]),
+            "node_feat_rows_a_rank": int(local_batch["node_feat"].shape[0]),
+            "host_build_s": host_s, "host_s": notes["host_s"],
+            "f32": {"loss": float(got_l), "one_process": one32,
+                    "loss_rel": abs(float(got_l) - one32) / abs(one32),
+                    "max_leaf_rel": max_leaf, "worst_leaf": worst,
+                    "control_one_process_again": control},
+            "bf16": {"losses": losses, "steps": steps,
+                     "one_process_f32": one32, "one_process_bf16": one16,
+                     "apart": abs(losses[0] - one32),
+                     "control": abs(one16 - one32),
+                     "ms": statistics.median(a.elapsed_time(b)
+                                             for a, b in events[1:]),
+                     "rank_peak_bytes": peak},
+            "launches": launches, "wall_s": time.perf_counter() - start}
+
+
 def spmd_checks(mesh, spec: dict, count=_uncounted) -> dict:
     """The checks ``spec`` sizes -> {check: result}: the lookup, the MoE
-    FFNs, ``compressed_psum`` and the sharded transformers (``lm``), each
-    when ``spec`` has its key."""
+    FFNs, ``compressed_psum``, the sharded transformers (``lm``) and
+    DimeNet's train cell (``gnn``), each when ``spec`` has its key."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"world": mesh.size, "rank": mesh.rank,
            "mesh": dict(mesh.shape),
@@ -429,4 +561,45 @@ def spmd_checks(mesh, spec: dict, count=_uncounted) -> dict:
     for name, kw in spec.get("lm", {}).items():
         out[f"lm_{name}"] = lm_check(mesh, count=count, **kw)
         torch.cuda.empty_cache()
+    if "gnn" in spec:
+        out["gnn"] = gnn_check(mesh, count=count, **spec["gnn"])
+        torch.cuda.empty_cache()
     return out
+
+
+def main(argv=None) -> None:
+    """DimeNet's check alone over every visible card, one rank a card
+    (a ``("data", "model")`` mesh: (n / 2, 2) on an even count), as
+    ``chip_smoke.py``'s spmd phase runs it; prints the card and one JSON
+    line of every rank's result::
+
+        python -m repro_torch.tools.mesh_check --graph-cut 48
+    """
+    import argparse
+    import json
+    import subprocess
+
+    from repro_torch.launch.mesh import run_spmd
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--shape", default="ogb_products")
+    ap.add_argument("--graph-cut", type=int, default=48)
+    ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--world", type=int, default=None,
+                    help="cards to use (default: every visible one)")
+    args = ap.parse_args(argv)
+    n = args.world or torch.cuda.device_count()
+    shape = (n // 2, 2) if n > 1 and n % 2 == 0 else (n, 1)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    spec = {"gnn": {"shape": args.shape, "graph_cut": args.graph_cut,
+                    "steps": args.steps}}
+    t0 = time.perf_counter()
+    results = run_spmd(spmd_checks, shape, ("data", "model"), args=(spec,))
+    print(json.dumps({"mesh": list(shape), "wall_s": time.perf_counter()
+                      - t0, "ranks": results}))
+
+
+if __name__ == "__main__":
+    main()

@@ -26,8 +26,17 @@ process on the CPU.
   ``adam_update``.  rtol = atol = 2e-5
   in float32; the stored fp16 reps (valid tokens) within one fp16 step
   (float32 sums in other orders, rounded).
+* The DimeNet cells' ``inputs`` (``graph_cut`` on the large graphs): the
+  graph JAX's generators make at the cut sizes, padded to the specs'
+  shapes and dtypes; ``local`` on each rank of a (2, 2) ``SpmdMesh`` (a
+  fake process group in a subprocess) gives each leaf's spec block.
 """
 import dataclasses
+import hashlib
+import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -360,3 +369,172 @@ def test_rank_train_cell_matches_jax_step(backend):
     _close(out["grad_norm"], gn, "grad_norm")
     _close_trees(new, bridge.train_state_from_jax(
         _np32({"params": want, "opt": wopt}), tcfg, device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# DimeNet cells: inputs with graph_cut, and each rank's blocks
+# ---------------------------------------------------------------------------
+
+# shape -> graph_cut for the CPU (the molecule cell runs as published)
+GNN_CUTS = {"full_graph_sm": 20, "ogb_products": 20000, "minibatch_lg": 200,
+            "molecule": None}
+LOCAL_SCRIPT = """
+import hashlib, json, sys
+import numpy as np, torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.dist import default_rules
+from repro_torch.dist.compat import AbstractMesh, spmd_mesh
+from repro_torch.launch import steps as ST
+from repro_torch.tree import leaves_with_paths
+cuts = json.loads(sys.argv[1])
+whole = {}
+for shape, cut in cuts.items():
+    c = ST.build_cell("dimenet", shape, default_rules(AbstractMesh(
+        (2, 2), ("data", "model"))), graph_cut=cut)
+    whole[shape] = ST.cell_inputs(c, torch.Generator().manual_seed(0),
+                                  "cpu", whole=True)
+out = []
+for rank in range(4):
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=4)
+    mesh = spmd_mesh((2, 2), ("data", "model"), "cpu")
+    got = {}
+    for shape, cut in cuts.items():
+        c = ST.build_cell("dimenet", shape, default_rules(mesh),
+                          graph_cut=cut)
+        got[shape] = {k: [list(t.shape), hashlib.sha1(
+            t.contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()]
+                      for k, t in leaves_with_paths(c.local(whole[shape]))
+                      if torch.is_tensor(t) and t.dim()}
+    out.append(got)
+    dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def _gnn_cell(shape, rules):
+    return ST.build_cell("dimenet", shape, rules, graph_cut=GNN_CUTS[shape])
+
+
+def _gnn_whole(shape, rules):
+    cell = _gnn_cell(shape, rules)
+    return cell, ST.cell_inputs(cell, torch.Generator().manual_seed(0), "cpu",
+                                whole=True)
+
+
+def _jax_graph(shape, cut):
+    """The graph JAX's generators make at the cell's sizes (seed 0)."""
+    from repro.configs import GNN_SHAPES
+    from repro.data import graphs as JG
+
+    info, cut = GNN_SHAPES[shape], cut or 1
+    if shape == "molecule":
+        return JG.make_molecule_batch(info["batch"], info["n_nodes"],
+                                      info["n_edges"], fanout_cap=8, seed=0)
+    if shape != "minibatch_lg":
+        return JG.make_graph_batch(
+            info["n_nodes"] // cut, info["n_edges"] // cut,
+            d_feat=info["d_feat"], fanout_cap=8,
+            n_classes=47 if shape == "ogb_products" else 16, seed=0)
+    n = info["n_nodes"] // cut
+    feat, pos, src, dst, labels = JG.random_graph(
+        n, info["n_edges"] // cut, d_feat=602, n_classes=41, seed=0)
+    sampler = JG.NeighborSampler(src, dst, n, seed=0)
+    seeds = np.random.default_rng(0).choice(n, info["batch_nodes"],
+                                            replace=False)
+    s_src, s_dst, node_map = sampler.sample(seeds, info["fanout"])
+    t_kj, t_ji, t_valid = JG.build_triplets(s_src, s_dst, 8)
+    return JG.GraphBatch(feat[node_map], pos[node_map], s_src, s_dst,
+                         np.ones(len(s_src), bool), t_kj, t_ji, t_valid,
+                         labels[node_map])
+
+
+@pytest.mark.parametrize("shape", list(GNN_CUTS))
+def test_dimenet_cell_inputs_are_the_jax_graph_at_the_specs(shape):
+    """``cell_inputs`` of a DimeNet cell (``graph_cut`` where the graph is
+    large): every leaf has its spec's shape and dtype, the graph is the one
+    JAX's generators make at the cut sizes (seed 0), padded with zero
+    rows, invalid edges and invalid triplet slots (the blocked layout
+    kept), and the params are the seeded init's."""
+    cell, (state, batch) = _gnn_whole(shape, ONE)
+    specs = cell.args[1]
+    assert sorted(batch) == sorted(specs)
+    for k, t in batch.items():
+        assert tuple(t.shape) == specs[k].shape, k
+        assert t.dtype == specs[k].dtype, k
+    for (k, t), (_, s) in zip(leaves_with_paths(state),
+                              leaves_with_paths(cell.args[0])):
+        assert tuple(t.shape) == s.shape and t.dtype == s.dtype, k
+    g = _jax_graph(shape, GNN_CUTS[shape])
+    n, e = len(g.positions), len(g.edge_src)
+    for k in ("node_feat", "positions", "edge_src", "edge_dst", "edge_valid",
+              "trip_kj", "trip_ji", "trip_valid", "graph_ids", "labels"):
+        want = getattr(g, k)
+        if want is None:
+            continue
+        got = batch[k].numpy()
+        np.testing.assert_array_equal(got[:len(want)], want, err_msg=k)
+        assert not got[len(want):].any(), k
+    assert e * 8 == len(g.trip_kj) and batch["edge_valid"].sum() == e
+    assert n <= batch["positions"].shape[0]
+    trip = batch["trip_ji"].numpy()
+    valid = batch["trip_valid"].numpy()
+    assert (trip[valid] == np.nonzero(valid)[0] // 8).all()
+
+
+def test_dimenet_graph_cut_keeps_the_published_config_and_dtype():
+    spec = get_arch("dimenet")
+    full = ST.gnn_cell_config(spec, "ogb_products")
+    cut = ST.gnn_cell_config(spec, "ogb_products", 48)
+    assert (cut.n_nodes, cut.n_edges, cut.n_trip) == (51021, 1288960,
+                                                      10311680)
+    assert cut.cfg == full.cfg and cut.cfg.compute_dtype == torch.bfloat16
+    small = ST.gnn_cell_config(spec, "ogb_products", 20000)
+    assert small.cfg.compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="graph_cut"):
+        ST.build_cell("dimenet", "molecule", ONE, graph_cut=2)
+    with pytest.raises(ValueError, match="seed"):
+        ST.gnn_cell_config(spec, "minibatch_lg", 1000)
+    with pytest.raises(ValueError, match="graph_cut"):
+        ST.build_cell("gemma3-4b", "train_4k", ONE, graph_cut=2)
+
+
+def test_dimenet_cell_local_gives_each_rank_its_spec_blocks():
+    """``cell.local`` on each rank of a (2, 2) ``SpmdMesh`` (a fake
+    process group in a subprocess): every leaf is the block of the whole
+    leaf that its spec and the rank's coordinates select -- contiguous
+    edge and triplet blocks of a quarter, node features cut where four
+    divide the nodes, the rest whole."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    p = subprocess.run([sys.executable, "-c", LOCAL_SCRIPT,
+                        json.dumps(GNN_CUTS)], env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    ranks = json.loads(p.stdout.strip().splitlines()[-1])
+    rules = default_rules(AbstractMesh((2, 2), ("data", "model")))
+    cut_edges = 0
+    for shape in GNN_CUTS:
+        cell, whole = _gnn_whole(shape, rules)
+        specs = dict(leaves_with_paths(cell.args))
+        for rank, got in enumerate(ranks):
+            coord = {"data": rank // 2, "model": rank % 2}
+            for k, t in leaves_with_paths(whole):
+                if not torch.is_tensor(t) or not t.dim():
+                    continue
+                want = t
+                for d, entry in enumerate(specs[k].spec):
+                    axes = () if entry is None else \
+                        (entry,) if isinstance(entry, str) else entry
+                    if axes:
+                        i = 0
+                        for a in axes:
+                            i = i * 2 + coord[a]
+                        size = want.shape[d] // 2 ** len(axes)
+                        want = want.narrow(d, i * size, size)
+                        cut_edges += k.endswith("edge_src")
+                shape_got, digest = got[shape][k]
+                assert shape_got == list(want.shape), (shape, k)
+                assert digest == hashlib.sha1(want.contiguous().view(
+                    torch.uint8).numpy().tobytes()).hexdigest(), (shape, k)
+    assert cut_edges == 4 * len(GNN_CUTS)

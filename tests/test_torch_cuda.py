@@ -18,6 +18,7 @@ Tolerances: rtol = atol = 2e-5 in float32 and 2e-2 in bfloat16/float16
 (tests/test_kernels.py), the kernel and its plain version summing in
 different orders."""
 import contextlib
+import math
 
 import numpy as np
 import pytest
@@ -1842,6 +1843,58 @@ def test_spmd_checks_over_every_card(dev, tmp_path):
                        args=(SPMD_SPEC,), timeout_s=300,
                        store_dir=str(tmp_path))
     _spmd_held(results, n)
+
+
+# DimeNet's edge-sharded train cell: chip_smoke.py's GNN_SPMD and
+# GNN_STEPS
+GNN_SPEC = {"gnn": {"shape": "ogb_products", "graph_cut": 48, "steps": 6}}
+
+
+def _gnn_held(results, world):
+    """Every rank's DimeNet check inside the smoke's gates: the float32
+    loss within 1e-5 and each gradient leaf within 1e-4 of its largest
+    (one process on the card; index_add atomics), the bf16 steps' loss
+    falling and its first within 1.5x one process's bf16 rounding of the
+    float32 loss."""
+    assert len(results) == world
+    for r in results:
+        g = r["gnn"]
+        assert r["world"] == world and g["compute_dtype"] == "torch.bfloat16"
+        assert g["edges_a_rank"] * world == g["edges_padded"] == 1288960
+        assert g["f32"]["loss_rel"] <= 1e-5, g["f32"]
+        assert g["f32"]["max_leaf_rel"] <= 1e-4, g["f32"]
+        losses = g["bf16"]["losses"]
+        assert all(math.isfinite(x) for x in losses)
+        assert losses[-1] < losses[0], losses
+        assert g["bf16"]["apart"] <= 1.5 * g["bf16"]["control"], g["bf16"]
+
+
+def test_dimenet_edge_sharded_cell_on_one_card_over_nccl(dev, tmp_path):
+    """DimeNet's ogb_products cell cut by 48 through the edge-sharded route
+    at a world of 1 over NCCL (every collective the identity)."""
+    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.tools.mesh_check import spmd_checks
+    results = run_spmd(spmd_checks, (1, 1), ("data", "model"),
+                       args=(GNN_SPEC,), timeout_s=300,
+                       store_dir=str(tmp_path))
+    _gnn_held(results, 1)
+
+
+def test_dimenet_edge_sharded_cell_over_every_card(dev, tmp_path):
+    """The same over every visible card: each rank a quarter (on four)
+    of the edges and triplets, the messages all-gathered over NCCL."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 or more cards for a mesh of several ranks; "
+                    f"{n} visible (the world of 1 runs in "
+                    f"test_dimenet_edge_sharded_cell_on_one_card_over_nccl)")
+    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.tools.mesh_check import spmd_checks
+    shape = (n // 2, 2) if n % 2 == 0 else (n, 1)
+    results = run_spmd(spmd_checks, shape, ("data", "model"),
+                       args=(GNN_SPEC,), timeout_s=300,
+                       store_dir=str(tmp_path))
+    _gnn_held(results, n)
 
 
 def test_sharded_lm_loss_on_one_card_over_nccl(dev, tmp_path):

@@ -16,7 +16,10 @@ x 16), against reckonings made without it:
   table is a lookup and its head runs on the last position; PreTTR's
   tables are lookups, its LM head never runs and its last layer runs the
   CLS row alone);
-* the DimeNet cells are recorded ``ok: false``, naming item 7.4.
+* the DimeNet cells (``molecule``, ``ogb_products``) trace on 16 x 16
+  through the edge-sharded route: their argument bytes the JAX shards',
+  their c10d bytes the messages' all-gathers, reduce-scatters and
+  all-reduces.
 """
 import json
 import math
@@ -33,7 +36,6 @@ from jax.sharding import AbstractMesh as JaxAbstractMesh
 from repro.dist import sharding as JS
 from repro.launch import steps as JST
 from repro_torch.configs import get_arch
-from repro_torch.launch import dryrun as DR
 from repro_torch.models.recsys.embedding import lookup_capacity
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -124,6 +126,38 @@ def test_dryrun_flops_reach_the_model_matmuls(records, mesh, cell):
     assert rec["roofline_step_s"] == max(rec["roofline"].values())
 
 
-def test_dryrun_records_dimenet_as_not_ported():
-    rec = DR.run_cell("dimenet", "molecule", (16, 16), ("data", "model"))
-    assert rec["ok"] is False and "7.4" in rec["error"]
+DIMENET_CELLS = (("dimenet", "molecule"), ("dimenet", "ogb_products"))
+
+
+@pytest.fixture(scope="module")
+def dimenet_records():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    p = subprocess.run(
+        [sys.executable, "-c", SCRIPT,
+         json.dumps([*MESHES["16x16"], DIMENET_CELLS])], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    return dict(zip(DIMENET_CELLS,
+                    json.loads(p.stdout.strip().splitlines()[-1])))
+
+
+@pytest.mark.parametrize("cell", DIMENET_CELLS, ids=_cell_ids(DIMENET_CELLS))
+def test_dryrun_traces_dimenet_edge_sharded(dimenet_records, cell):
+    """The DimeNet cells trace through the edge-sharded route on 16 x 16:
+    ``ok``, a rank's argument bytes those of the JAX cell's shards, the
+    messages' all-gathers, their gradients' reduce-scatters and the node
+    sums' all-reduces among the c10d bytes."""
+    rec = dimenet_records[cell]
+    assert rec["ok"] is True, rec.get("error")
+    jcell = JST.build_cell(*cell, JS.default_rules(
+        JaxAbstractMesh(*MESHES["16x16"])))
+    want = sum(int(np.prod(s.sharding.shard_shape(s.shape)))
+               * s.dtype.itemsize for s in jax.tree_util.tree_leaves(
+                   jcell.args))
+    assert rec["argument_bytes_per_device"] == want
+    coll = rec["collective_bytes_per_device"]
+    assert coll["total"] > 0
+    for op in ("allgather_", "_reduce_scatter_base_", "allreduce_"):
+        assert coll[op] > 0, op
+    assert rec["peak_bytes_per_device"] > rec["argument_bytes_per_device"]
+    assert rec["fits_80gb"] is True
