@@ -261,10 +261,11 @@ and DimeNet at three of its cells:
    the cut), built by ``build_cell`` and taken by ``cell.local``: the
    float32 loss and every gradient leaf against one process on the same
    card within DIMENET_LOSS_REL / DIMENET_GRAD_REL (one process against
-   itself run again as the control), GNN_STEPS of the cell's bf16 train
-   step (the loss must fall, the first within CELLS_BF16_FACTOR x one
-   process's bf16-vs-float32 distance of its float32 loss), ms a step,
-   peak bytes, the host build's seconds; no kernel may launch.
+   itself run again as the control), GNN_SPMD's steps of the cell's
+   bf16 train step (the loss must fall, the first within
+   CELLS_BF16_FACTOR x one process's bf16-vs-float32 distance of its
+   float32 loss), ms a step, peak bytes, the host build's seconds; no
+   kernel may launch.
 9c. cells -- the cells of ``launch.steps`` (``tools/cell_check.py``),
    one rank a visible card over NCCL as in 9b, each built with
    ``build_cell(..., backend="cuda")`` at full width under
@@ -381,10 +382,11 @@ MESH_TIMEOUT_S = 600
 # 3.2e-5 on four cards: PERF.md)
 LM_SPMD_TOKENS, LM_SPMD_RTOL, LM_SPMD_BF16_RTOL = (2, 2048), 1e-5, 1e-4
 LM_SPMD_GRAD_LEAF_REL = 1e-4
-# DimeNet's edge-sharded check: the cell and its graph_cut (51,021 nodes,
-# 1,288,732 edges padded to 1,288,960: bf16 messages, as the published
-# cell's), the cell's train steps
-GNN_SPMD, GNN_STEPS = ("ogb_products", 48), 6
+# DimeNet's edge-sharded check (tools.mesh_check.gnn_check's keywords):
+# the cell and its graph_cut (51,021 nodes, 1,288,732 edges padded to
+# 1,288,960: bf16 messages, as the published cell's), the cell's train
+# steps
+GNN_SPMD = {"shape": "ogb_products", "graph_cut": 48, "steps": 6}
 # the cells phase (launch.steps' cells, one rank a card): (key, arch,
 # shape, cuts); full width, the batch and depth cut so that the phase
 # adds about two minutes.  Each is held against the same cell through the
@@ -2117,8 +2119,7 @@ def mesh_spec():
                    "granite": {"config": granite_moe_3b.full_config(),
                                "batch": b, "seq": s, "grad": False,
                                "bf16": False}},
-            "gnn": {"shape": GNN_SPMD[0], "graph_cut": GNN_SPMD[1],
-                    "steps": GNN_STEPS}}
+            "gnn": GNN_SPMD}
 
 
 def spmd_phase(torch, name, launches):
@@ -2127,9 +2128,9 @@ def spmd_phase(torch, name, launches):
     ``compressed_psum`` (``repro_torch.tools.mesh_check``), each rank's
     results and launches; one card is a world of 1, where the
     collectives are the identity."""
-    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.launch.mesh import card_mesh_shape, run_spmd
     world = torch.cuda.device_count()
-    shape = (world // 2, 2) if world > 1 and world % 2 == 0 else (world, 1)
+    shape = card_mesh_shape(world)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     results = run_spmd(spmd_rank, shape, ("data", "model"),
@@ -2260,9 +2261,9 @@ def cells_phase(torch, name, launches):
     and held against the same cell through the plain impls in one process
     on the same card; each line gives the cell's cuts of its published
     sizes (``reduced``), its limits, its differences and launches."""
-    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.launch.mesh import card_mesh_shape, run_spmd
     world = torch.cuda.device_count()
-    shape = (world // 2, 2) if world > 1 and world % 2 == 0 else (world, 1)
+    shape = card_mesh_shape(world)
     spec = {key: (arch, sh, cuts) for key, arch, sh, cuts in CELLS}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

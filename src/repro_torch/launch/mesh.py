@@ -52,6 +52,12 @@ def make_device_mesh(axis_name: str = "data") -> Mesh:
     return Mesh(grid, (axis_name,))
 
 
+def card_mesh_shape(n: int) -> tuple[int, int]:
+    """The ``("data", "model")`` shape of ``n`` cards, one rank a card:
+    (n / 2, 2) on an even count above 1, else (n, 1)."""
+    return (n // 2, 2) if n > 1 and n % 2 == 0 else (n, 1)
+
+
 def _rank_main(rank, fn, axis_sizes, axis_names, device_type, store_path,
                results, threads, args):
     import torch.distributed as dist

@@ -417,9 +417,9 @@ def gnn_check(mesh, *, shape: str, graph_cut: int, steps: int,
     """DimeNet's GNN cell ``shape`` cut by ``graph_cut``
     (``launch.steps.build_cell`` under ``default_rules`` over the mesh; the
     full config, the published compute dtype) through the edge-sharded
-    route, against one process on the same card.  Every rank builds the
-    cell's seeded graph on the host (``host_build_s``: the generator and
-    the triplets apart), its params and AdamW state whole on its card, and
+    route, against one process on the same card.  Every rank makes the
+    cell's whole args by ``cell.inputs`` (the seeded graph built on the
+    host, the params and AdamW state on its card: ``host_build_s``) and
     takes its blocks by ``cell.local``.
 
     * ``f32``: the loss and every gradient leaf, gathered whole, at
@@ -444,34 +444,28 @@ def gnn_check(mesh, *, shape: str, graph_cut: int, steps: int,
     from repro_torch.dist import spmd as S
     from repro_torch.launch import steps as ST
     from repro_torch.models.gnn import dimenet as D
-    from repro_torch.optim import OptimizerConfig, init_opt_state, \
-        value_and_grad
+    from repro_torch.optim import value_and_grad
     from repro_torch.tree import leaves_with_paths
 
     start = time.perf_counter()
     dev = mesh.device
     rules = default_rules(mesh)
     cell = ST.build_cell("dimenet", shape, rules, graph_cut=graph_cut)
-    c = ST.gnn_cell_config(get_arch("dimenet"), shape, graph_cut)
+    # the model's config; the sizes are read from the cell's inputs
+    cfg = ST.gnn_cell_config(get_arch("dimenet"), shape, graph_cut).cfg
     t0 = time.perf_counter()
-    g, notes = ST.gnn_graph(get_arch("dimenet"), shape, graph_cut=graph_cut,
-                            seed=ST.GRAPH_SEED)
+    state, batch = cell.inputs(torch.Generator(device=dev).manual_seed(seed),
+                               dev)
     host_s = time.perf_counter() - t0
-    batch = ST.gnn_cell_batch(g, c, dev)
-    del g
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = D.init_dimenet(c.cfg, gen, device=dev)
-    state = {"params": params, "opt": init_opt_state(params,
-                                                     OptimizerConfig())}
+    params = state["params"]
     local_state, local_batch = cell.local((state, batch))
-    loss_fn = D.energy_loss if c.cfg.task == "energy" else D.node_cls_loss
-    cfg32 = dataclasses.replace(c.cfg, compute_dtype=torch.float32)
-    one = lambda cfg: value_and_grad(lambda p: loss_fn(p, cfg, batch),
-                                     params)
+    loss_fn = D.energy_loss if cfg.task == "energy" else D.node_cls_loss
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    one = lambda k: value_and_grad(lambda p: loss_fn(p, k, batch), params)
     want_l, want_g = one(cfg32)
     again_l, again_g = one(cfg32)
     with torch.no_grad():
-        one16 = float(loss_fn(params, c.cfg, batch))
+        one16 = float(loss_fn(params, cfg, batch))
     want = dict(leaves_with_paths(want_g))
     specs = ST._specs_of(cell.args[0]["params"])
 
@@ -512,21 +506,22 @@ def gnn_check(mesh, *, shape: str, graph_cut: int, steps: int,
     torch.cuda.empty_cache()
     info = get_arch("dimenet").shapes[shape]
     one32 = float(want_l)
-    return {"shape": shape, "config": c.cfg.name,
-            "n_blocks": c.cfg.n_blocks, "d_hidden": c.cfg.d_hidden,
-            "n_bilinear": c.cfg.n_bilinear,
-            "compute_dtype": str(c.cfg.compute_dtype),
+    return {"shape": shape, "config": cfg.name,
+            "n_blocks": cfg.n_blocks, "d_hidden": cfg.d_hidden,
+            "n_bilinear": cfg.n_bilinear,
+            "compute_dtype": str(cfg.compute_dtype),
             "reduced": {"graph_cut": {"run": graph_cut, "published": 1},
-                        "n_nodes": {"run": c.n_nodes,
+                        "n_nodes": {"run": int(batch["positions"].shape[0]),
                                     "published": info["n_nodes"]},
                         "n_edges": {"run": int(batch["edge_valid"].sum()),
                                     "published": info["n_edges"]}},
-            "nodes": c.n_nodes, "edges_padded": c.n_edges,
-            "triplet_slots": c.n_trip,
+            "nodes": int(batch["positions"].shape[0]),
+            "edges_padded": int(batch["edge_src"].shape[0]),
+            "triplet_slots": int(batch["trip_kj"].shape[0]),
             "edges_a_rank": int(local_batch["edge_src"].shape[0]),
             "triplet_slots_a_rank": int(local_batch["trip_kj"].shape[0]),
             "node_feat_rows_a_rank": int(local_batch["node_feat"].shape[0]),
-            "host_build_s": host_s, "host_s": notes["host_s"],
+            "host_build_s": host_s,
             "f32": {"loss": float(got_l), "one_process": one32,
                     "loss_rel": abs(float(got_l) - one32) / abs(one32),
                     "max_leaf_rel": max_leaf, "worst_leaf": worst,
@@ -565,41 +560,3 @@ def spmd_checks(mesh, spec: dict, count=_uncounted) -> dict:
         out["gnn"] = gnn_check(mesh, count=count, **spec["gnn"])
         torch.cuda.empty_cache()
     return out
-
-
-def main(argv=None) -> None:
-    """DimeNet's check alone over every visible card, one rank a card
-    (a ``("data", "model")`` mesh: (n / 2, 2) on an even count), as
-    ``chip_smoke.py``'s spmd phase runs it; prints the card and one JSON
-    line of every rank's result::
-
-        python -m repro_torch.tools.mesh_check --graph-cut 48
-    """
-    import argparse
-    import json
-    import subprocess
-
-    from repro_torch.launch.mesh import run_spmd
-
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--shape", default="ogb_products")
-    ap.add_argument("--graph-cut", type=int, default=48)
-    ap.add_argument("--steps", type=int, default=6)
-    ap.add_argument("--world", type=int, default=None,
-                    help="cards to use (default: every visible one)")
-    args = ap.parse_args(argv)
-    n = args.world or torch.cuda.device_count()
-    shape = (n // 2, 2) if n > 1 and n % 2 == 0 else (n, 1)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    spec = {"gnn": {"shape": args.shape, "graph_cut": args.graph_cut,
-                    "steps": args.steps}}
-    t0 = time.perf_counter()
-    results = run_spmd(spmd_checks, shape, ("data", "model"), args=(spec,))
-    print(json.dumps({"mesh": list(shape), "wall_s": time.perf_counter()
-                      - t0, "ranks": results}))
-
-
-if __name__ == "__main__":
-    main()
