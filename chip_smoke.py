@@ -170,6 +170,17 @@ and DimeNet at three of its cells:
    routing, while the forward's own routing may tip no more than
    ``LM_ROUTED_APART`` of its tokens a layer;
    an ``lm_wall`` line gives each model's seconds;
+6b. blocked_grad -- the "cuda" attention op (``models/backend.py``: the
+   split kernel forward, the blocked version's gradient backward at
+   ``block_kv``) at gemma3-4b's global layer, full width (q [2, S, 8,
+   256], K/V 4 heads, bf16, causal): at S = 2048 its dq / dk / dv
+   against the plain gradient in float32, each within CELLS_BF16_FACTOR
+   x the plain bf16 gradient's distance from it, and the float32 op's
+   within LM_SPMD_GRAD_LEAF_REL of each gradient's largest value; at S
+   = 8192 the peak bytes and ms of one bf16 backward, blocked against
+   the plain gradient the op took before (each twice, in turns), the
+   blocked peak below the plain one; the forward's launches of the
+   causal form (``row3_launches``);
 7. recsys -- once the LM's state is freed, every lookup through the
    embedding-bag kernel and, on the same inputs, through its plain
    version (each pair within a limit scaled to the data, ``REC_REL``;
@@ -284,7 +295,8 @@ and DimeNet at three of its cells:
    xDeepFM's ``train_batch`` at 8,192 rows, BERT4Rec's ``serve_p99``
    (the top-100 of its 2^20 items) and ``train_batch`` at 1,024 rows.
    The train cells run at float32 compute (the
-   kernels forward, the plain versions' gradient backward), their
+   kernels forward; backward the blocked attention's gradient and the
+   other ops' plain versions'), their
    configured bf16 step held by no check; a recsys cell's control takes
    the plain embedding bag (``bag_impl="plain"``), and BERT4Rec's top-k
    ids must equal the plain run's wherever the values are not tied
@@ -430,6 +442,18 @@ CELLS = (("index_docs", "prettr-bert", "index_docs", {"batch": 512}),
          ("xdeepfm_train", "xdeepfm", "train_batch", {"batch": 8192}),
          ("bert4rec_serve_p99", "bert4rec", "serve_p99", {}),
          ("bert4rec_train", "bert4rec", "train_batch", {"batch": 1024}))
+# the blocked gradient (phase 6b): gemma3-4b's global layer at full width
+# (q [2, S, 8, 256], K/V 4 heads, causal, its block_kv of 512) through
+# the "cuda" attention op, the split kernel forward and the blocked
+# version's gradient backward.  At BLOCKED_GRAD_SEQ its bf16 dq / dk / dv
+# against the plain gradient in float32, each within CELLS_BF16_FACTOR x
+# the plain bf16 gradient's own distance (the float32 op's within
+# LM_SPMD_GRAD_LEAF_REL of each gradient's largest value); at
+# BLOCKED_MEMORY_SEQ the peak bytes of one bf16 backward, which must sit
+# below the plain gradient's ([2, 8, 8192, 8192] float32, 4.3 GB a
+# tensor)
+BLOCKED_GRAD = {"batch": 2, "heads": 8, "kv_heads": 4, "head_dim": 256}
+BLOCKED_GRAD_SEQ, BLOCKED_MEMORY_SEQ = 2048, 8192
 # BERT4Rec's paths: (history precompute, online join) of each run
 BERT4REC_PATHS = {
     "cuda_bf16": ("bert4rec_history", "bert4rec_join"),
@@ -1585,14 +1609,18 @@ PATH_KERNELS = {
                          *_COMPRESS_TC, "decompress", *_DECOMPRESS_TC,
                          "decode_attention"),
     "cells_train_granite": _LM_CAUSAL + _SPLIT_CC,
+    # the blocked gradient's op: the causal form forward, bf16 on the
+    # tensor cores, float32 on the CUDA cores; the backward launches none
+    "blocked_grad": _LM_CAUSAL + _SPLIT_TC,
+    "blocked_grad_f32": _LM_CAUSAL + _SPLIT_CC,
     "cells_prefill": _LM_PREFILL + _SPLIT_TC, "cells_decode": _LM_DECODE,
     # the recsys cells, float32 tables: DLRM's train step (float32
     # compute) gathers on the wide kernel in the sum form, its retrieval
     # user tower takes a bf16 mean bag from the float32 table (the cast
     # form, wide); DeepFM's serve rounds its rows to bf16 (cast) and sums
     # w1 (sum), xDeepFM's train step sums both in float32, all on the
-    # narrow kernel (40- and 4-byte rows); BERT4Rec's cells run plain
-    # attention (the reference's "blocked") and launch none
+    # narrow kernel (40- and 4-byte rows); BERT4Rec's cells run the
+    # blocked attention, as the reference's do, and launch none
     "cells_dlrm_train": ("embedding_bag", "embedding_bag_wide"),
     "cells_dlrm_retrieval": ("embedding_bag_cast", "embedding_bag_wide"),
     "cells_deepfm_serve_bulk": ("embedding_bag", "embedding_bag_cast",
@@ -1672,6 +1700,7 @@ MAIN_PATHS = ("index", "serve", "serve_legacy", "index_int8",
               "distill", "index_distilled", "cascade_trained_index_int8",
               "cascade_trained_index_pq", "cascade_trained_index_pruned",
               "cascade_trained", "lm_prefill", "lm_decode", *LM_MORE_MAIN,
+              "blocked_grad",
               "dlrm_serve_bulk", "dlrm_retrieval", "dlrm_item_tower",
               "deepfm_serve_bulk", "deepfm_item_vectors", "deepfm_retrieval",
               "xdeepfm_serve_p99",
@@ -3247,6 +3276,131 @@ def lm_phases(torch, name, launches, key="", module="gemma3_4b",
 
 
 # ---------------------------------------------------------------------------
+# Phase 6b: the "cuda" attention's blocked gradient
+# ---------------------------------------------------------------------------
+
+
+def _blocked_case(torch, seq, dtype):
+    """gemma3-4b's full config and seeded q, k, v, cotangent at ``seq``."""
+    from repro_torch.configs import gemma3_4b
+    cfg = gemma3_4b.full_config()
+    b, h, hkv, d = (BLOCKED_GRAD[k] for k in ("batch", "heads", "kv_heads",
+                                               "head_dim"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    return cfg, [r(b, seq, h, d), r(b, seq, hkv, d), r(b, seq, hkv, d),
+                 r(b, seq, h, d)]
+
+
+def _attention_op(torch, cfg, impl, reference=None):
+    """``fn(q, k, v)``: the backend's ``impl`` attention, causal over every
+    key; with ``reference`` the "cuda" op's kernel forward under that
+    impl's gradient (``"plain"``: the gradient the op took before the
+    blocked one)."""
+    from repro_torch.models import backend as B
+    kw = dict(cfg=cfg, scale=cfg.dh ** -0.5, split_flag=False, segs=None,
+              valid=None, window=-1)
+    op = lambda name: lambda q, k, v: B.get_impl("attention", name)(
+        q, k, v, **kw)
+    if reference is None:
+        return op(impl)
+    return lambda q, k, v: B._ReferenceGradient.apply(
+        op("cuda"), op(reference), q, k, v)
+
+
+def _attention_grads(torch, fn, q, k, v, g):
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*xs)
+    return out, torch.autograd.grad(out, xs, g)
+
+
+def _backward_peak(torch, fn, q, k, v, g):
+    """Bytes allocated at the peak of one backward above what the forward
+    left allocated, and that backward's ms (CUDA events)."""
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*xs)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    grads = torch.autograd.grad(out, xs, g)
+    end.record()
+    end.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del grads, out, xs
+    return peak, start.elapsed_time(end)
+
+
+def blocked_grad_check(torch):
+    """The blocked-gradient check (BLOCKED_GRAD): returns its line, with
+    ``ok`` and the launches of the bf16 op's forward and backward
+    (``launches``) and of the float32 op's (``launches_f32``)."""
+    cfg, (q, k, v, g) = _blocked_case(torch, BLOCKED_GRAD_SEQ,
+                                      torch.bfloat16)
+    cuda_op, plain_op = (_attention_op(torch, cfg, i)
+                         for i in ("cuda", "plain"))
+    to32 = lambda ts: [t.float() for t in ts]
+    _, want = _attention_grads(torch, plain_op, *to32((q, k, v, g)))
+    _, plain16 = _attention_grads(torch, plain_op, q, k, v, g)
+    (out, got), launched = counted(
+        lambda: _attention_grads(torch, cuda_op, q, k, v, g))
+    (_, got32), launched32 = counted(
+        lambda: _attention_grads(torch, cuda_op, *to32((q, k, v, g))))
+    torch.cuda.synchronize()
+    grads, ok = {}, launched["split_attention_causal"] > 0
+    for n, a, p, a32, w in zip(("dq", "dk", "dv"), got, plain16, got32,
+                               want):
+        dist = lambda x: (x.float() - w).abs().max().item()
+        row = {"kernel_vs_f32": dist(a), "plain_bf16_vs_f32": dist(p),
+               "f32_rel": dist(a32) / w.abs().max().item()}
+        row["limit"] = CELLS_BF16_FACTOR * row["plain_bf16_vs_f32"]
+        ok = ok and row["kernel_vs_f32"] <= row["limit"] \
+            and row["f32_rel"] <= LM_SPMD_GRAD_LEAF_REL \
+            and bool(torch.isfinite(a).all())
+        grads[n] = row
+    del want, plain16, got, got32, out
+    cfg, (q, k, v, g) = _blocked_case(torch, BLOCKED_MEMORY_SEQ,
+                                      torch.bfloat16)
+    peak, ms = {"blocked": [], "plain": []}, {"blocked": [], "plain": []}
+    for ref in ("blocked", "plain", "blocked", "plain"):
+        torch.cuda.empty_cache()
+        p, t = _backward_peak(
+            torch, _attention_op(torch, cfg, "cuda", ref), q, k, v, g)
+        peak[ref].append(p)
+        ms[ref].append(t)
+    ok = ok and max(peak["blocked"]) < min(peak["plain"])
+    b, h, d = BLOCKED_GRAD["batch"], BLOCKED_GRAD["heads"], \
+        BLOCKED_GRAD["head_dim"]
+    return {"phase": "blocked_grad", "config": cfg.name,
+            "q": [b, BLOCKED_GRAD_SEQ, h, d],
+            "kv_heads": BLOCKED_GRAD["kv_heads"], "dtype": "bfloat16",
+            "block_kv": cfg.block_kv, "causal": True, "grads": grads,
+            "factor": CELLS_BF16_FACTOR, "f32_limit": LM_SPMD_GRAD_LEAF_REL,
+            "memory_seq": BLOCKED_MEMORY_SEQ,
+            "backward_peak_bytes": peak, "backward_ms": ms,
+            "launches": launched, "launches_f32": launched32, "ok": ok}
+
+
+def blocked_grad_phase(torch, name, launches):
+    """Phase 6b: the "cuda" attention's forward launches the split kernel,
+    its backward takes the blocked gradient within its limit and below
+    the plain gradient's peak memory (``blocked_grad_check``)."""
+    t0 = time.perf_counter()
+    line = blocked_grad_check(torch)
+    launches["blocked_grad"] = line.pop("launches")
+    launches["blocked_grad_f32"] = line.pop("launches_f32")
+    line.update(device=name, seconds=time.perf_counter() - t0,
+                row3_launches={
+                    p: launches[p]["split_attention_causal"]
+                    for p in ("blocked_grad", "blocked_grad_f32")})
+    emit(line)
+    torch.cuda.empty_cache()
+    if not line["ok"]:
+        raise AssertionError(f"blocked_grad: {line}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the recsys models (DLRM-MLPerf, DeepFM, xDeepFM)
 # ---------------------------------------------------------------------------
 
@@ -4283,6 +4437,9 @@ def main():
     torch.cuda.empty_cache()
     emit({"phase": "lm_wall", "device": name, "seconds": lm_s,
           "total_s": sum(lm_s.values())})
+
+    # 6b. the "cuda" attention's blocked gradient at gemma3's global layer
+    blocked_grad_phase(torch, name, launches)
 
     # 7. the recsys models, once the LM's state is freed
     recsys_phases(torch, name, launches, rows)

@@ -16,9 +16,16 @@ production shape (``launch.mesh.make_production_mesh``: 16 x 16, or 2 x
    ``torch.utils.flop_counter.FlopCounterMode`` and
    :class:`~repro_torch.launch.op_analysis.OpCounter`.
 
-Nothing is allocated and no card is used.  On CPU tensors the kernel
-wrappers run their plain versions, so the FLOPs and bytes are the plain
-path's (the kernels' fused work moves fewer bytes).  Per cell it records
+Nothing is allocated and no card is used.  The cells run the backend
+``--backend`` names, by default ``"blocked"``, the JAX configs' default
+attention (KV blocks of ``block_kv``, no ``[S, S]`` scores forward or
+backward; BERT4Rec's cells run it whatever the flag); ``"plain"`` counts
+the plain attention's ``[S, S]`` scores, ``"cuda"`` the kernel wrappers'
+plain versions forward (on CPU tensors) and the blocked gradient
+backward.  Each record's ``backend`` names the family applied
+(``"default"`` where a config has no backend knob).  The FLOPs and bytes
+are those of the unfused PyTorch ops (the kernels' fused work moves
+fewer bytes).  Per cell it records
 the JAX record's keys where the meaning is the same (``peak_bytes_per_
 device`` here: the rank's argument bytes plus the peak of the live bytes
 its ops made; ``collective_bytes_per_device`` from the c10d ops), with
@@ -200,10 +207,10 @@ def main() -> None:
                     default="both")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--force", action="store_true")
-    ap.add_argument("--backend", default=None, choices=["plain", "cuda"],
-                    help="compute-backend override for every arch config; "
-                         "on the CPU both run the plain versions, so it "
-                         "only labels the record")
+    ap.add_argument("--backend", default="blocked",
+                    choices=["blocked", "plain", "cuda"],
+                    help="compute-backend family of every arch config "
+                         "(module docstring)")
     ap.add_argument("--child", nargs=3, metavar=("ARCH", "SHAPE", "MESH"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -228,8 +235,7 @@ def main() -> None:
             print(f"[dryrun] {arch} {shape} {mesh_kind} ...", flush=True)
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                    "--child", arch, shape, mesh_kind]
-            if args.backend:
-                cmd += ["--backend", args.backend]
+            cmd += ["--backend", args.backend]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             try:
                 rec = json.loads(proc.stdout.strip().splitlines()[-1])

@@ -527,7 +527,8 @@ def make_lm_train_step(cfg, opt_cfg: OptimizerConfig, accum: int,
     reference's ``_shard_like_params`` enforces), and the clipping norm
     is summed over the ranks.  The loss runs ``cfg``'s impls; under
     ``"cuda"`` the forward launches the kernels and the backward takes
-    the plain versions' gradient (``models.backend``)."""
+    the blocked attention's and the other ops' plain versions' gradient
+    (``models.backend``)."""
     from repro_torch.models import transformer_spmd as SP
     from repro_torch.models.transformer import causal_lm_loss
 
@@ -759,12 +760,12 @@ def make_recsys_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
     gathered whole for its data rows (:func:`_recsys_view`).  A train
     cell's loss is the global mean and its AdamW clips by the global norm
     (:func:`_sharded_adam`); retrieval scores come out as the rank's
-    block of the candidate axis.  BERT4Rec runs ``attn_impl="plain"``:
-    its backbone runs the reference's ``"blocked"`` attention, which
-    reaches no Pallas kernel, and its ``forward_hidden`` (split flags
-    that differ across its two layers, ``[MASK]`` anywhere) is one the
-    split kernel refuses; over a mesh it takes the sharded transformer's
-    route, the tied head vocab-sharded over ``model``."""
+    block of the candidate axis.  BERT4Rec runs ``attn_impl="blocked"``,
+    as the reference's cells do: that attention reaches no Pallas kernel,
+    and its ``forward_hidden`` (split flags that differ across its two
+    layers, ``[MASK]`` anywhere) is one the split kernel refuses; over a
+    mesh it takes the sharded transformer's route, the tied head
+    vocab-sharded over ``model``."""
     info = spec.shapes[shape_name]
     kind = info["kind"]
     b = batch or info["batch"]
@@ -785,7 +786,7 @@ def make_recsys_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
     if name == "bert4rec":
         from repro_torch.models.recsys import bert4rec as M
 
-        cfg = dataclasses.replace(cfg, attn_impl="plain")
+        cfg = dataclasses.replace(cfg, attn_impl="blocked")
         init = lambda g, d: (M.init_bert4rec(cfg, g, d), M.bert4rec_axes(cfg))
         bcfg = cfg.backbone()
         tok = b * cfg.seq_len
@@ -989,8 +990,9 @@ def make_prettr_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
     (``join_and_score``); the last two under ``replicated_serving_rules``,
     the batch cut over every axis and the weights whole.  ``batch`` cuts
     the shape's batch.  ``rank_train`` differentiates through the
-    config's impls (under ``"cuda"`` the kernels forward, the plain
-    versions' gradient backward: ``models.backend``)."""
+    config's impls (under ``"cuda"`` the kernels forward; backward the
+    blocked attention's and the plain versions' gradient:
+    ``models.backend``)."""
     from repro_torch.core import prettr as P
 
     cfg = spec.config
@@ -1102,10 +1104,12 @@ def make_prettr_cell(spec: ArchSpec, shape_name: str, rules: ShardingRules,
 
 
 def backend_support(cfg, backend: str | None) -> str:
-    """``"applied"`` if ``backend`` (``"cuda"`` or ``"plain"``) lands on
-    ``cfg``, ``"passthrough"`` if the config has no backend knob (recsys,
-    GNN), ``"unsupported"`` if the arch cannot run it: the reference's
-    logic, its ``"pallas"`` being the port's ``"cuda"``.  One stated
+    """``"applied"`` if ``backend`` (``"cuda"``, ``"plain"`` or
+    ``"blocked"``) lands on ``cfg``, ``"passthrough"`` if the config has
+    no backend knob (recsys, GNN), ``"unsupported"`` if the arch cannot
+    run it: the reference's logic, its ``"pallas"`` being the port's
+    ``"cuda"``; ``"plain"`` and ``"blocked"`` apply to every config with
+    the knobs.  One stated
     difference: the split kernel takes the window at runtime, so a layer
     range that mixes windows (gemma3-4b) is ``"applied"`` under
     ``"cuda"`` where the reference's ``"pallas"`` is ``"unsupported"``.

@@ -28,7 +28,13 @@ cache's page pools (``kd``/``vd`` None).
 Implementations: ``"plain"`` runs the plain PyTorch versions with the JAX
 package's "plain" semantics (int8 K/V are dequantised and rounded to the
 compute dtype, paged pools densified and sliced to ``kd_valid``'s
-length); ``"cuda"`` runs the kernel wrappers, which launch the
+length); ``"blocked"``, the JAX package's default, runs
+:func:`~repro_torch.models.layers.blocked_attention` (KV blocks of
+``cfg.block_kv``, an online softmax, each block step recomputed in the
+backward: no ``[Sq, Skv]`` scores) for ``attention`` and the join's
+Sq > 1 rows over the concatenated, densified and dequantised K/V, and
+the plain versions for ``decode_attention`` and the join's Sq = 1 row,
+as the JAX impls do; ``"cuda"`` runs the kernel wrappers, which launch the
 hand-written Hopper kernels on CUDA tensors (and their plain versions on
 CPU tensors): int8 K/V go to the kernel's int8 form, paged pools to its
 paged form; ``decode_attention`` goes to the flash-decode kernel, which
@@ -44,15 +50,19 @@ feature.
 
 Training through ``"cuda"``: where autograd records through a float
 input of ``attention``, ``decode_attention``, ``compress`` or
-``decompress``, the op runs :class:`_PlainGradient`: its forward
+``decompress``, the op runs :class:`_ReferenceGradient`: its forward
 launches the kernel (the wrappers themselves refuse inputs that require
-grad), its backward recomputes the plain version on the saved inputs
-and differentiates that.  ``join_attention`` runs at inference only and
-keeps the wrappers' refusal.
+grad), its backward recomputes a reference version on the saved inputs
+and differentiates that: ``attention`` the ``"blocked"`` one at
+``cfg.block_kv`` (the backward holds ``[Sq, block_kv]`` scores a block,
+never ``[Sq, Skv]``), the other three their plain versions (none forms
+``[S, S]`` scores).  ``join_attention`` runs at inference only and keeps
+the wrappers' refusal.
 
 A backend family (:func:`impls_for`, :func:`apply_backend`) sets both
 knobs of a config at once, as the entry points' ``backend=`` argument
-does: ``"cuda"`` or ``"plain"``.
+does: ``"cuda"``, ``"plain"`` or ``"blocked"`` (whose compressor is the
+plain one: there is no blocked compressor, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -94,18 +104,20 @@ def get_impl(kind: str, name: str) -> Callable:
     return fn
 
 
-#: the port's backend families: the kernels or the plain versions
-BACKENDS = ("cuda", "plain")
+#: the port's backend families: the kernels, the plain versions, or the
+#: JAX package's default blocked attention
+BACKENDS = ("cuda", "plain", "blocked")
 
 
 def impls_for(backend: str) -> tuple[str, str]:
-    """A backend family name -> ``(attn_impl, compress_impl)``.  The JAX
-    package's ``"blocked"`` and ``"pallas"`` families have no counterpart
-    here: they raise, naming the port's two."""
+    """A backend family name -> ``(attn_impl, compress_impl)``: the
+    compressor has no ``"blocked"`` flavour and runs ``"plain"`` under it.
+    The JAX package's ``"pallas"`` family is the port's ``"cuda"``: it
+    raises, naming the port's families."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; the port's backends "
                          f"are {list(BACKENDS)}")
-    return backend, backend
+    return backend, "plain" if backend == "blocked" else backend
 
 
 def transformer_config_of(cfg):
@@ -189,15 +201,16 @@ def _model_layout_out(q):
     return out, out.transpose(1, 2)
 
 
-class _PlainGradient(torch.autograd.Function):
-    """``kernel(*xs)`` with the gradient of ``plain(*xs)``: the forward
-    runs with grad off, so the kernel wrapper takes the call; the
-    backward recomputes ``plain`` on the saved inputs and differentiates
-    it, so nothing of the plain forward is held between the passes."""
+class _ReferenceGradient(torch.autograd.Function):
+    """``kernel(*xs)`` with the gradient of ``reference(*xs)``: the
+    forward runs with grad off, so the kernel wrapper takes the call; the
+    backward recomputes ``reference`` on the saved inputs and
+    differentiates it, so nothing of the reference's forward is held
+    between the passes."""
 
     @staticmethod
-    def forward(ctx, kernel, plain, *xs):
-        ctx.plain = plain
+    def forward(ctx, kernel, reference, *xs):
+        ctx.reference = reference
         ctx.save_for_backward(*xs)
         return kernel(*xs)
 
@@ -206,18 +219,19 @@ class _PlainGradient(torch.autograd.Function):
         xs = [x.detach().requires_grad_(need) for x, need in
               zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
         with torch.enable_grad():
-            out = ctx.plain(*xs)
+            out = ctx.reference(*xs)
         grads = iter(torch.autograd.grad(
             out, [x for x in xs if x.requires_grad], grad))
         return (None, None,
                 *(next(grads) if x.requires_grad else None for x in xs))
 
 
-def _trainable(kernel, plain, *xs):
+def _trainable(kernel, reference, *xs):
     """``kernel(*xs)``; where autograd records through one of the float
-    tensors ``xs``, with ``plain``'s gradient (:class:`_PlainGradient`)."""
+    tensors ``xs``, with ``reference``'s gradient
+    (:class:`_ReferenceGradient`)."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        return _PlainGradient.apply(kernel, plain, *xs)
+        return _ReferenceGradient.apply(kernel, reference, *xs)
     return kernel(*xs)
 
 
@@ -228,15 +242,30 @@ def _trainable(kernel, plain, *xs):
 def _attention_plain(q, k, v, *, cfg, scale, split_flag, segs, valid,
                      seg_boundary=-1, window=-1, positions=None):
     del seg_boundary
-    if positions is None:
-        b, s = q.shape[:2]
-        positions = torch.arange(s, device=q.device).expand(b, s)
+    positions = _positions_of(q) if positions is None else positions
     # key validity, causality, the window and (below l) same-segment: the
     # masks the kernel applies
     mask = L.attention_mask(positions, positions, causal=cfg.causal,
                             window=window, q_seg=segs, k_seg=segs,
                             split_segments=split_flag, k_valid=valid)
     return L.plain_attention(q, k, v, mask[:, None], scale=scale)
+
+
+def _positions_of(x):
+    """``[B, S]`` positions 0..S-1 of a ``[B, S, ...]`` operand."""
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device).expand(b, s)
+
+
+@register("attention", "blocked")
+def _attention_blocked(q, k, v, *, cfg, scale, split_flag, segs, valid,
+                       seg_boundary=-1, window=-1, positions=None):
+    del seg_boundary
+    positions = _positions_of(q) if positions is None else positions
+    return L.blocked_attention(
+        q, k, v, scale=scale, block_kv=cfg.block_kv, q_pos=positions,
+        k_pos=positions, causal=cfg.causal, window=window, q_seg=segs,
+        k_seg=segs, split_segments=split_flag, k_valid=valid)
 
 
 @register("attention", "cuda")
@@ -251,16 +280,18 @@ def _attention_cuda(q, k, v, *, cfg, scale, split_flag, segs, valid,
                               else -1, out=out_t)
         return out
 
-    plain = lambda q, k, v: _attention_plain(
+    # the gradient: the blocked version's, [Sq, block_kv] scores a block
+    blocked = lambda q, k, v: _attention_blocked(
         q, k, v, cfg=cfg, scale=scale, split_flag=split_flag, segs=segs,
         valid=valid, window=window, positions=positions)
-    return _trainable(kernel, plain, q, k, v)
+    return _trainable(kernel, blocked, q, k, v)
 
 
 # -- decode_attention --------------------------------------------------------
 
 
 @register("decode_attention", "plain")
+@register("decode_attention", "blocked")    # no blocked flavour: the plain
 def _decode_plain(q, k, v, *, cfg, scale, q_pos, k_pos, window,
                   k_valid=None, lengths=None, static_window=None):
     del cfg, lengths, static_window
@@ -292,12 +323,13 @@ def _decode_cuda(q, k, v, *, cfg, scale, q_pos, k_pos, window, k_valid=None,
 # -- join_attention ----------------------------------------------------------
 
 
-@register("join_attention", "plain")
-def _join_plain(q, kq, vq, kd, vd, *, cfg, scale, q_valid=None,
-                kq_valid=None, kd_valid=None, kd_scale=None, vd_scale=None,
-                paged=None):
+def _concat_join_operands(q, kq, vq, kd, vd, *, cfg, kq_valid, kd_valid,
+                          kd_scale, vd_scale, paged):
+    """The reference impls' join operands: the paged pools densified, int8
+    doc K/V dequantised, then the query and doc segments concatenated
+    into ``(k, v, k_valid)``."""
     _check_doc_operands(kd, kd_scale, vd_scale, paged)
-    b, sq = q.shape[0], q.shape[1]
+    b = q.shape[0]
     if paged is not None:
         kd, vd, kd_scale, vd_scale = _densify_paged(paged, kd_valid)
         if kd_scale is None:
@@ -310,10 +342,41 @@ def _join_plain(q, kq, vq, kd, vd, *, cfg, scale, q_valid=None,
     k_valid = torch.cat([ones(kq.shape[1]) if kq_valid is None else kq_valid,
                          ones(kd.shape[1]) if kd_valid is None else kd_valid],
                         dim=1).bool()
+    return k, v, k_valid
+
+
+@register("join_attention", "plain")
+def _join_plain(q, kq, vq, kd, vd, *, cfg, scale, q_valid=None,
+                kq_valid=None, kd_valid=None, kd_scale=None, vd_scale=None,
+                paged=None):
+    k, v, k_valid = _concat_join_operands(
+        q, kq, vq, kd, vd, cfg=cfg, kq_valid=kq_valid, kd_valid=kd_valid,
+        kd_scale=kd_scale, vd_scale=vd_scale, paged=paged)
     mask = k_valid[:, None, None, :]
-    if sq > 1 and q_valid is not None:
+    if q.shape[1] > 1 and q_valid is not None:
         mask = mask & q_valid.bool()[:, None, :, None]
     return L.plain_attention(q, k, v, mask, scale=scale)
+
+
+@register("join_attention", "blocked")
+def _join_blocked(q, kq, vq, kd, vd, *, cfg, scale, q_valid=None,
+                  kq_valid=None, kd_valid=None, kd_scale=None, vd_scale=None,
+                  paged=None):
+    del q_valid                      # keys mask only, as the JAX impl
+    k, v, k_valid = _concat_join_operands(
+        q, kq, vq, kd, vd, cfg=cfg, kq_valid=kq_valid, kd_valid=kd_valid,
+        kd_scale=kd_scale, vd_scale=vd_scale, paged=paged)
+    k_pos = _positions_of(k)
+    if q.shape[1] == 1:              # the CLS row: the decode reference
+        q_pos = torch.full((q.shape[0], 1),
+                           torch.iinfo(torch.int32).max // 2, device=q.device)
+        return L.decode_attention(q, k, v, scale=scale, k_pos=k_pos,
+                                  q_pos=q_pos, window=-1, k_valid=k_valid)
+    # positions feed only the (disabled) causal and window terms
+    return L.blocked_attention(
+        q, k, v, scale=scale, block_kv=cfg.block_kv,
+        q_pos=_positions_of(q), k_pos=k_pos, causal=False, window=-1,
+        k_valid=k_valid)
 
 
 @register("join_attention", "cuda")

@@ -7,8 +7,11 @@ as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30          # finite mask value: all-pad rows stay finite
 
@@ -142,6 +145,86 @@ def plain_attention(q, k, v, mask, *, scale: float):
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def _blocked_step(o, m, l, qh, q_pos, q_seg, kblk, vblk, kp, ks, kvd, *,
+                  n_rep, scale, causal, window, split_segments):
+    """One KV block of :func:`blocked_attention`: its float32 scores, mask
+    and online-softmax update of the carries ``(o, m, l)``."""
+    kblk = repeat_kv(kblk, n_rep).transpose(1, 2)       # [B, H, bk, D]
+    vblk = repeat_kv(vblk, n_rep).transpose(1, 2)
+    s = torch.einsum("bhqd,bhkd->bhqk", qh, kblk.float()) * scale
+    msk = attention_mask(q_pos, kp, causal=causal, window=window,
+                         q_seg=q_seg, k_seg=ks, split_segments=split_segments,
+                         k_valid=kvd)
+    s = s.masked_fill(~msk[:, None], NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    o_new = o * corr[..., None] + torch.einsum(
+        "bhqk,bhkd->bhqd", p.to(vblk.dtype).float(), vblk.float())
+    return o_new, m_new, l_new
+
+
+def blocked_attention(q, k, v, *, scale: float, block_kv: int, q_pos, k_pos,
+                      causal: bool, window=-1, q_seg=None, k_seg=None,
+                      split_segments=False, k_valid=None):
+    """Flash-style attention in plain PyTorch, as
+    ``repro.models.layers.blocked_attention``: a loop over KV blocks of
+    ``block_kv`` keys with an online softmax, so the ``[Sq, Skv]`` scores
+    are never formed.  Under autograd each block step runs under
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``), so the
+    backward holds one block's ``[Sq, block_kv]`` scores at a time and
+    the carries ``(o, m, l)`` of every block, O(Sq * block_kv) memory.
+
+    q: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D] (GQA repeated a block at a
+    time); q_pos [B, Sq], k_pos [B, Skv].  Skv is padded up to a multiple
+    of ``block_kv`` with invalid keys.  Scores and the carries are
+    float32, probabilities cast to V's dtype before the second product;
+    no block is skipped, masked or not."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    n_rep = hq // hkv
+    nblocks = -(-skv // block_kv)
+    pad = nblocks * block_kv - skv
+    dev = q.device
+    if k_valid is None:
+        k_valid = torch.ones((b, skv), dtype=torch.bool, device=dev)
+    if k_seg is None:
+        k_seg = torch.zeros((b, skv), dtype=torch.int32, device=dev)
+    if q_seg is None:
+        q_seg = torch.zeros((b, sq), dtype=torch.int32, device=dev)
+    k_pos = k_pos.expand(b, skv)
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad))
+        k_valid = F.pad(k_valid.bool(), (0, pad), value=False)
+        k_seg = F.pad(k_seg, (0, pad), value=-1)
+    qh = q.transpose(1, 2).float()                      # [B, H, Sq, D]
+    # the step's tensors are its arguments, never its closure's: a
+    # checkpoint keeps its function alive until the backward, and with it
+    # whatever the function closes over
+    step = functools.partial(
+        _blocked_step, n_rep=n_rep, scale=scale, causal=causal,
+        window=window, split_segments=split_segments)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    o = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
+    for i in range(nblocks):
+        blk = slice(i * block_kv, (i + 1) * block_kv)
+        xs = (o, m, l, qh, q_pos, q_seg, k[:, blk], v[:, blk], k_pos[:, blk],
+              k_seg[:, blk], k_valid[:, blk])
+        if remat:
+            o, m, l = checkpoint(step, *xs, use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            o, m, l = step(*xs)
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return o.transpose(1, 2).to(q.dtype)                # [B, Sq, H, D]
 
 
 def decode_attention(q, k_cache, v_cache, *, scale: float, k_pos, q_pos,

@@ -14,7 +14,7 @@ kernel exactly on ``attn_impl="cuda"``.  :func:`forward_hidden` runs
 layers ``0..n`` in one range whose split flags differ and whose [MASK]
 slots sit anywhere, which the kernel's static ``seg_boundary`` cannot
 express: on ``"cuda"`` it raises (``transformer._run_layers``), as the
-JAX ``pallas`` impl does; it runs on ``"plain"``.
+JAX ``pallas`` impl does; it runs on ``"plain"`` and ``"blocked"``.
 
 Under rules over an SPMD mesh the backbone takes the sharded
 transformer's route (``models.transformer_spmd``): the tied head is
@@ -47,7 +47,7 @@ class Bert4RecConfig:
     prettr_l: int = 0                # >0: PreTTR split boundary
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    attn_impl: str = "cuda"          # "cuda" | "plain"
+    attn_impl: str = "cuda"          # "cuda" | "plain" | "blocked"
 
     def backbone(self) -> T.TransformerConfig:
         return T.TransformerConfig(

@@ -77,7 +77,7 @@ def padded_bag(table, ids, weights=None, *, mode: str = "sum",
     (default the table's; each row converted to it first, as
     ``table.astype(out_dtype)`` before a gather).  Under autograd
     through the table, ``"cuda"`` launches the kernel forward and takes
-    the plain version's gradient backward (``backend._PlainGradient``: a
+    the plain version's gradient backward (``backend._ReferenceGradient``: a
     scatter-add into a table-sized zero, the gradient of JAX's
     ``take``)."""
     if impl not in IMPLS:

@@ -67,9 +67,10 @@ class TransformerConfig:
     # --- execution ---
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    attn_impl: str = "cuda"              # "plain" | "cuda"
+    attn_impl: str = "cuda"              # "plain" | "cuda" | "blocked"
     compress_impl: str = "cuda"          # "plain" | "cuda"
-    block_kv: int = 512                  # JAX "blocked" tile; kept for parity
+    # the KV block of "blocked" attention and of the "cuda" one's gradient
+    block_kv: int = 512
     logits_chunk: int = 0                # the loss's seq chunk (training)
     # PreTTR hook: layers below split_layers mask query<->doc attention
     split_layers: int = 0

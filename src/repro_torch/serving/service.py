@@ -750,7 +750,7 @@ class RankingService:
 
     ``device`` (``None`` means the card) holds the params and runs the
     model; params are moved there once.  ``backend`` (``"cuda"`` /
-    ``"plain"``) reroutes every call of the config
+    ``"plain"`` / ``"blocked"``) reroutes every call of the config
     (:func:`~repro_torch.models.backend.apply_backend`).
     ``deadline_s`` is the default per-request deadline, ``max_queue`` the
     admission bound (``submit`` raises :class:`ServiceOverloadError` past

@@ -29,7 +29,7 @@ def _attention(causal, window, split):
     def call(gen, device):
         r, valid = _inputs(gen, device)
         segs = (torch.arange(S_) >= LQ).long().expand(B_, S_).to(device)
-        cfg = types.SimpleNamespace(causal=causal)
+        cfg = types.SimpleNamespace(causal=causal, block_kv=16)
         xs = [r(B_, S_, H_, D_) for _ in range(3)]
         fn = lambda impl, q, k, v: B.get_impl("attention", impl)(
             q, k, v, cfg=cfg, scale=D_ ** -0.5, split_flag=split, segs=segs,

@@ -273,7 +273,8 @@ def test_decode_cell_matches_jax_decode_step():
 
 
 # "cuda" on the CPU: the wrappers' plain versions forward, the backend's
-# plain gradient backward (models.backend._PlainGradient)
+# reference gradient backward (models.backend._ReferenceGradient: the
+# blocked attention's, the other ops' plain versions')
 @pytest.mark.parametrize("backend", ["plain", "cuda"])
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m"])
 def test_lm_train_cell_matches_jax_step(arch, backend):

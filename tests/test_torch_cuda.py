@@ -1873,6 +1873,42 @@ def _gnn_held(smoke, results, world):
                           {}) == []
 
 
+@pytest.fixture(scope="module")
+def blocked_grad_line():
+    """chip_smoke.py's blocked-gradient check (``blocked_grad_check``,
+    BLOCKED_GRAD at its sizes and limits), run once for this module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the split kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return _chip_smoke().blocked_grad_check(torch)
+
+
+def test_blocked_gradient_within_the_bf16_limit(blocked_grad_line):
+    """The "cuda" attention op at gemma3-4b's global layer (full width,
+    2048 tokens, causal) launches the split kernel's causal form forward
+    and takes the blocked gradient backward: bf16 dq / dk / dv within
+    CELLS_BF16_FACTOR x the plain bf16 gradient's distance from the plain
+    float32 gradient, the float32 op's within LM_SPMD_GRAD_LEAF_REL of
+    each gradient's largest value."""
+    smoke, line = _chip_smoke(), blocked_grad_line
+    assert line["launches"]["split_attention_causal"] > 0
+    assert line["launches_f32"]["split_attention_causal"] > 0
+    for n, row in line["grads"].items():
+        assert row["kernel_vs_f32"] <= smoke.CELLS_BF16_FACTOR \
+            * row["plain_bf16_vs_f32"], (n, row)
+        assert row["f32_rel"] <= smoke.LM_SPMD_GRAD_LEAF_REL, (n, row)
+
+
+def test_blocked_gradient_peak_below_the_plain_gradient(blocked_grad_line):
+    """At 8192 tokens one bf16 backward of the op through the blocked
+    gradient peaks below the same op through the plain gradient, whose
+    [2, 8, 8192, 8192] float32 scores take 4.3 GB a tensor."""
+    peak = blocked_grad_line["backward_peak_bytes"]
+    assert max(peak["blocked"]) < min(peak["plain"]), peak
+    assert min(peak["plain"]) > 2 * 8 * 8192 ** 2 * 4, peak
+    assert blocked_grad_line["ok"]
+
+
 def test_dimenet_edge_sharded_cell_on_one_card_over_nccl(dev, tmp_path):
     """DimeNet's ogb_products cell cut by 48 through the edge-sharded route
     at a world of 1 over NCCL (every collective the identity)."""
@@ -2093,7 +2129,7 @@ def test_moe_train_cell_gradient_on_one_card_over_nccl(dev, tmp_path):
 def test_cuda_backend_ops_train_through_the_kernels(dev, case):
     """Under autograd the "cuda" backend ops (and ``padded_bag``'s "cuda"
     impl) launch their kernel forward (its counter moves once) and take
-    the plain op's gradient backward:
+    a reference op's gradient backward (attention: the blocked one's):
     float32 output within 1e-4 of the plain op's on the card (fp16 stores
     within one fp16 step), every input's gradient within 1e-4 of its
     largest value."""

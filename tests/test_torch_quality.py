@@ -342,14 +342,26 @@ def test_plain_backend_on_the_service_matches_jax(jax_index):
                                    np.asarray(r.scores), **TOL)
 
 
-@pytest.mark.parametrize("name", ["blocked", "pallas", "triton"])
+@pytest.mark.parametrize("name", ["pallas", "triton"])
 def test_unknown_backends_name_the_ports_two(name):
-    with pytest.raises(ValueError, match=r"\['cuda', 'plain'\]"):
+    with pytest.raises(ValueError,
+                       match=r"\['cuda', 'plain', 'blocked'\]"):
         impls_for(name)
     _, tcfg = _configs()
     with pytest.raises(ValueError, match="port's backends"):
         apply_backend(tcfg, name)
     assert apply_backend(tcfg.backbone, "plain").attn_impl == "plain"
+
+
+def test_blocked_backend_sets_blocked_attention_and_plain_compressor():
+    """The JAX package's default family: blocked attention, the plain
+    compressor (there is no blocked one), on a PreTTR config's backbone
+    and on a bare TransformerConfig."""
+    assert impls_for("blocked") == ("blocked", "plain")
+    _, tcfg = _configs()
+    for cfg in (apply_backend(tcfg, "blocked").backbone,
+                apply_backend(tcfg.backbone, "blocked")):
+        assert (cfg.attn_impl, cfg.compress_impl) == ("blocked", "plain")
 
 
 class _ShardView:

@@ -398,11 +398,13 @@ def test_kernel_wrappers_refuse_a_gradient(wrapper):
 def test_cuda_backend_ops_take_the_plain_gradient(case):
     """Under autograd the "cuda" backend ops (and ``padded_bag``'s "cuda"
     impl) run the kernel wrapper forward (its plain version on these CPU
-    tensors) and the plain op's
-    gradient backward (``models.backend._PlainGradient``): output within
-    TOL of the plain op's (fp16 stores within one fp16 step), and the
-    gradient by every float input equal to it, recomputed from the same
-    inputs; without a gradient to record the op runs the wrapper alone."""
+    tensors) and a reference op's gradient backward
+    (``models.backend._ReferenceGradient``: the blocked attention's at
+    ``block_kv`` 16, over 24 keys padded to 32, the other ops' plain
+    versions'): output within TOL of the plain op's (fp16 stores within
+    one fp16 step), and the gradient by every float input within TOL of
+    the plain op's, recomputed from the same inputs; without a gradient
+    to record the op runs the wrapper alone."""
     import _backend_ops as O
 
     got, got_g, _ = O.run(case, "cuda", "cpu")
